@@ -1,0 +1,50 @@
+"""Carry a configured potential's state across from the JAX package.
+
+`from_jax_arrays` takes the JAX MBPol's electrostatics parameters, PME
+setup and list capacities as plain numpy arrays and scalars (the caller
+extracts them; this module does not import jax) and returns the port's
+MBPol evaluating the same static shapes.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from mbpol_openmm_plugin_tpu_torch.models.pme import PmeSetup
+from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+from mbpol_openmm_plugin_tpu_torch.system import System
+
+
+def from_jax_arrays(system: System, config: MBPolConfig, *, thole, polarity, damping,
+                    mol_index, atom_type, charges, pme_alpha, pme_grid, pme_cutoff,
+                    pme_box, pair_cap=None, trip_cap=None, nlist_k_max=None,
+                    nlist_kt=None):
+    """The port's MBPol with the given electrostatics parameters
+    (`thole` [5], per-site `polarity`, `damping`, `mol_index`, `atom_type`,
+    `charges`), PME setup (alpha, grid, cutoff, box) and list capacities
+    (`pair_cap`, `trip_cap`, `nlist_k_max`, `nlist_kt`; None keeps the
+    analytic value)."""
+    pot = MBPol(system, config)
+    if pot.elec_params is not None:
+        n = system.n_atoms
+        arrays = dict(thole=np.asarray(thole, np.float64),
+                      polarity=np.asarray(polarity, np.float64),
+                      damping=np.asarray(damping, np.float64),
+                      mol_index=np.asarray(mol_index),
+                      atom_type=np.asarray(atom_type),
+                      charges=np.asarray(charges, np.float64))
+        for name, a in arrays.items():
+            want = (5,) if name == 'thole' else (n,)
+            if a.shape != want:
+                raise ValueError(f'{name} must have shape {want}, got {a.shape}')
+        pot.elec_params = dataclasses.replace(pot.elec_params, **arrays)
+        pot.pme = PmeSetup(alpha=float(pme_alpha), grid=tuple(int(g) for g in pme_grid),
+                           cutoff=float(pme_cutoff), box=tuple(float(b) for b in pme_box))
+    if pot.use_neighbor_lists:
+        for name, val in (('pair_cap', pair_cap), ('trip_cap', trip_cap),
+                          ('nlist_k_max', nlist_k_max), ('nlist_kt', nlist_kt)):
+            if val is not None:
+                setattr(pot, name, int(val))
+    return pot
+

@@ -1,0 +1,241 @@
+"""PME electrostatics, dense direct space
+(port of the dense branch of mbpol_openmm_plugin_tpu/models/pme.py).
+
+- order-5 B-spline spreading onto a 3D grid through separable one-hot
+  spline matrices, FFT convolution with the B-spline moduli and
+  exp(-pi^2 m^2/alpha^2), read-back of the potential and its derivatives;
+- direct-space pair work in ops/elec_direct (CUDA kernels on the card,
+  plain twins on the CPU);
+- induced-dipole SCF with direct + reciprocal + self fields, self energy,
+  and charge-derivative forces from the per-site potential.
+
+Not ported yet: the site-chunked grid pieces for very large N, the
+block-sparse and sparse direct-space modes, traced (barostat) boxes and
+meshes (see ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+
+import numpy as np
+import torch
+
+from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
+from mbpol_openmm_plugin_tpu_torch.ops import elec_direct
+from mbpol_openmm_plugin_tpu_torch.ops.bspline import ORDER, bspline5, bspline_moduli
+from mbpol_openmm_plugin_tpu_torch.utils import units
+
+_SQRT_PI = np.sqrt(np.pi)
+_NDERIV = 3   # spline value + 1st + 2nd derivative
+
+
+@dataclasses.dataclass(frozen=True)
+class PmeSetup:
+    """Static PME configuration."""
+    alpha: float                 # Ewald splitting parameter, 1/nm
+    grid: tuple                  # (nx, ny, nz)
+    cutoff: float                # direct-space cutoff, nm
+    box: tuple                   # (lx, ly, lz) nm
+
+    @classmethod
+    def from_config(cls, system, config):
+        """alpha/grid from the Ewald error tolerance when unset (OpenMM's
+        NonbondedForceImpl::calcPMEParameters)."""
+        tol = config.ewald_error_tolerance
+        cutoff = config.cutoff
+        box = tuple(float(b) for b in system.box)
+        alpha = config.ewald_alpha
+        if alpha is None:
+            alpha = np.sqrt(-np.log(2.0 * tol)) / cutoff
+        grid = config.pme_grid
+        if grid is None:
+            grid = tuple(int(np.ceil(2.0 * alpha * b / (3.0 * tol ** 0.2))) for b in box)
+        return cls(alpha=float(alpha), grid=tuple(int(g) for g in grid),
+                   cutoff=float(cutoff), box=box)
+
+
+def _spline_matrices(setup: PmeSetup, positions):
+    """Separable one-hot spline matrices (Sx [N, nx, 3], Sy [N, ny, 3],
+    Sz [N, nz, 3]): S[n, g, d] = d-th derivative coefficient of site n's
+    B-spline at grid line g (zero outside its 5-point support)."""
+    dt, dev = positions.dtype, positions.device
+    dims_i = torch.as_tensor(setup.grid, device=dev)
+    dims = dims_i.to(dt)
+    box = torch.as_tensor(setup.box, dtype=dt, device=dev)
+    pos = positions - torch.floor(positions / box + 0.5) * box
+    fr = dims * (pos / box + 0.5)
+    ifr = torch.floor(fr)
+    wfrac = fr - ifr
+    igrid = torch.remainder(ifr.to(torch.int64) - (ORDER - 1), dims_i)
+    theta = bspline5(wfrac)[..., :_NDERIV]        # [N, 3, 5, 3]
+    off = torch.arange(ORDER, device=dev)
+    out = []
+    for axis, nax in enumerate(setup.grid):
+        lines = torch.remainder(igrid[:, axis:axis + 1] + off[None], nax)     # [N, 5]
+        onehot = (lines[:, :, None] == torch.arange(nax, device=dev)).to(dt)
+        out.append(torch.einsum('nkg,nkd->ngd', onehot, theta[:, axis]))
+    return tuple(out)
+
+
+def _spread_separable(setup, wx, sy, sz):
+    """grid[g,h,k] = sum_n wx[n,g] sy[n,h] sz[n,k] as one matmul."""
+    nx, ny, nz = setup.grid
+    a = torch.einsum('nh,nk->nhk', sy, sz).reshape(-1, ny * nz)
+    return (wx.T @ a).reshape(nx, ny, nz)
+
+
+# phi component layout of the reference (cpp:1800-1819):
+# 0:000 1:100 2:010 3:001 4:200 5:020 6:002 7:110 8:101 9:011
+_PHI_COMP = [(0, 0, 0), (1, 0, 0), (0, 1, 0), (0, 0, 1), (2, 0, 0),
+             (0, 2, 0), (0, 0, 2), (1, 1, 0), (1, 0, 1), (0, 1, 1)]
+# Hessian component indices into phi10, per force dim
+_HESS = [[4, 7, 8], [7, 5, 9], [8, 9, 6]]
+
+
+def _readback_phi10(grid, Sx, Sy, Sz):
+    """phi10[n, q] = sum_{ghk} grid[g,h,k] Sx[n,g,a_q] Sy[n,h,b_q] Sz[n,k,c_q]:
+    the z contraction as [n, nz] @ [nz, nx*ny] matmuls, then multiply-reduces
+    over y and x."""
+    m = Sx.shape[0]
+    nx, ny, nz = grid.shape
+    gz = grid.reshape(nx * ny, nz).T
+    t1 = [(Sz[:, :, c] @ gz).reshape(m, nx, ny) for c in range(_NDERIV)]
+    t2 = {(b, c): torch.sum(t1[c] * Sy[:, None, :, b], dim=-1)
+          for (b, c) in sorted({(b, c) for _, b, c in _PHI_COMP})}
+    return torch.stack([torch.sum(t2[(b, c)] * Sx[:, :, a], dim=-1)
+                        for a, b, c in _PHI_COMP], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _eterm_static(setup: PmeSetup):
+    """m-vector grids and 1/(B-spline modulus product). The reciprocal form:
+    near the Nyquist modes of an odd-order spline the product b overflows
+    float32 (~1e51); 1/b underflows cleanly to 0, the correct limit."""
+    mods = bspline_moduli(setup.grid)
+
+    def mvec(n):
+        k = np.arange(n)
+        return np.where(k < (n + 1) // 2, k, k - n).astype(np.float64)
+
+    b = mods[0][:, None, None] * mods[1][None, :, None] * mods[2][None, None, :]
+    return tuple(mvec(n) for n in setup.grid) + (1.0 / b,)
+
+
+@functools.lru_cache(maxsize=None)
+def _eterm(setup: PmeSetup, dtype, device):
+    """Reciprocal convolution kernel on the grid (float64 host math, then
+    cast), for the static box."""
+    mx, my, mz, binv = _eterm_static(setup)
+    box = np.asarray(setup.box)
+    m2 = ((mx / box[0])[:, None, None] ** 2 + (my / box[1])[None, :, None] ** 2
+          + (mz / box[2])[None, None, :] ** 2)
+    expfac = np.pi * np.pi / (setup.alpha * setup.alpha)
+    scale = 1.0 / (np.pi * box[0] * box[1] * box[2])
+    m2safe = np.where(m2 > 0, m2, 1.0)
+    et = np.where(m2 > 0, scale * np.exp(-expfac * m2safe) / m2safe * binv, 0.0)
+    return torch.as_tensor(et, dtype=dtype, device=device)
+
+
+def _convolve(setup: PmeSetup, grid):
+    """Forward FFT, eterm multiply, unnormalized backward FFT (ifftn * Ntot,
+    the reference fftpack convention)."""
+    ntot = grid.numel()
+    gk = torch.fft.fftn(grid) * _eterm(setup, grid.dtype, grid.device)
+    return torch.real(torch.fft.ifftn(gk) * ntot)
+
+
+def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=None):
+    """PME energy (kJ/mol), forces (kJ/mol/nm) and diagnostics.
+
+    positions: [N,3] nm with M sites placed; mu0: optional dipole predictor
+    (ASPC) or warm start.
+    """
+    dt, dev = positions.dtype, positions.device
+    f_elec = units.ELECTRIC
+    alpha = setup.alpha
+    pscale = (torch.as_tensor(setup.grid, dtype=dt, device=dev)
+              / torch.as_tensor(setup.box, dtype=dt, device=dev))
+
+    charges, dq_w = elec.assemble_charges(params, positions)
+    alpha_pol = torch.as_tensor(params.polarity, dtype=dt, device=dev)
+
+    # ---- direct space: K1 (fixed field + SCF factor matrices) ----
+    consts = elec_direct.DirectConsts.from_setup(setup, params.thole)
+    d16_inv = torch.as_tensor(np.asarray(params.damping, np.float64) ** (-1.0 / 6.0),
+                              dtype=dt, device=dev)
+    sites = elec_direct.pack_sites(
+        positions, charges, d16_inv,
+        torch.as_tensor(np.asarray(params.mol_index), device=dev),
+        torch.as_tensor(np.asarray(params.atom_type) == 0, device=dev))
+    ef_direct, s3_dir, s5_dir = elec_direct.fixed_field_and_scf_factors(sites, consts)
+    delta = elec_direct.pair_delta(positions, setup.box)
+
+    # ---- grid machinery ----
+    Sx, Sy, Sz = _spline_matrices(setup, positions)
+    sx0, sy0, sz0 = Sx[..., 0], Sy[..., 0], Sz[..., 0]
+    sx1, sy1, sz1 = Sx[..., 1], Sy[..., 1], Sz[..., 1]
+
+    grid = _spread_separable(setup, charges[:, None] * sx0, sy0, sz0)
+    phi = _readback_phi10(_convolve(setup, grid), Sx, Sy, Sz)     # [N,10]
+
+    # ---- fixed field: reciprocal + direct ----
+    efield = -pscale[None, :] * phi[:, 1:4] + ef_direct
+
+    # ---- SCF ----
+    self_term = (4.0 / 3.0) * alpha ** 3 / _SQRT_PI
+
+    def mu_recip_phi(mu):
+        """Reciprocal phi10 of the dipole grid; the three derivative sources
+        spread as one concatenated matmul."""
+        smu = mu * pscale[None, :]
+        wx = torch.cat([smu[:, 0:1] * sx1, smu[:, 1:2] * sx0, smu[:, 2:3] * sx0], dim=0)
+        sy = torch.cat([sy0, sy1, sy0], dim=0)
+        sz = torch.cat([sz0, sz0, sz1], dim=0)
+        g = _spread_separable(setup, wx, sy, sz)
+        return _readback_phi10(_convolve(setup, g), Sx, Sy, Sz)
+
+    def field_fn(mu):
+        f = elec.dipole_field(mu, s3_dir, s5_dir, delta)
+        phid = mu_recip_phi(mu)
+        return f + (-pscale[None, :] * phid[:, 1:4] + self_term * mu)
+
+    scf = elec.make_scf(params)
+    mu, diag = scf(efield * alpha_pol[:, None], alpha_pol, field_fn,
+                   params.target_epsilon, params.max_iterations, mu0=mu0)
+
+    # ---- direct-space energy/forces/potential: K2 ----
+    e_direct, force_pair, pot = elec_direct.direct_energy_force_pot(
+        sites, mu.contiguous(), consts)
+    forces = -f_elec * force_pair
+
+    # ---- reciprocal fixed ----
+    e_recip_fixed = 0.5 * torch.sum(charges * phi[:, 0])
+    forces = forces - f_elec * (charges[:, None] * phi[:, 1:4] * pscale[None, :])
+    pot = pot + phi[:, 0]
+
+    # ---- reciprocal induced ----
+    phid = mu_recip_phi(mu)
+    smu = mu * pscale[None, :]
+    e_recip_ind = 0.5 * torch.sum(smu * phi[:, 1:4])
+    hess = torch.as_tensor(_HESS, device=dev)
+    f_ind = 2.0 * torch.einsum('ndk,nk->nd', phi[:, hess] + phid[:, hess], smu)
+    f_ind = f_ind + 2.0 * charges[:, None] * phid[:, 1:4]
+    forces = forces - 0.5 * f_elec * pscale[None, :] * f_ind
+    pot = pot + phid[:, 0]
+
+    # ---- self ----
+    e_self = -(alpha / _SQRT_PI) * torch.sum(charges * charges)
+    pot = pot + charges * (-2.0 * alpha / _SQRT_PI)
+
+    # ---- charge-derivative forces ----
+    if params.include_charge_redistribution and dq_w is not None:
+        nmol = len(params.o_index)
+        phi_sites = pot.reshape(nmol, 4)[:, 1:]
+        f_atoms = -f_elec * torch.einsum('masd,ms->mad', dq_w, phi_sites)
+        pad = torch.zeros((nmol, 1, 3), dtype=dt, device=dev)
+        forces = forces + torch.cat([f_atoms, pad], dim=1).reshape(-1, 3)
+
+    energy = f_elec * (e_direct + e_recip_fixed + e_recip_ind + e_self)
+    return energy, forces, dict(**diag, charges=charges, induced_dipoles=mu,
+                                site_potential=pot)

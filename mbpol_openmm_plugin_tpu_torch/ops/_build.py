@@ -1,0 +1,103 @@
+"""Build and load the hand-written CUDA kernels (csrc/*.cu).
+
+The sources are compiled at first use with nvcc into a shared library with
+a plain C interface, which is loaded with ctypes (no PyTorch headers, so a
+build takes seconds). The library lands in the package's `_build/`
+directory, keyed on a hash of the sources and the nvcc flags: a change to
+either triggers a rebuild. Nothing is downloaded; only the sources in this
+checkout are compiled.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+
+PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
+BUILD_DIR = os.path.join(PKG_DIR, '_build')
+
+NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+
+
+def _nvcc():
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    home = os.environ.get('CUDA_HOME', '/usr/local/cuda')
+    cand = os.path.join(home, 'bin', 'nvcc')
+    if os.path.exists(cand):
+        return cand
+    raise RuntimeError('nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin); '
+                       'the CUDA kernels are built from csrc/ with the CUDA toolkit')
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC_DIR, '*.cu'))
+                  + glob.glob(os.path.join(CSRC_DIR, '*.cuh')))
+
+
+def build_key():
+    """Hash of the kernel sources and the nvcc flags."""
+    h = hashlib.sha256(' '.join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, 'rb') as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def library_path():
+    return os.path.join(BUILD_DIR, f'libmbpol_kernels_{build_key()}.so')
+
+
+def build():
+    """Compile csrc/*.cu into the keyed shared library unless it exists.
+    Returns its path. Raises RuntimeError with nvcc's stderr on failure.
+    The compiler's resource report (-Xptxas -v: registers, spills) is kept
+    beside the library as <name>.log."""
+    out = library_path()
+    if os.path.exists(out):
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    cu = [p for p in _sources() if p.endswith('.cu')]
+    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{proc.stderr}')
+    with open(out[:-3] + '.log', 'w') as f:
+        f.write(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def load():
+    """The loaded kernel library (built on first use, then cached for the
+    process), with argtypes set."""
+    lib = ctypes.CDLL(build())
+    ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    consts = [f32] * 10     # alpha, cutoff^2, 5 Thole gammas, box
+    lib.mbpol_fixed_field_scf.argtypes = [ptr, i32, *consts, ptr, ptr, ptr, ptr]
+    lib.mbpol_fixed_field_scf.restype = i32
+    lib.mbpol_direct_efp.argtypes = [ptr, ptr, i32, *consts, ptr, ptr, ptr, ptr]
+    lib.mbpol_direct_efp.restype = i32
+    return lib
+
+
+def build_log():
+    """The compiler's resource report of the current build ('' if none)."""
+    log = library_path()[:-3] + '.log'
+    if not os.path.exists(log):
+        return ''
+    with open(log) as f:
+        return f.read()

@@ -1,0 +1,121 @@
+"""Acceptance checks of the direct-space CUDA kernels of ops/elec_direct.py
+against their plain twins, shared by chip_smoke.py and
+tests/test_torch_kernels_cuda.py.
+
+Each output is compared on sets of entries, each against the largest
+|twin| entry of its own set, so that no set's bound is scaled by another
+set's large entries:
+
+K1 s3/s5, entries between two polarizable sites (O, H; i != j). These
+are the entries the SCF dipole field uses. Held at REL (1e-5 of the
+set's max), and each entry also at |k - t64| <= ELEM * |t64| + 1e-7 * max
+against the float64 twin, so a few-percent error in one cross-molecule
+entry cannot hide under the set's largest (same-molecule O-H) entries.
+
+K1 s3/s5, entries with an M site. The SCF multiplies them by zero (M
+sites have zero polarizability, so mu_M = 0 and the field at M is never
+used). Their largest entries are same-molecule O-M pairs (r ~ 0.022 nm)
+where bn2 and (1 - s_dd5) rr5 cancel from ~1e9 to ~1e5, so any float32
+evaluation is ~1e-4 (s3) and ~5e-4 (s5) of the set's max from float64.
+Held at REL_M = 2e-3, and the kernel's error against the float64 twin at
+most twice the float32 twin's own (ACC).
+
+K1 field, rows of H and M sites: REL. Rows of O sites: every O row holds
+its own water's O-M pair, where the removal of the reciprocal-space term
+bn1 - rr3 cancels ~2.7e3 to ~1, so float32 is ~1e-5 to 2e-5 of the max
+from float64. Held at REL_O = 5e-5 and ACC.
+
+K2 e_direct at REL, force and pot at 1e-4 of their max.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mbpol_openmm_plugin_tpu_torch.ops.elec_direct import _ISO
+
+REL = 1e-5
+ELEM = 2e-5
+ELEM_FLOOR = 1e-7
+REL_M = 2e-3
+REL_O = 5e-5
+REL_K2 = {'e_direct': 1e-5, 'force': 1e-4, 'pot': 1e-4}
+ACC_FACTOR, ACC_FLOOR = 2.0, 1e-6
+
+
+@dataclasses.dataclass
+class Row:
+    output: str
+    entries: str
+    measure: str
+    value: float
+    bound: float
+
+    @property
+    def ok(self):
+        return self.value <= self.bound
+
+    def __str__(self):
+        return (f'{self.output:8s} {self.entries:22s} {self.measure:5s} {self.value:.3e} '
+                f'(bound {self.bound:.0e})  {"PASS" if self.ok else "FAIL"}')
+
+
+def _rel(k, t):
+    return float((k - t).abs().max() / t.abs().max().clamp_min(1e-30))
+
+
+def _elem(k, t64):
+    """max over entries of (|k - t64| - ELEM_FLOOR * max|t64|) / |t64|."""
+    t64 = t64.double()
+    excess = ((k.double() - t64).abs() - ELEM_FLOOR * t64.abs().max()).clamp_min(0.0)
+    return float((excess / t64.abs().clamp_min(1e-300)).max())
+
+
+def _acc(k, t, t64):
+    """Kernel error against float64 over the allowed one: ACC_FACTOR times
+    the float32 twin's own error, plus ACC_FLOOR of the max."""
+    t64 = t64.double()
+    allowed = (ACC_FACTOR * (t.double() - t64).abs().max()
+               + ACC_FLOOR * t64.abs().max())
+    return float((k.double() - t64).abs().max() / allowed.clamp_min(1e-300))
+
+
+def _rows(output, entries, k, t, t64, rel_bound, elem=False, acc=False):
+    rows = [Row(output, entries, 'rel', _rel(k, t), rel_bound)]
+    if elem:
+        rows.append(Row(output, entries, 'elem', _elem(k, t64), ELEM))
+    if acc:
+        rows.append(Row(output, entries, 'acc', _acc(k, t, t64), 1.0))
+    if not bool(torch.isfinite(k).all()):
+        rows.append(Row(output, entries, 'finite', float('inf'), 0.0))
+    return rows
+
+
+def k1_rows(sites, polarity, kern, twin, twin64):
+    """Rows of the K1 check. sites [N,8] packed sites, polarity [N];
+    kern/twin/twin64 = (field, s3, s5) of the kernel, the float32 twin
+    and the float64 twin on the same inputs."""
+    n = sites.shape[0]
+    pol = polarity.to(sites.device) > 0
+    is_o = sites[:, _ISO] > 0.5
+    notself = ~torch.eye(n, dtype=torch.bool, device=sites.device)
+    pp = pol[:, None] & pol[None, :] & notself
+    with_m = ~(pol[:, None] & pol[None, :]) & notself
+    rows = []
+    for name, k, t, t64 in zip(('s3', 's5'), kern[1:], twin[1:], twin64[1:]):
+        rows += _rows(name, 'polarizable pairs', k[pp], t[pp], t64[pp], REL, elem=True)
+        rows += _rows(name, 'pairs with an M site', k[with_m], t[with_m], t64[with_m],
+                      REL_M, acc=True)
+    k, t, t64 = kern[0], twin[0], twin64[0]
+    rows += _rows('field', 'H and M rows', k[~is_o], t[~is_o], t64[~is_o], REL)
+    rows += _rows('field', 'O rows', k[is_o], t[is_o], t64[is_o], REL_O, acc=True)
+    return rows
+
+
+def k2_rows(kern, twin):
+    """Rows of the K2 check: (e_direct, force, pot) of kernel and twin."""
+    rows = []
+    for name, k, t in zip(('e_direct', 'force', 'pot'), kern, twin):
+        rows += _rows(name, 'all', k, t, None, REL_K2[name])
+    return rows

@@ -1,0 +1,145 @@
+"""System topology and geometry helpers (port of mbpol_openmm_plugin_tpu/system.py).
+
+A `System` holds the static description (index arrays, classes, masses,
+box) as numpy arrays; positions are torch tensors [natoms, 3] in nm.
+Layout: each water contributes four sites [O, H1, H2, M]; monatomic ions
+(Cl-) follow as single sites.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from mbpol_openmm_plugin_tpu_torch import ROADMAP_HINT, _data
+
+# atom class codes (order of the dispersion C6/d6 tables)
+CLASS_O, CLASS_H, CLASS_M, CLASS_CL = 0, 1, 2, 3
+# CODATA deuterium atomic mass (amu)
+MASS_D = 2.01410177812
+
+
+@dataclasses.dataclass(frozen=True)
+class System:
+    """Static topology of a (water + optional Cl-) system."""
+    n_waters: int
+    n_ions: int
+    atom_class: np.ndarray          # [natoms] int32, CLASS_*
+    mol_index: np.ndarray           # [natoms] int32
+    masses: np.ndarray              # [natoms] float64 (amu); M sites have 0
+    o_index: np.ndarray             # [n_waters] int32
+    h1_index: np.ndarray
+    h2_index: np.ndarray
+    m_index: np.ndarray
+    ion_index: np.ndarray           # [n_ions] int32
+    box: Optional[np.ndarray]       # [3] nm (orthorhombic) or None
+
+    @property
+    def n_atoms(self):
+        return len(self.atom_class)
+
+    @property
+    def periodic(self):
+        return self.box is not None
+
+    def with_box(self, box):
+        box = None if box is None else np.asarray(box, np.float64)
+        return dataclasses.replace(self, box=box)
+
+    @classmethod
+    def waters(cls, n_waters, n_ions=0, box=None, isotope='H2O'):
+        """Standard layout: n_waters x [O,H1,H2,M] then n_ions x [Cl].
+        isotope: 'H2O', 'D2O' or 'HDO' (H1 -> D); only the masses differ."""
+        ff = _data.load('forcefield')
+        m_h1 = m_h2 = float(ff['mass_H'])
+        if isotope == 'D2O':
+            m_h1 = m_h2 = MASS_D
+        elif isotope == 'HDO':
+            m_h1 = MASS_D
+        elif isotope != 'H2O':
+            raise ValueError(f'unknown isotope {isotope!r}')
+        base = 4 * np.arange(n_waters, dtype=np.int32)
+        atom_class = np.concatenate([
+            np.tile([CLASS_O, CLASS_H, CLASS_H, CLASS_M], n_waters),
+            np.full(n_ions, CLASS_CL)]).astype(np.int32)
+        mol_index = np.concatenate([
+            np.repeat(np.arange(n_waters), 4),
+            n_waters + np.arange(n_ions)]).astype(np.int32)
+        masses = np.concatenate([
+            np.tile([ff['mass_O'], m_h1, m_h2, ff['mass_M']], n_waters),
+            np.full(n_ions, ff['mass_Cl'])]).astype(np.float64)
+        return cls(
+            n_waters=n_waters, n_ions=n_ions,
+            atom_class=atom_class, mol_index=mol_index, masses=masses,
+            o_index=base, h1_index=base + 1, h2_index=base + 2, m_index=base + 3,
+            ion_index=(4 * n_waters + np.arange(n_ions, dtype=np.int32)),
+            box=None if box is None else np.asarray(box, np.float64))
+
+    @classmethod
+    def from_atom_names(cls, names, resnames, box=None, isotope='H2O'):
+        """Build from PDB-style atom/residue names (O,H1,H2,M per HOH
+        residue, optional Cl residues)."""
+        names = [str(n) for n in names]
+        resnames = [str(r) for r in resnames]
+        n_waters = sum(1 for n, r in zip(names, resnames) if r == 'HOH' and n == 'O')
+        n_ions = sum(1 for r in resnames if r in ('Cl', 'CL', 'CL-'))
+        expected = [n for _ in range(n_waters) for n in ('O', 'H1', 'H2', 'M')]
+        got = [n for n, r in zip(names, resnames) if r == 'HOH']
+        if got != expected:
+            raise ValueError('unsupported atom ordering; expected O,H1,H2,M per water')
+        return cls.waters(n_waters, n_ions, box=box, isotope=isotope)
+
+
+def _contiguous_waters(system: System):
+    """True for the standard stride-4 OHHM block."""
+    n = system.n_waters
+    return bool(np.array_equal(system.o_index, 4 * np.arange(n)))
+
+
+def _water_blocks(system: System, positions):
+    """[n_waters, 4, 3] view of the standard water-only layout (the only one
+    ported; ions and other orderings are not, see ROADMAP.md)."""
+    if system.n_ions or not _contiguous_waters(system):
+        raise NotImplementedError(f'ions and non-standard site layouts: {ROADMAP_HINT}')
+    return positions.reshape(system.n_waters, 4, 3)
+
+
+def compute_virtual_sites(system: System, positions):
+    """Place each water's M site: weights (w1, w2, w3) over (O, H1, H2).
+    Differentiable."""
+    w1, w2, w3 = (float(w) for w in _data.load('forcefield')['vsite_weights'])
+    p4 = _water_blocks(system, positions)
+    m = w1 * p4[:, 0] + w2 * p4[:, 1] + w3 * p4[:, 2]
+    return torch.cat([p4[:, :3], m[:, None]], dim=1).reshape(-1, 3)
+
+
+def water_positions(system: System, positions):
+    """[n_waters, 3, 3] (O,H1,H2) position blocks."""
+    return _water_blocks(system, positions)[:, :3]
+
+
+def box_tensor(box, like):
+    return torch.as_tensor(np.asarray(box, np.float64), dtype=like.dtype,
+                           device=like.device)
+
+
+def make_molecules_whole(system: System, positions):
+    """Image each water's hydrogens (and M) next to its oxygen. A no-op for
+    whole molecules and non-periodic systems."""
+    if not system.periodic:
+        return positions
+    box = box_tensor(system.box, positions)
+    p4 = _water_blocks(system, positions)
+    o = p4[:, 0:1]
+    rest = p4[:, 1:] + torch.floor((o - p4[:, 1:]) / box + 0.5) * box
+    return torch.cat([o, rest], dim=1).reshape(-1, 3)
+
+
+def minimum_image(delta, box):
+    """Minimum-image displacement, delta -= floor(delta/box + 0.5) * box."""
+    if box is None:
+        return delta
+    b = box_tensor(box, delta)
+    return delta - torch.floor(delta / b + 0.5) * b

@@ -1,0 +1,188 @@
+"""Where the time of a water256 MD step goes, on one CUDA card.
+
+    python -m mbpol_openmm_plugin_tpu_torch.tools.step_breakdown [--reps 10] [--steps 20] [--out FILE]
+
+At the production operating point (MBPolConfig.for_dynamics(), float32,
+the tests/fixtures water256 box) it reports:
+
+1. pieces of one warm evaluation, each the median of --reps calls timed on
+   the host clock around a synchronized call: the whole evaluation with
+   prebuilt lists and an ASPC predictor, PME electrostatics, the DMS charges
+   with dq/dr, the one-, two- and three-body terms and dispersion (forward
+   and backward), the neighbor-list build, and the K1/K2 wrapper calls;
+2. Simulation.step under torch.profiler, run for --steps and for 2 x
+   --steps steps. The difference of the two runs is --steps steps without
+   the fixed cost of a call (the converged evaluations at the chunk start
+   and end): per step, its wall time, the device kernels launched, their
+   summed device time, and the device's busy share (summed kernel time
+   over wall time; the kernels run on one stream, so they do not overlap).
+
+Prints a table and one JSON object as the last line (also written to
+--out), with the card's name and power limit.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'water256_integration_test.npz')
+BOX = 19.3996888399961804 / 10.0
+
+
+def card_line():
+    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(fn, reps):
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def _fwd_bwd(term, pos):
+    def run():
+        p = pos.clone().requires_grad_(True)
+        torch.autograd.grad(term(p), p)
+    return run
+
+
+def pieces(pot, pos, reps):
+    from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
+    from mbpol_openmm_plugin_tpu_torch.models import pme as pme_mod
+    from mbpol_openmm_plugin_tpu_torch.models.dispersion import dispersion_energy
+    from mbpol_openmm_plugin_tpu_torch.models.one_body import one_body_energy
+    from mbpol_openmm_plugin_tpu_torch.models.three_body import three_body_energy
+    from mbpol_openmm_plugin_tpu_torch.models.two_body import two_body_energy
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.system import compute_virtual_sites, water_positions
+
+    sys_, cfg, params = pot.system, pot.config, pot.elec_params
+    (pl, tl), _ = pot.build_neighbor_lists(pos)
+    mu0 = pot._energy_forces_impl(pos)[3]['induced_dipoles']
+    pos_v = compute_virtual_sites(sys_, pos)
+    charges, _ = elec.assemble_charges(params, pos_v)
+    consts = ED.DirectConsts.from_setup(pot.pme, params.thole)
+    dev = pos.device
+    sites = ED.pack_sites(
+        pos_v, charges,
+        torch.as_tensor(np.asarray(params.damping) ** (-1.0 / 6.0), dtype=pos.dtype, device=dev),
+        torch.as_tensor(params.mol_index, device=dev),
+        torch.as_tensor(params.atom_type == 0, device=dev))
+
+    def no_grad(fn):
+        def run():
+            with torch.no_grad():
+                fn()
+        return run
+
+    table = {
+        'evaluation (ASPC, prebuilt lists)': lambda: pot._energy_forces_impl(pos, mu0, (pl, tl)),
+        'PME electrostatics (ASPC)': no_grad(
+            lambda: pme_mod.pme_electrostatics(params, pot.pme, pos_v, mu0=mu0)),
+        'DMS charges + dq/dr': no_grad(lambda: elec.assemble_charges(params, pos_v)),
+        'three-body fwd+bwd': _fwd_bwd(
+            lambda p: three_body_energy(sys_, compute_virtual_sites(sys_, p), tl[0], tl[1]), pos),
+        'two-body fwd+bwd': _fwd_bwd(
+            lambda p: two_body_energy(sys_, compute_virtual_sites(sys_, p), pl[0], pl[1]), pos),
+        'one-body fwd+bwd': _fwd_bwd(
+            lambda p: torch.sum(one_body_energy(water_positions(sys_, p))), pos),
+        'dispersion fwd+bwd': _fwd_bwd(
+            lambda p: dispersion_energy(sys_, compute_virtual_sites(sys_, p), cutoff=cfg.cutoff,
+                                        switch_width=cfg.dispersion_switch_width), pos),
+        'neighbor-list build': lambda: pot.build_neighbor_lists(pos),
+        'K1 wrapper call': lambda: ED.fixed_field_and_scf_factors(sites, consts),
+        'K2 wrapper call': lambda: ED.direct_energy_force_pot(sites, mu0.contiguous(), consts),
+    }
+    return {name: median_ms(fn, reps) for name, fn in table.items()}
+
+
+def profiled_steps(sim, n):
+    """Wall seconds, device kernels and summed device microseconds of
+    sim.step(n) under torch.profiler, and the per-kernel totals."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        sim.step(n)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    per_kernel = {}
+    for ev in prof.key_averages():
+        us = ev.device_time_total
+        if us > 0:
+            per_kernel[ev.key] = (ev.count, us)
+    return wall, per_kernel
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--reps', type=int, default=10)
+    ap.add_argument('--steps', type=int, default=20)
+    ap.add_argument('--out', default=None)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise SystemExit('step_breakdown needs a CUDA card')
+
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.system import (System, compute_virtual_sites,
+                                                      make_molecules_whole)
+    card = card_line()
+    dev = torch.device('cuda')
+    with np.load(FIXTURE) as z:
+        system = System.from_atom_names(z['names'], z['resnames'], box=[BOX] * 3)
+        pos = torch.as_tensor(np.array(z['positions']), dtype=torch.float32, device=dev)
+    pos = compute_virtual_sites(system, make_molecules_whole(system, pos))
+    pot = MBPol(system, MBPolConfig.for_dynamics())
+
+    ms = pieces(pot, pos, args.reps)
+    print(f'pieces of one evaluation, median of {args.reps} synchronized calls ({card}):')
+    for name, v in ms.items():
+        print(f'  {name:36s} {v:9.3f} ms')
+
+    sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    sim.set_positions(pos)
+    sim.step(2)                                         # warm-up
+    wall_a, ker_a = profiled_steps(sim, args.steps)
+    wall_b, ker_b = profiled_steps(sim, 2 * args.steps)
+    n = args.steps
+    launches = (sum(c for c, _ in ker_b.values()) - sum(c for c, _ in ker_a.values())) / n
+    dev_ms = (sum(u for _, u in ker_b.values()) - sum(u for _, u in ker_a.values())) / n / 1e3
+    step_ms = (wall_b - wall_a) / n * 1e3
+    top = sorted(ker_b.items(), key=lambda kv: -kv[1][1])[:10]
+    print(f'per MD step (difference of {2 * n} and {n} profiled steps; {card}): '
+          f'wall {step_ms:.3f} ms, {launches:.1f} device kernels, device time {dev_ms:.3f} ms, '
+          f'busy {100 * dev_ms / step_ms:.1f}%')
+    print(f'largest device items over {2 * n} steps (count, ms):')
+    for key, (c, us) in top:
+        print(f'  {c:7d} {us / 1e3:9.3f}  {key[:90]}')
+    result = dict(card=card, reps=args.reps, steps=n, pieces_ms=ms, step_wall_ms=step_ms,
+                  kernels_per_step=launches, device_ms_per_step=dev_ms,
+                  busy_share=dev_ms / step_ms,
+                  top_device_items=[dict(name=k[:120], count=c, ms=us / 1e3)
+                                    for k, (c, us) in top])
+    line = json.dumps(result)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, 'w') as f:
+            f.write(line + '\n')
+    print(line)
+
+
+if __name__ == '__main__':
+    main()
