@@ -19,13 +19,16 @@ from mbpol_openmm_plugin_tpu_torch.system import System
 def from_jax_arrays(system: System, config: MBPolConfig, *, thole, polarity, damping,
                     mol_index, atom_type, charges, pme_alpha, pme_grid, pme_cutoff,
                     pme_box, pair_cap=None, trip_cap=None, nlist_k_max=None,
-                    nlist_kt=None):
-    """The port's MBPol with the given electrostatics parameters
-    (`thole` [5], per-site `polarity`, `damping`, `mol_index`, `atom_type`,
-    `charges`), PME setup (alpha, grid, cutoff, box) and list capacities
-    (`pair_cap`, `trip_cap`, `nlist_k_max`, `nlist_kt`; None keeps the
-    analytic value)."""
-    pot = MBPol(system, config)
+                    nlist_kt=None, disp_pair_cap=None, site_perm=None,
+                    tile_pair_capacity=None, device='cuda'):
+    """The port's MBPol on `device` with the given electrostatics
+    parameters (`thole` [5], per-site `polarity`, `damping`, `mol_index`,
+    `atom_type`, `charges`), PME setup (alpha, grid, cutoff, box), list
+    capacities (`pair_cap`, `trip_cap`, `nlist_k_max`, `nlist_kt`,
+    `disp_pair_cap`) and block-mode layout (`site_perm`, the JAX
+    `_block_info['site_perm']`, and `tile_pair_capacity`); None keeps the
+    port's own value."""
+    pot = MBPol(system, config, device=device)
     if pot.elec_params is not None:
         n = system.n_atoms
         arrays = dict(thole=np.asarray(thole, np.float64),
@@ -46,5 +49,12 @@ def from_jax_arrays(system: System, config: MBPolConfig, *, thole, polarity, dam
                           ('nlist_k_max', nlist_k_max), ('nlist_kt', nlist_kt)):
             if val is not None:
                 setattr(pot, name, int(val))
+    if disp_pair_cap is not None and pot.disp_mode == 'pairs':
+        pot.disp_pair_cap = int(disp_pair_cap)
+    if pot.elec_mode == 'block' and (site_perm is not None or tile_pair_capacity is not None):
+        info = pot._block_info
+        pot._set_block_perm(info['site_perm'] if site_perm is None else site_perm,
+                            info['tile_pair_capacity'] if tile_pair_capacity is None
+                            else tile_pair_capacity)
     return pot
 

@@ -68,7 +68,9 @@ class Simulation:
         self.state: Optional[I.MDState] = None
 
     def set_positions(self, positions):
-        """Start from `positions` at rest, with a converged evaluation."""
+        """Start from `positions` (numpy or tensor; moved to the potential's
+        device) at rest, with a converged evaluation."""
+        positions = self.potential.as_positions(positions)
         e, f, _, _ = self.potential.energy_forces(positions)
         self.state = I.MDState(positions=positions, velocities=torch.zeros_like(positions),
                                forces=f, potential_energy=e, step=0)
@@ -88,7 +90,8 @@ class Simulation:
         return nl_carry
 
     def _chunk(self, state, n_steps):
-        """n_steps Verlet steps. Returns (state, per-step PE [n], overflow)."""
+        """n_steps Verlet steps. Returns (state, per-step PE [n], per-step
+        KE [n], overflow)."""
         pot = self.potential
         cfg = self.config
         auto_nl = pot.use_neighbor_lists and cfg.nlist_rebuild_interval == 'auto'
@@ -110,49 +113,61 @@ class Simulation:
             ovf = d['pair_overflow'] | d['triplet_overflow']
             nl_carry = ((pl, tl), state.positions, ovf)
 
-        pes = []
+        pes, kes = [], []
+        step_ovf = torch.zeros_like(ovf)
         for _ in range(n_steps):
             mu0 = torch.einsum('h,hnd->nd', B, mu) if aspc else None
             out = {}
 
             def ef(p):
-                nonlocal nl_carry
+                nonlocal nl_carry, step_ovf
                 nl = None
                 if nl_carry is not None:
                     nl_carry = self._auto_rebuild(nl_carry, p)
                     nl = nl_carry[0]
                 e, f, _, diag = pot._energy_forces_impl(p, mu0, nlists=nl)
                 out['mu'] = diag.get('induced_dipoles')
+                # lists built inside the evaluation (dispersion pairs, tiles)
+                for k, v in diag.items():
+                    if k.endswith('_overflow'):
+                        step_ovf = step_ovf | v
                 return e, f
 
             state = I.velocity_verlet_step(self.system, ef, state, cfg.dt)
             if aspc:
                 mu = torch.cat([out['mu'][None], mu[:-1]], dim=0)
             pes.append(state.potential_energy)
+            kes.append(I.kinetic_energy(self.system, state.velocities))
         if nl_carry is not None:
             ovf = nl_carry[2]
-        return state, torch.stack(pes), ovf
+        return state, torch.stack(pes), torch.stack(kes), ovf | step_ovf
 
     def step(self, n_steps, report_interval=None, check_health=True):
         """Advance n_steps. Returns per-report-interval metrics (potential,
-        kinetic and total energy in kJ/mol, temperature in K).
+        kinetic and total energy in kJ/mol, temperature in K), and
+        `step_total_energy` [n_steps + 1], the total energy before the first
+        step and after each step (kJ/mol).
 
         With check_health=True, raises RuntimeError at a report boundary if
-        the energy went NaN, a list rebuild overflowed, or a converged
+        the energy went NaN, a list or tile-pair list overflowed during the
+        chunk, or a converged
         diagnostic evaluation of the current positions fails its SCF or
         overflows."""
         report_interval = report_interval or n_steps
         pes, kes, steps = [], [], []
+        e_steps = [float(self.state.potential_energy)
+                   + float(I.kinetic_energy(self.system, self.state.velocities))]
         remaining = n_steps
         while remaining > 0:
             chunk = min(report_interval, remaining)
-            self.state, pe, nl_ovf = self._chunk(self.state, chunk)
+            self.state, pe, ke, nl_ovf = self._chunk(self.state, chunk)
             pe_host = pe.cpu().numpy()
+            e_steps.extend(pe_host + ke.cpu().numpy())
             if check_health:
                 if bool(nl_ovf):
                     raise RuntimeError(
-                        f'neighbor-list overflow during a chunk rebuild by step '
-                        f'{self.state.step}: raise the capacities')
+                        f'list or tile-pair overflow during the chunk ending at step '
+                        f'{self.state.step}: raise the capacities (tune_capacities)')
                 diag = self.potential._energy_forces_impl(self.state.positions)[3]
                 nan = np.isnan(pe_host)
                 if nan.any() or not bool(health_flag(diag)):
@@ -160,9 +175,9 @@ class Simulation:
                           if nan.any() else self.state.step)
                     raise RuntimeError(
                         'simulation health check failed at step %d: %s' %
-                        (at, {k: diag[k] for k in ('converged', 'iterations', 'epsilon',
-                                                   'pair_overflow', 'triplet_overflow')
-                              if k in diag}))
+                        (at, {k: v for k, v in diag.items()
+                              if k in ('converged', 'iterations', 'epsilon')
+                              or k.endswith('_overflow')}))
             pes.append(float(pe_host[-1]))
             kes.append(float(I.kinetic_energy(self.system, self.state.velocities)))
             steps.append(self.state.step)
@@ -171,5 +186,5 @@ class Simulation:
         pes = np.asarray(pes)
         kes = np.asarray(kes)
         return dict(step=np.asarray(steps), potential_energy=pes, kinetic_energy=kes,
-                    total_energy=pes + kes,
+                    total_energy=pes + kes, step_total_energy=np.asarray(e_steps),
                     temperature=2.0 * kes / (ndof * units.BOLTZMANN_KJ_MOL_K))

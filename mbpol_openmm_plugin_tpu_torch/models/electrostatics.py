@@ -175,9 +175,10 @@ def assemble_charges(params: ElecParams, positions):
 
 def dipole_field(mu, s3, s5, delta):
     """Field at i from dipoles at j: sum_j s3_ij mu_j + s5_ij (mu_j . D_ij) D_ij
-    with D = delta (r_j - r_i). s3/s5 carry signs and r powers."""
-    proj = torch.einsum('ijd,jd->ij', delta, mu)
-    return s3 @ mu + torch.einsum('ij,ijd->id', s5 * proj, delta)
+    with D = delta (r_j - r_i). s3/s5 carry signs and r powers. Leading
+    batch dimensions are allowed (the block-sparse twin passes [c, ...])."""
+    proj = torch.einsum('...ijd,...jd->...ij', delta, mu)
+    return s3 @ mu + torch.einsum('...ij,...ijd->...id', s5 * proj, delta)
 
 
 def f32_eps_floor(override=None):

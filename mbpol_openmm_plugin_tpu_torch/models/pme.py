@@ -1,17 +1,20 @@
-"""PME electrostatics, dense direct space
-(port of the dense branch of mbpol_openmm_plugin_tpu/models/pme.py).
+"""PME electrostatics, dense and block-sparse direct space
+(port of the single-device dense and block branches of
+mbpol_openmm_plugin_tpu/models/pme.py).
 
 - order-5 B-spline spreading onto a 3D grid through separable one-hot
   spline matrices, FFT convolution with the B-spline moduli and
   exp(-pi^2 m^2/alpha^2), read-back of the potential and its derivatives;
-- direct-space pair work in ops/elec_direct (CUDA kernels on the card,
-  plain twins on the CPU);
+- direct-space pair work in ops/elec_direct (dense: [N, N] SCF factor
+  matrices) or ops/elec_direct_bs (block: sites sorted by a static
+  permutation, s3/s5 kept only for active 256 x 256 tile pairs, and the
+  SCF dipole field through the block kernel); CUDA kernels on the card,
+  plain twins on the CPU;
 - induced-dipole SCF with direct + reciprocal + self fields, self energy,
   and charge-derivative forces from the per-site potential.
 
-Not ported yet: the site-chunked grid pieces for very large N, the
-block-sparse and sparse direct-space modes, traced (barostat) boxes and
-meshes (see ROADMAP.md).
+Not ported yet: the site-chunked grid pieces for very large N, the sparse
+direct-space mode, traced (barostat) boxes and meshes (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ import torch
 
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.ops import elec_direct
+from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
 from mbpol_openmm_plugin_tpu_torch.ops.bspline import ORDER, bspline5, bspline_moduli
 from mbpol_openmm_plugin_tpu_torch.utils import units
 
@@ -145,11 +149,53 @@ def _convolve(setup: PmeSetup, grid):
     return torch.real(torch.fft.ifftn(gk) * ntot)
 
 
-def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=None):
+def block_info(site_perm, capacity, device):
+    """The block-mode layout: the static site permutation (numpy and on
+    `device`, with its inverse) and the tile-pair list capacity."""
+    site_perm = np.asarray(site_perm, np.int64)
+    inv = np.empty_like(site_perm)
+    inv[site_perm] = np.arange(len(site_perm))
+    return dict(site_perm=site_perm, site_perm_inv=inv, tile_pair_capacity=int(capacity),
+                perm=torch.as_tensor(site_perm, device=device),
+                inv=torch.as_tensor(inv, device=device))
+
+
+def site_tables(params: elec.ElecParams, dtype, device):
+    """The per-site tables of the direct space and the SCF on the device:
+    damping^(-1/6), molecule ids, oxygen flags and polarizabilities (MBPol
+    builds them once and passes them in)."""
+    return dict(
+        d16_inv=torch.as_tensor(np.asarray(params.damping, np.float64) ** (-1.0 / 6.0),
+                                dtype=dtype, device=device),
+        mol=torch.as_tensor(np.asarray(params.mol_index), device=device),
+        is_o=torch.as_tensor(np.asarray(params.atom_type) == 0, device=device),
+        polarity=torch.as_tensor(params.polarity, dtype=dtype, device=device))
+
+
+def block_sites(params: elec.ElecParams, setup: PmeSetup, positions, charges, block,
+                tables=None):
+    """Block mode's direct-space inputs: the packed sites in the static
+    sorted order, padded to whole tiles, and their active tile-pair list."""
+    if tables is None:
+        tables = site_tables(params, positions.dtype, positions.device)
+    d16_inv, mol, is_o = tables['d16_inv'], tables['mol'], tables['is_o']
+    perm = block['perm']
+    sites = bs.pack_sites(positions[perm], charges[perm], d16_inv[perm], mol[perm], is_o[perm])
+    tiles = bs.active_tile_pairs(sites[:, :3], positions.shape[0], setup.box, setup.cutoff,
+                                 block['tile_pair_capacity'])
+    return sites, tiles
+
+
+def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=None,
+                       block=None, tables=None):
     """PME energy (kJ/mol), forces (kJ/mol/nm) and diagnostics.
 
     positions: [N,3] nm with M sites placed; mu0: optional dipole predictor
-    (ASPC) or warm start.
+    (ASPC) or warm start; block: a `block_info` dict for the block-sparse
+    direct space (None: dense); tables: `site_tables` of params on the
+    positions' device (built here when None). Block mode never builds an
+    [N, N] tensor and adds elec_tile_pairs / elec_tile_overflow to the
+    diagnostics.
     """
     dt, dev = positions.dtype, positions.device
     f_elec = units.ELECTRIC
@@ -158,18 +204,41 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
               / torch.as_tensor(setup.box, dtype=dt, device=dev))
 
     charges, dq_w = elec.assemble_charges(params, positions)
-    alpha_pol = torch.as_tensor(params.polarity, dtype=dt, device=dev)
+    if tables is None:
+        tables = site_tables(params, dt, dev)
+    alpha_pol = tables['polarity']
 
-    # ---- direct space: K1 (fixed field + SCF factor matrices) ----
+    # ---- direct space: K1 (fixed field + SCF factors) ----
     consts = elec_direct.DirectConsts.from_setup(setup, params.thole)
-    d16_inv = torch.as_tensor(np.asarray(params.damping, np.float64) ** (-1.0 / 6.0),
-                              dtype=dt, device=dev)
-    sites = elec_direct.pack_sites(
-        positions, charges, d16_inv,
-        torch.as_tensor(np.asarray(params.mol_index), device=dev),
-        torch.as_tensor(np.asarray(params.atom_type) == 0, device=dev))
-    ef_direct, s3_dir, s5_dir = elec_direct.fixed_field_and_scf_factors(sites, consts)
-    delta = elec_direct.pair_delta(positions, setup.box)
+    n = positions.shape[0]
+    bs_diag = {}
+    if block is None:
+        sites = elec_direct.pack_sites(positions, charges, tables['d16_inv'], tables['mol'],
+                                       tables['is_o'])
+        ef_direct, s3_dir, s5_dir = elec_direct.fixed_field_and_scf_factors(sites, consts)
+        delta = elec_direct.pair_delta(positions, setup.box)
+
+        def direct_field(mu):
+            return elec.dipole_field(mu, s3_dir, s5_dir, delta)
+
+        def direct_efp(mu):
+            return elec_direct.direct_energy_force_pot(sites, mu.contiguous(), consts)
+    else:
+        perm, inv = block['perm'], block['inv']
+        sites, tiles = block_sites(params, setup, positions, charges, block, tables)
+        bs_diag = dict(elec_tile_pairs=tiles.n_act,
+                       elec_tile_overflow=tiles.n_act > tiles.capacity)
+        ef_s, s3_blk, s5_blk = bs.fixed_field_and_scf_blocks(sites, n, tiles, consts)
+        ef_direct = ef_s[inv]
+
+        def direct_field(mu):
+            mu_pad = bs.pad_rows(mu[perm], sites.shape[0])
+            return bs.scf_dipole_field_bs(sites, s3_blk, s5_blk, mu_pad, tiles, n, consts)[inv]
+
+        def direct_efp(mu):
+            e, f_s, pot_s = bs.direct_energy_force_pot_bs(sites, mu[perm].contiguous(), n,
+                                                          tiles, consts)
+            return e, f_s[inv], pot_s[inv]
 
     # ---- grid machinery ----
     Sx, Sy, Sz = _spline_matrices(setup, positions)
@@ -196,7 +265,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
         return _readback_phi10(_convolve(setup, g), Sx, Sy, Sz)
 
     def field_fn(mu):
-        f = elec.dipole_field(mu, s3_dir, s5_dir, delta)
+        f = direct_field(mu)
         phid = mu_recip_phi(mu)
         return f + (-pscale[None, :] * phid[:, 1:4] + self_term * mu)
 
@@ -204,9 +273,10 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     mu, diag = scf(efield * alpha_pol[:, None], alpha_pol, field_fn,
                    params.target_epsilon, params.max_iterations, mu0=mu0)
 
+    diag = dict(diag, **bs_diag)
+
     # ---- direct-space energy/forces/potential: K2 ----
-    e_direct, force_pair, pot = elec_direct.direct_energy_force_pot(
-        sites, mu.contiguous(), consts)
+    e_direct, force_pair, pot = direct_efp(mu)
     forces = -f_elec * force_pair
 
     # ---- reciprocal fixed ----

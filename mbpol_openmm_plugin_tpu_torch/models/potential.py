@@ -1,4 +1,4 @@
-"""The full MB-pol potential for the PME dense slice
+"""The full MB-pol potential for PME water boxes
 (port of mbpol_openmm_plugin_tpu/models/potential.py).
 
 Positions of the real atoms in, per-term energies and total forces out.
@@ -6,9 +6,19 @@ The smooth terms (one-body, 2B/3B PIPs, dispersion) get their forces from
 torch.autograd through the M-site placement; the electrostatic forces are
 explicit and the M-site share is redistributed with the average3 weights.
 
-Accepted here: PME, electrostatics_mode 'auto'/'dense', dispersion_mode
-'auto'/'dense', scf_method 'sor'/'aspc', analytic list capacities. Every
-other option raises NotImplementedError (see ROADMAP.md).
+Accepted here: PME; electrostatics_mode 'auto', 'dense' or 'block'
+(block-sparse direct space for large boxes); dispersion_mode 'auto',
+'dense' or 'pairs'; scf_method 'sor'/'aspc'; analytic list capacities or
+capacities tuned from a configuration (`tune_capacities`). 'auto' resolves
+as the JAX package does: dense up to 2560 waters where the CUDA kernels run
+(the potential's device is a card), 512 otherwise; above that 'block' with
+the kernels and 'sparse' without, and 'pairs' dispersion whenever the
+electrostatics leave 'dense'. Every other option ('sparse' included)
+raises NotImplementedError (see ROADMAP.md).
+
+The potential lives on one device (`device`, default 'cuda'; the tests
+pass 'cpu'): its entry points take numpy arrays or tensors and move them
+there. Without a card, the default device raises; nothing falls back.
 """
 from __future__ import annotations
 
@@ -21,19 +31,23 @@ import torch
 from mbpol_openmm_plugin_tpu_torch import ROADMAP_HINT, _data
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.models import pme as pme_mod
-from mbpol_openmm_plugin_tpu_torch.models.dispersion import dispersion_energy
+from mbpol_openmm_plugin_tpu_torch.models.dispersion import (PAIR_MARGIN, dispersion_energy,
+                                                              dispersion_energy_pairs)
 from mbpol_openmm_plugin_tpu_torch.models.one_body import one_body_energy
 from mbpol_openmm_plugin_tpu_torch.models.three_body import three_body_energy
 from mbpol_openmm_plugin_tpu_torch.models.two_body import two_body_energy
+from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
 from mbpol_openmm_plugin_tpu_torch.ops import neighbors
 from mbpol_openmm_plugin_tpu_torch.system import (System, _contiguous_waters,
                                                   compute_virtual_sites,
                                                   make_molecules_whole,
                                                   water_positions)
 
-# Dense direct space up to this many waters: the [N,N] s3/s5/delta tensors
-# are the only O(N^2) memory. Sized so that water256 resolves to 'dense';
-# re-deriving it for 80 GB of device memory is later work.
+# 'auto' keeps the dense direct space up to this many waters (the JAX
+# package's limits): with the CUDA kernels the only O(N^2) memory is
+# s3/s5/delta, ~44 bytes per site pair; without them the plain twins
+# materialize ~35 [N, N] tensors.
+DENSE_LIMIT_KERNELS = 2560
 DENSE_LIMIT = 512
 
 
@@ -92,11 +106,11 @@ def _check_config(system: System, config: MBPolConfig):
         raise _not_ported('cluster (NoCutoff) electrostatics')
     if 'electrostatics' in config.terms and system.n_ions:
         raise ValueError('MB-pol electrostatics supports water-only systems')
+    if config.electrostatics_mode not in ('auto', 'dense', 'block', 'sparse'):
+        raise ValueError(f'unknown electrostatics_mode {config.electrostatics_mode!r}')
+    if config.dispersion_mode not in ('auto', 'dense', 'pairs'):
+        raise ValueError(f'unknown dispersion_mode {config.dispersion_mode!r}')
     unsupported = [
-        (config.electrostatics_mode not in ('auto', 'dense'),
-         f'electrostatics_mode={config.electrostatics_mode!r}'),
-        (config.dispersion_mode not in ('auto', 'dense'),
-         f'dispersion_mode={config.dispersion_mode!r}'),
         (config.scf_method not in ('sor', 'aspc'), f'scf_method={config.scf_method!r}'),
         (system.n_ions > 0 or not _contiguous_waters(system),
          'ions and non-standard site layouts'),
@@ -106,22 +120,49 @@ def _check_config(system: System, config: MBPolConfig):
             raise _not_ported(what)
 
 
+def resolve_modes(system: System, config: MBPolConfig, has_pme, kernels):
+    """(electrostatics mode, dispersion mode) after resolving 'auto' as JAX
+    MBPol.__init__ does; `kernels`: the direct-space CUDA kernels run (the
+    device is a card), the counterpart of elec_pallas.use_pallas."""
+    mode = config.electrostatics_mode
+    if mode == 'auto':
+        dense_limit = DENSE_LIMIT_KERNELS if kernels else DENSE_LIMIT
+        if has_pme and system.n_waters > dense_limit:
+            mode = 'block' if kernels else 'sparse'
+        else:
+            mode = 'dense'
+    dmode = config.dispersion_mode
+    if dmode == 'auto':
+        # leave the dense [N,N] site grid exactly when electrostatics did
+        dmode = ('pairs' if mode in ('sparse', 'block') and system.periodic
+                 and system.n_ions == 0 and 'dispersion' in config.terms else 'dense')
+    return mode, dmode
+
+
 class MBPol:
     """MB-pol potential for a fixed topology.
 
-        pot = MBPol(system, MBPolConfig(nonbonded_method='PME'))
+        pot = MBPol(system, MBPolConfig(nonbonded_method='PME'))   # on the card
         energy, forces, parts, diag = pot.energy_forces(positions)
 
     `positions` are [natoms, 3] nm including M-site slots (overwritten by
-    the virtual-site placement).
+    the virtual-site placement), as a numpy array or a tensor; they are
+    moved to `device` in its dtype (float32 on a card, where the kernels
+    run, float64 on the CPU).
     """
 
-    def __init__(self, system: System, config: MBPolConfig = MBPolConfig()):
+    def __init__(self, system: System, config: MBPolConfig = MBPolConfig(), device='cuda'):
         _check_config(system, config)
+        self.device = torch.device(device)
+        if self.device.type == 'cuda' and not torch.cuda.is_available():
+            raise RuntimeError("MBPol: no CUDA device is available; pass device='cpu' to "
+                               'evaluate on the CPU')
+        self.dtype = torch.float32 if self.device.type == 'cuda' else torch.float64
         self.system = system
         self.config = config
         self.elec_params = None
         self.pme = None
+        self._tables = None
         if 'electrostatics' in config.terms:
             self.elec_params = elec.ElecParams.for_system(
                 system,
@@ -136,9 +177,28 @@ class MBPol:
                 self.elec_params = dataclasses.replace(
                     self.elec_params, thole=np.asarray(config.thole))
             self.pme = pme_mod.PmeSetup.from_config(system, config)
-            if system.n_waters > DENSE_LIMIT:
-                raise _not_ported(f'{system.n_waters} waters: the block/sparse '
-                                  f'electrostatics above {DENSE_LIMIT} waters')
+        self.elec_mode, self.disp_mode = resolve_modes(
+            system, config, self.pme is not None, kernels=self.device.type == 'cuda')
+        self._block_info = None
+        if self.elec_mode == 'sparse':
+            raise _not_ported(f"{system.n_waters} waters: electrostatics_mode='sparse' (the "
+                              'large-box mode without the CUDA kernels)')
+        if self.elec_mode == 'block':
+            if self.pme is None:
+                raise ValueError('block electrostatics requires PME')
+            # identity permutation until tune_capacities sees real positions;
+            # correctness never depends on the sort (only the tile-pair count)
+            n_sites = 4 * system.n_waters
+            self._set_block_perm(np.arange(n_sites),
+                                 bs.tile_pair_capacity(n_sites, system.box, config.cutoff))
+        self.disp_pair_cut = self.disp_pair_cap = None
+        if self.disp_mode == 'pairs':
+            if not system.periodic or system.n_ions:
+                raise ValueError("dispersion_mode='pairs' requires a periodic water-only system")
+            self.disp_pair_cut = config.cutoff + PAIR_MARGIN + config.nlist_skin
+            self.disp_pair_cap = neighbors.pair_capacity(
+                system.n_waters, system.box, self.disp_pair_cut,
+                factor=config.neighbor_capacity_factor)
         use_nl = config.use_neighbor_lists
         self.use_neighbor_lists = system.n_waters > 24 if use_nl is None else use_nl
         # triplet-build shape parameters (None = analytic bound)
@@ -150,6 +210,22 @@ class MBPol:
                 system.n_waters, box, config.cutoff_2b + config.nlist_skin, factor=f)
             self.trip_cap = neighbors.triplet_capacity(
                 system.n_waters, box, config.cutoff_3b + config.nlist_skin, factor=f)
+
+    def _set_block_perm(self, site_perm, cap):
+        self._block_info = pme_mod.block_info(site_perm, cap, self.device)
+
+    def _site_tables(self):
+        """The electrostatics parameters' per-site tables on the device,
+        rebuilt when elec_params is replaced (convert.from_jax_arrays)."""
+        if self._tables is None or self._tables[0] is not self.elec_params:
+            self._tables = (self.elec_params,
+                            pme_mod.site_tables(self.elec_params, self.dtype, self.device))
+        return self._tables[1]
+
+    def as_positions(self, positions):
+        """positions (numpy or tensor) as a tensor on the potential's device
+        and dtype."""
+        return torch.as_tensor(positions, dtype=self.dtype, device=self.device)
 
     def _neighbor_lists(self, positions):
         """Padded pair/triplet lists from the O positions, cutoffs + skin.
@@ -173,11 +249,12 @@ class MBPol:
 
     def build_neighbor_lists(self, positions):
         """Lists for reuse across MD steps (pair with nlist_skin > 0), built
-        on the positions' device. Returns ((pl, tl), diag)."""
-        pl, tl, diag = self._neighbor_lists(make_molecules_whole(self.system, positions))
+        on the potential's device. Returns ((pl, tl), diag)."""
+        pl, tl, diag = self._neighbor_lists(
+            make_molecules_whole(self.system, self.as_positions(positions)))
         return (pl, tl), diag
 
-    def _smooth_terms(self, positions, nlists=None):
+    def _smooth_terms(self, positions, nlists=None, disp_pairs=None):
         """Closed-form terms (1b/2b/3b/dispersion); differentiable."""
         cfg = self.config
         sys_ = self.system
@@ -193,8 +270,13 @@ class MBPol:
             parts['three_body'] = (three_body_energy(sys_, pos, tl[0], tl[1])
                                    if tl is not None else three_body_energy(sys_, pos))
         if 'dispersion' in cfg.terms:
-            parts['dispersion'] = dispersion_energy(
-                sys_, pos, cutoff=cfg.cutoff, switch_width=cfg.dispersion_switch_width)
+            sw = cfg.dispersion_switch_width
+            if disp_pairs is not None:
+                parts['dispersion'] = dispersion_energy_pairs(
+                    sys_, pos, disp_pairs[0], disp_pairs[1], cutoff=cfg.cutoff, switch_width=sw)
+            else:
+                parts['dispersion'] = dispersion_energy(sys_, pos, cutoff=cfg.cutoff,
+                                                        switch_width=sw)
         return parts
 
     def _energy_forces_impl(self, positions, mu0=None, nlists=None):
@@ -203,16 +285,25 @@ class MBPol:
         `build_neighbor_lists` (valid for any superset of the physical
         lists)."""
         sys_ = self.system
-        positions = make_molecules_whole(sys_, positions.detach())
+        positions = make_molecules_whole(sys_, self.as_positions(positions).detach())
 
         diag = {}
         if nlists is None and self.use_neighbor_lists:
             pl, tl, diag = self._neighbor_lists(positions)
             nlists = (pl, tl)
 
+        disp_pairs = None
+        if self.disp_mode == 'pairs' and 'dispersion' in self.config.terms:
+            # water-pair list at cutoff + PAIR_MARGIN (+ skin), every evaluation
+            o_pos = positions[:4 * sys_.n_waters].reshape(sys_.n_waters, 4, 3)[:, 0]
+            mp, mp_mask, n_mp = neighbors.pair_list(o_pos, sys_.box, self.disp_pair_cut,
+                                                    self.disp_pair_cap)
+            diag = dict(diag, disp_pair_overflow=n_mp > self.disp_pair_cap)
+            disp_pairs = (mp, mp_mask)
+
         with torch.enable_grad():
             p = positions.clone().requires_grad_(True)
-            parts = self._smooth_terms(p, nlists)
+            parts = self._smooth_terms(p, nlists, disp_pairs)
             total = sum(parts.values()) if parts else torch.zeros((), dtype=p.dtype,
                                                                    device=p.device)
             grad = (torch.autograd.grad(total, p)[0] if total.requires_grad
@@ -225,7 +316,8 @@ class MBPol:
             pos_v = compute_virtual_sites(sys_, positions)
             with torch.no_grad():
                 e_elec, f_elec, ediag = pme_mod.pme_electrostatics(
-                    self.elec_params, self.pme, pos_v, mu0=mu0)
+                    self.elec_params, self.pme, pos_v, mu0=mu0, block=self._block_info,
+                    tables=self._site_tables())
             diag.update(ediag)
             parts['electrostatics'] = e_elec
             # redistribute M-site forces to the parents (average3 weights)
@@ -245,4 +337,49 @@ class MBPol:
         energies, diagnostics). Pass a previous diag['induced_dipoles'] as
         mu0 to warm-start the SCF."""
         return self._energy_forces_impl(positions, mu0=mu0)
+
+    def tune_capacities(self, positions, margin=1.15):
+        """Size the padded lists from the exact neighbor counts of a
+        representative configuration, with a safety margin for density
+        fluctuations, as the JAX MBPol.tune_capacities does (the port's own
+        torch counts in place of the native voxel hash): pair_cap,
+        trip_cap, nlist_k_max, nlist_kt, disp_pair_cap, and in block mode
+        the serpentine site sort and the tile-pair capacity. Overflow later
+        in a run still shows in diag['*_overflow']. Returns self."""
+        if not self.use_neighbor_lists:
+            return self
+        sys_, cfg = self.system, self.config
+        pos = make_molecules_whole(sys_, self.as_positions(positions))
+        o = pos[:4 * sys_.n_waters].reshape(sys_.n_waters, 4, 3)[:, 0]
+        box, skin, n_w = sys_.box, cfg.nlist_skin, sys_.n_waters
+        n_p, _, _ = neighbors.neighbor_counts(o, box, cfg.cutoff_2b + skin)
+        _, degree, per_center = neighbors.neighbor_counts(o, box, cfg.cutoff_3b + skin,
+                                                          triplets=True)
+        n_t = int(torch.sum(per_center))
+        self.pair_cap = max(int(margin * n_p) + 16, 64)
+        self.trip_cap = max(int(margin * n_t) + 32, 128)
+        # per-center triplet-build shape parameters from the actual counts;
+        # the factors scale with the margin as the global caps do
+        max_nbr = int(torch.max(degree)) if n_w else 0
+        f_k, f_kt = max(1.3, float(margin)), max(1.4, float(margin))
+        self.nlist_k_max = min(max(int(np.ceil(f_k * max_nbr)) + 2, 8), max(n_w - 1, 1))
+        max_ct = int(torch.max(per_center)) if n_w else 0
+        self.nlist_kt = min(int(np.ceil(f_kt * max_ct)) + 8,
+                            self.nlist_k_max * (self.nlist_k_max - 1) // 2)
+        if self.disp_mode == 'pairs':
+            n_d, _, _ = neighbors.neighbor_counts(o, box, self.disp_pair_cut)
+            self.disp_pair_cap = max(int(margin * n_d) + 16, 64)
+        if self.elec_mode == 'block':
+            mol_perm = bs.molecule_sort_permutation(o.detach().cpu().numpy(), box)
+            site_perm = (4 * mol_perm[:, None] + np.arange(4)[None, :]).reshape(-1)
+            # count the active tile pairs at the sorted layout with a list
+            # that holds every tile pair
+            n_sites = 4 * n_w
+            n_tiles = bs.padded(n_sites) // bs.TILE
+            pos_s = bs.pad_rows(pos[torch.as_tensor(site_perm, device=pos.device)],
+                                bs.padded(n_sites))
+            n_act = int(bs.active_tile_pairs(pos_s, n_sites, box, cfg.cutoff,
+                                             n_tiles * n_tiles).n_act)
+            self._set_block_perm(site_perm, max(int(margin * n_act) + 8, 16))
+        return self
 

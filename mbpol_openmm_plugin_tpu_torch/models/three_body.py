@@ -113,9 +113,9 @@ def three_body_energy(system: System, positions, triplets=None, triplet_mask=Non
     if triplet_mask is None:
         triplet_mask = torch.ones(len(triplets), dtype=torch.bool, device=dev)
     wflat = wpos.reshape(-1, 9)
-    pos_a = gather_rows(wflat, triplets[:, 0]).reshape(-1, 3, 3)
-    pos_b = gather_rows(wflat, triplets[:, 1]).reshape(-1, 3, 3)
-    pos_c = gather_rows(wflat, triplets[:, 2]).reshape(-1, 3, 3)
+    pos_a = gather_rows(wflat, triplets[:, 0], triplet_mask).reshape(-1, 3, 3)
+    pos_b = gather_rows(wflat, triplets[:, 1], triplet_mask).reshape(-1, 3, 3)
+    pos_c = gather_rows(wflat, triplets[:, 2], triplet_mask).reshape(-1, 3, 3)
     if system.periodic:
         box_a = box_tensor(system.box, positions) * units.NM_TO_ANGSTROM
         pos_a, pos_b, pos_c = _image_triplet(pos_a, pos_b, pos_c, box_a)

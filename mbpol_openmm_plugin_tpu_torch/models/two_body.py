@@ -153,8 +153,8 @@ def two_body_energy(system: System, positions, pairs=None, pair_mask=None):
     if pair_mask is None:
         pair_mask = torch.ones(len(pairs), dtype=torch.bool, device=dev)
     wflat = wpos.reshape(-1, 9)
-    pos_a = gather_rows(wflat, pairs[:, 0]).reshape(-1, 3, 3)
-    pos_b = gather_rows(wflat, pairs[:, 1]).reshape(-1, 3, 3)
+    pos_a = gather_rows(wflat, pairs[:, 0], pair_mask).reshape(-1, 3, 3)
+    pos_b = gather_rows(wflat, pairs[:, 1], pair_mask).reshape(-1, 3, 3)
     if system.periodic:
         box_a = box_tensor(system.box, positions) * units.NM_TO_ANGSTROM
         pos_a, pos_b = _image_pair(pos_a, pos_b, box_a)

@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-The sources are compiled at first use with nvcc into a shared library with
+The sources are compiled at first use with nvcc, one nvcc process per
+`.cu` file, all started together, and linked into one shared library with
 a plain C interface, which is loaded with ctypes (no PyTorch headers, so a
 build takes seconds). The library lands in the package's `_build/`
 directory, keyed on a hash of the sources and the nvcc flags: a change to
@@ -22,8 +23,8 @@ PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(PKG_DIR, '_build')
 
-NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-              '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+ARCH = ('-gencode', 'arch=compute_90a,code=sm_90a')
+NVCC_FLAGS = ARCH + ('-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 
 def _nvcc():
@@ -58,25 +59,43 @@ def library_path():
 
 
 def build():
-    """Compile csrc/*.cu into the keyed shared library unless it exists.
-    Returns its path. Raises RuntimeError with nvcc's stderr on failure.
+    """Compile each csrc/*.cu in its own nvcc process (all at once), then
+    link the objects into the keyed shared library, unless it exists.
+    Returns its path. Raises RuntimeError with nvcc's output on failure.
     The compiler's resource report (-Xptxas -v: registers, spills) is kept
     beside the library as <name>.log."""
     out = library_path()
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    cu = [p for p in _sources() if p.endswith('.cu')]
-    fd, tmp = tempfile.mkstemp(suffix='.so', dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f'nvcc failed ({proc.returncode}): {" ".join(cmd)}\n{proc.stderr}')
-    with open(out[:-3] + '.log', 'w') as f:
-        f.write(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
+    work = tempfile.mkdtemp(dir=BUILD_DIR)
+    try:
+        jobs = []
+        for src in (p for p in _sources() if p.endswith('.cu')):
+            stem = os.path.join(work, os.path.basename(src)[:-3])
+            cmd = [_nvcc(), *NVCC_FLAGS, '-c', '-o', stem + '.o', src]
+            with open(stem + '.log', 'w') as log:
+                jobs.append((cmd, stem, subprocess.Popen(cmd, stdout=log,
+                                                         stderr=subprocess.STDOUT)))
+        failed = [(cmd, stem) for cmd, stem, proc in jobs if proc.wait() != 0]
+        logs = []
+        for _, stem, _ in jobs:
+            with open(stem + '.log') as f:
+                logs.append(f.read())
+        if failed:
+            cmd, stem = failed[0]
+            with open(stem + '.log') as f:
+                raise RuntimeError(f'nvcc failed: {" ".join(cmd)}\n{f.read()}')
+        tmp = os.path.join(work, 'lib.so')
+        cmd = [_nvcc(), *ARCH, '-shared', '-o', tmp, *(stem + '.o' for _, stem, _ in jobs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f'nvcc link failed: {" ".join(cmd)}\n{proc.stderr}')
+        with open(out[:-3] + '.log', 'w') as f:
+            f.write(''.join(logs) + proc.stdout + proc.stderr)
+        os.replace(tmp, out)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return out
 
 
@@ -91,6 +110,15 @@ def load():
     lib.mbpol_fixed_field_scf.restype = i32
     lib.mbpol_direct_efp.argtypes = [ptr, ptr, i32, *consts, ptr, ptr, ptr, ptr]
     lib.mbpol_direct_efp.restype = i32
+    # block-sparse kernels (csrc/elec_direct_bs.cu): list pointers tj, meta, row_start
+    lists = [ptr, ptr, ptr]
+    lib.mbpol_fixed_field_scf_bs.argtypes = [ptr, i32, i32, *lists, *consts, ptr, ptr, ptr, ptr]
+    lib.mbpol_fixed_field_scf_bs.restype = i32
+    lib.mbpol_scf_field_bs.argtypes = [ptr, ptr, i32, *lists, *consts, ptr, ptr, ptr, ptr]
+    lib.mbpol_scf_field_bs.restype = i32
+    lib.mbpol_direct_efp_bs.argtypes = [ptr, ptr, i32, i32, *lists, *consts, ptr, ptr, ptr,
+                                        ptr]
+    lib.mbpol_direct_efp_bs.restype = i32
     return lib
 
 

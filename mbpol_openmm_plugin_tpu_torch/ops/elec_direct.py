@@ -86,18 +86,24 @@ def bn_factors(alpha, r, inv_r):
 
 def pair_delta(positions, box):
     """[N, N, 3] minimum-image displacements r_j - r_i."""
-    b = torch.as_tensor(box, dtype=positions.dtype, device=positions.device)
-    d = positions[None, :, :] - positions[:, None, :]
+    return _delta(positions, positions, box)
+
+
+def _delta(prow, pcol, box):
+    """[..., I, J, 3] minimum-image displacements r_j - r_i between row
+    positions [..., I, 3] and column positions [..., J, 3]."""
+    b = torch.as_tensor(box, dtype=prow.dtype, device=prow.device)
+    d = pcol[..., None, :, :] - prow[..., :, None, :]
     return d - torch.floor(d / b + 0.5) * b
 
 
-def _pair_terms(sites, c: DirectConsts, need_cc1):
-    """Dense [N, N] pair tensors, masked to in-cutoff non-self pairs."""
-    n = sites.shape[0]
+def _pair_terms(srow, scol, notself, c: DirectConsts, need_cc1):
+    """Pair tensors [..., I, J] between row sites srow [..., I, 8] and
+    column sites scol [..., J, 8], masked to in-cutoff pairs where
+    `notself` [..., I, J] holds."""
     th = c.thole
-    delta = pair_delta(sites[:, :3], c.box)
+    delta = _delta(srow[..., :3], scol[..., :3], c.box)
     r2 = torch.sum(delta * delta, dim=-1)
-    notself = ~torch.eye(n, dtype=torch.bool, device=sites.device)
     r = torch.sqrt(torch.where(notself, r2, 1.0))
     within = notself & (r * r <= c.cutoff * c.cutoff)
 
@@ -112,13 +118,11 @@ def _pair_terms(sites, c: DirectConsts, need_cc1):
     t['rr5c'] = cut(3.0 * inv_r ** 5)
     t['rr7c'] = cut(15.0 * inv_r ** 7)
 
-    d16 = sites[:, _D16]
-    u = r * d16[:, None] * d16[None, :]
-    mol = sites[:, _MOL]
-    same_mol = mol[:, None] == mol[None, :]
-    one_is_o = (sites[:, _ISO][:, None] + sites[:, _ISO][None, :]) > 0.5
-    g = torch.as_tensor([th[TDD], th[TDDOH], th[TDDHH]], dtype=sites.dtype,
-                        device=sites.device)
+    u = r * srow[..., :, None, _D16] * scol[..., None, :, _D16]
+    same_mol = srow[..., :, None, _MOL] == scol[..., None, :, _MOL]
+    one_is_o = (srow[..., :, None, _ISO] + scol[..., None, :, _ISO]) > 0.5
+    g = torch.as_tensor([th[TDD], th[TDDOH], th[TDDHH]], dtype=srow.dtype,
+                        device=srow.device)
     gamma_dd = torch.where(same_mol, torch.where(one_is_o, g[1], g[2]), g[0])
     t['same_mol'] = same_mol
     t['s_cc'] = thole_scales(u, th[TCC], orders=(1, 3) if need_cc1 else (3,))
@@ -127,34 +131,42 @@ def _pair_terms(sites, c: DirectConsts, need_cc1):
     return t
 
 
-def fixed_field_and_scf_factors_plain(sites, c: DirectConsts):
-    """Plain twin of K1: (field [N,3], s3 [N,N], s5 [N,N])."""
-    t = _pair_terms(sites, c, need_cc1=False)
+def _dense_notself(sites):
+    n = sites.shape[0]
+    return ~torch.eye(n, dtype=torch.bool, device=sites.device)
+
+
+def k1_terms(srow, scol, notself, c: DirectConsts):
+    """K1's formulas between row and column sites: (field rows [..., I, 3],
+    s3 [..., I, J], s5 [..., I, J])."""
+    t = _pair_terms(srow, scol, notself, c, need_cc1=False)
     within, rr3c = t['within'], t['rr3c']
     # same-water pairs keep only the reciprocal correction bn1 - rr3; the
     # cross-water damping sign is the fixed one of models/pme.py
     s3cc_field = torch.where(t['same_mol'], 0.0, t['s_cc'][3])
     kdir = torch.where(within, t['bn1'] - (1.0 - s3cc_field) * rr3c, 0.0)
-    field = -torch.einsum('ij,j,ijd->id', kdir, sites[:, _Q], t['delta'])
+    field = -torch.einsum('...ij,...j,...ijd->...id', kdir, scol[..., _Q], t['delta'])
     s3 = torch.where(within, (1.0 - t['s_dd'][3]) * rr3c - t['bn1'], 0.0)
     s5 = torch.where(within, t['bn2'] - (1.0 - t['s_dd'][5]) * t['rr5c'], 0.0)
     return field, s3, s5
 
 
-def direct_energy_force_pot_plain(sites, mu, c: DirectConsts):
-    """Plain twin of K2: (e_direct scalar, force [N,3], pot [N])."""
-    t = _pair_terms(sites, c, need_cc1=True)
+def k2_terms(srow, scol, notself, mu_row, mu_col, c: DirectConsts):
+    """K2's formulas between row and column sites, given the row and column
+    dipoles [..., I, 3] / [..., J, 3]: per row (half pair-energy sum
+    [..., I], force [..., I, 3], potential [..., I])."""
+    t = _pair_terms(srow, scol, notself, c, need_cc1=True)
     delta, within, same_mol = t['delta'], t['within'], t['same_mol']
     bn0, bn1, bn2, bn3 = t['bn0'], t['bn1'], t['bn2'], t['bn3']
     rr1c, rr3c, rr5c, rr7c = t['rr1c'], t['rr3c'], t['rr5c'], t['rr7c']
     s_cc, s_cd, s_dd = t['s_cc'], t['s_cd'], t['s_dd']
-    q = sites[:, _Q]
+    qi, qj = srow[..., _Q], scol[..., _Q]
 
-    mu_dot_d_i = torch.einsum('id,ijd->ij', mu, delta)
-    mu_dot_d_j = torch.einsum('jd,ijd->ij', mu, delta)
-    qq = q[:, None] * q[None, :]
-    gli1 = q[None, :] * mu_dot_d_i - q[:, None] * mu_dot_d_j
-    mumu = mu @ mu.T
+    mu_dot_d_i = torch.einsum('...id,...ijd->...ij', mu_row, delta)
+    mu_dot_d_j = torch.einsum('...jd,...ijd->...ij', mu_col, delta)
+    qq = qi[..., :, None] * qj[..., None, :]
+    gli1 = qj[..., None, :] * mu_dot_d_i - qi[..., :, None] * mu_dot_d_j
+    mumu = mu_row @ mu_col.transpose(-1, -2)
 
     s1cc_e = torch.where(same_mol, 0.0, s_cc[1])
     s3cd_e = torch.where(same_mol, 0.0, s_cd[3])
@@ -163,23 +175,36 @@ def direct_energy_force_pot_plain(sites, mu, c: DirectConsts):
 
     e_pair = (bn0 - rr1c * (1.0 - s1cc_e)) * qq \
         + 0.5 * (bn1 - rr3c * (1.0 - s3cd_e)) * gli1
-    e_direct = 0.5 * torch.sum(torch.where(within, e_pair, 0.0))
+    e_row = 0.5 * torch.sum(torch.where(within, e_pair, 0.0), dim=-1)
 
     coeff = (bn1 - (1.0 - s3cc_f) * rr3c) * qq \
         + (bn2 - rr5c * (1.0 - s5cd_f)) * gli1 \
         + (bn2 - rr5c * (1.0 - s_dd[5])) * mumu \
         - (bn3 - rr7c * (1.0 - s_dd[7])) * (mu_dot_d_i * mu_dot_d_j)
     coeff = torch.where(within, coeff, 0.0)
-    force = torch.einsum('ij,ijd->id', coeff, delta)
+    force = torch.einsum('...ij,...ijd->...id', coeff, delta)
 
     w5 = torch.where(within, bn2 - rr5c * (1.0 - s_dd[5]), 0.0)
-    force = force + mu * torch.sum(w5 * mu_dot_d_j, dim=1)[:, None] + (w5 * mu_dot_d_i) @ mu
+    force = force + mu_row * torch.sum(w5 * mu_dot_d_j, dim=-1)[..., None] \
+        + (w5 * mu_dot_d_i) @ mu_col
     w3 = torch.where(within, bn1 - rr3c * (1.0 - s3cd_e), 0.0)
-    force = force + q[:, None] * (w3 @ mu) - mu * (w3 @ q)[:, None]
+    w3q = torch.einsum('...ij,...j->...i', w3, qj)
+    force = force + qi[..., None] * (w3 @ mu_col) - mu_row * w3q[..., None]
 
     k1 = torch.where(within, bn0 - rr1c * (1.0 - s1cc_e), 0.0)
-    pot = k1 @ q - torch.sum(w3 * mu_dot_d_j, dim=1)
-    return e_direct, force, pot
+    pot = torch.einsum('...ij,...j->...i', k1, qj) - torch.sum(w3 * mu_dot_d_j, dim=-1)
+    return e_row, force, pot
+
+
+def fixed_field_and_scf_factors_plain(sites, c: DirectConsts):
+    """Plain twin of K1: (field [N,3], s3 [N,N], s5 [N,N])."""
+    return k1_terms(sites, sites, _dense_notself(sites), c)
+
+
+def direct_energy_force_pot_plain(sites, mu, c: DirectConsts):
+    """Plain twin of K2: (e_direct scalar, force [N,3], pot [N])."""
+    e_row, force, pot = k2_terms(sites, sites, _dense_notself(sites), mu, mu, c)
+    return torch.sum(e_row), force, pot
 
 
 # ----------------------------------------------------------------------

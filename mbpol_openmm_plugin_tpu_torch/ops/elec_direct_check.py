@@ -1,6 +1,6 @@
 """Acceptance checks of the direct-space CUDA kernels of ops/elec_direct.py
-against their plain twins, shared by chip_smoke.py and
-tests/test_torch_kernels_cuda.py.
+and ops/elec_direct_bs.py against their plain twins, shared by
+chip_smoke.py and tests/test_torch_kernels_cuda.py.
 
 Each output is compared on sets of entries, each against the largest
 |twin| entry of its own set, so that no set's bound is scaled by another
@@ -11,6 +11,9 @@ are the entries the SCF dipole field uses. Held at REL (1e-5 of the
 set's max), and each entry also at |k - t64| <= ELEM * |t64| + 1e-7 * max
 against the float64 twin, so a few-percent error in one cross-molecule
 entry cannot hide under the set's largest (same-molecule O-H) entries.
+The block set is larger (2.4e8 pairs at water4096) and holds a few
+entries where the terms of s5 cancel, where the float32 twin itself reads
+~4e-5 per entry on water4096 (PERF.md); its per-entry bound is ELEM_BS.
 
 K1 s3/s5, entries with an M site. The SCF multiplies them by zero (M
 sites have zero polarizability, so mu_M = 0 and the field at M is never
@@ -26,6 +29,13 @@ bn1 - rr3 cancels ~2.7e3 to ~1, so float32 is ~1e-5 to 2e-5 of the max
 from float64. Held at REL_O = 5e-5 and ACC.
 
 K2 e_direct at REL, force and pot at 1e-4 of their max.
+
+The block-sparse kernels are held to the same sets: K1-bs's s3/s5 blocks
+on the pairs of valid list entries between real, distinct sites (split
+into polarizable pairs and pairs with an M site as above) and its field
+rows; K2-bs as K2. K3-bs (one SCF dipole field from given s3/s5 blocks)
+is compared on the same blocks as the twin, so only the summation order
+differs: field rows of polarizable sites and of M sites each at REL.
 """
 from __future__ import annotations
 
@@ -37,6 +47,7 @@ from mbpol_openmm_plugin_tpu_torch.ops.elec_direct import _ISO
 
 REL = 1e-5
 ELEM = 2e-5
+ELEM_BS = 8e-5
 ELEM_FLOOR = 1e-7
 REL_M = 2e-3
 REL_O = 5e-5
@@ -58,7 +69,7 @@ class Row:
 
     def __str__(self):
         return (f'{self.output:8s} {self.entries:22s} {self.measure:5s} {self.value:.3e} '
-                f'(bound {self.bound:.0e})  {"PASS" if self.ok else "FAIL"}')
+                f'(bound {self.bound:.1e})  {"PASS" if self.ok else "FAIL"}')
 
 
 def _rel(k, t):
@@ -81,10 +92,12 @@ def _acc(k, t, t64):
     return float((k.double() - t64).abs().max() / allowed.clamp_min(1e-300))
 
 
-def _rows(output, entries, k, t, t64, rel_bound, elem=False, acc=False):
+def _rows(output, entries, k, t, t64, rel_bound, elem=None, acc=False):
+    """Rows of one entry set: rel always; elem (per entry against float64,
+    bound `elem`) and acc where asked."""
     rows = [Row(output, entries, 'rel', _rel(k, t), rel_bound)]
-    if elem:
-        rows.append(Row(output, entries, 'elem', _elem(k, t64), ELEM))
+    if elem is not None:
+        rows.append(Row(output, entries, 'elem', _elem(k, t64), elem))
     if acc:
         rows.append(Row(output, entries, 'acc', _acc(k, t, t64), 1.0))
     if not bool(torch.isfinite(k).all()):
@@ -98,13 +111,50 @@ def k1_rows(sites, polarity, kern, twin, twin64):
     and the float64 twin on the same inputs."""
     n = sites.shape[0]
     pol = polarity.to(sites.device) > 0
-    is_o = sites[:, _ISO] > 0.5
     notself = ~torch.eye(n, dtype=torch.bool, device=sites.device)
-    pp = pol[:, None] & pol[None, :] & notself
-    with_m = ~(pol[:, None] & pol[None, :]) & notself
+    both = pol[:, None] & pol[None, :]
+    return _k1_rows(both & notself, ~both & notself, sites[:, _ISO] > 0.5, kern, twin, twin64,
+                    ELEM)
+
+
+def _block_sets(polarity, tiles, n_sites, n_pad):
+    """Masks [cap, 256, 256] of the K1-bs entry sets (polarizable pairs,
+    pairs with an M site) over valid list entries, real and distinct
+    sites; polarity [n] in the sorted site order."""
+    from mbpol_openmm_plugin_tpu_torch.ops.elec_direct_bs import TILE, VALID
+    dev = tiles.ti.device
+    pol = torch.zeros(n_pad, dtype=torch.bool, device=dev)
+    pol[:n_sites] = polarity.to(dev) > 0
+    lane = torch.arange(TILE, device=dev)
+    gi = tiles.ti.long()[:, None] * TILE + lane
+    gj = tiles.tj.long()[:, None] * TILE + lane
+    real = (((tiles.meta & VALID) > 0)[:, None, None] & (gi < n_sites)[:, :, None]
+            & (gj < n_sites)[:, None, :] & (gi[:, :, None] != gj[:, None, :]))
+    both = pol[gi][:, :, None] & pol[gj][:, None, :]
+    return real & both, real & ~both
+
+
+def k1_bs_rows(sites, polarity, tiles, n_sites, kern, twin, twin64):
+    """Rows of the K1-bs check. sites [padded(n), 8] sorted packed sites,
+    polarity [n] in the same order, tiles the active tile-pair list;
+    kern/twin/twin64 = (field [n,3], s3, s5 [cap,256,256]) of the kernel
+    and the float32 and float64 twins."""
+    pp, with_m = _block_sets(polarity, tiles, n_sites, sites.shape[0])
+    return _k1_rows(pp, with_m, sites[:n_sites, _ISO] > 0.5, kern, twin, twin64, ELEM_BS)
+
+
+def k3_bs_rows(polarity, kern, twin):
+    """Rows of the K3-bs check: the dipole field [n,3] of kernel and twin
+    from the same s3/s5 blocks; polarity [n] in the same site order."""
+    pol = polarity.to(kern.device) > 0
+    return (_rows('field', 'polarizable rows', kern[pol], twin[pol], None, REL)
+            + _rows('field', 'M rows', kern[~pol], twin[~pol], None, REL))
+
+
+def _k1_rows(pp, with_m, is_o, kern, twin, twin64, elem):
     rows = []
     for name, k, t, t64 in zip(('s3', 's5'), kern[1:], twin[1:], twin64[1:]):
-        rows += _rows(name, 'polarizable pairs', k[pp], t[pp], t64[pp], REL, elem=True)
+        rows += _rows(name, 'polarizable pairs', k[pp], t[pp], t64[pp], REL, elem=elem)
         rows += _rows(name, 'pairs with an M site', k[with_m], t[with_m], t64[with_m],
                       REL_M, acc=True)
     k, t, t64 = kern[0], twin[0], twin64[0]
@@ -119,3 +169,34 @@ def k2_rows(kern, twin):
     for name, k, t in zip(('e_direct', 'force', 'pot'), kern, twin):
         rows += _rows(name, 'all', k, t, None, REL_K2[name])
     return rows
+
+
+def block_kernel_rows(sites, polarity, tiles, n_sites, c):
+    """Run K1-bs, K3-bs and K2-bs and their plain twins on the same inputs
+    (K3-bs and K2-bs on dipoles of realistic size: polarity times the
+    direct fixed field) and check them. sites [padded(n), 8] sorted packed
+    sites, polarity [n] in the same order. Returns {wrapper name: (rows,
+    max |kernel - twin| over the outputs)}."""
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
+    k1 = bs.fixed_field_and_scf_blocks(sites, n_sites, tiles, c)
+    t1 = bs.fixed_field_and_scf_blocks_plain(sites, n_sites, tiles, c)
+    t1_64 = bs.fixed_field_and_scf_blocks_plain(sites.double(), n_sites, tiles, c)
+    mu = (polarity.to(sites)[:, None] * t1[0]).contiguous()
+    mu_pad = bs.pad_rows(mu, sites.shape[0])
+    k3 = bs.scf_dipole_field_bs(sites, k1[1], k1[2], mu_pad, tiles, n_sites, c)
+    t3 = bs.scf_dipole_field_bs_plain(sites, k1[1], k1[2], mu_pad, tiles, n_sites, c)
+    k2 = bs.direct_energy_force_pot_bs(sites, mu, n_sites, tiles, c)
+    t2 = bs.direct_energy_force_pot_bs_plain(sites, mu, n_sites, tiles, c)
+
+    def max_abs(kern, twin):
+        return max(float((k - t).abs().max()) for k, t in zip(kern, twin))
+
+    # K1-bs leaves the blocks of padded list entries unwritten
+    valid = (tiles.meta & bs.VALID) > 0
+    return {
+        'fixed_field_and_scf_blocks': (
+            k1_bs_rows(sites, polarity, tiles, n_sites, k1, t1, t1_64),
+            max_abs((k1[0], k1[1][valid], k1[2][valid]), (t1[0], t1[1][valid], t1[2][valid]))),
+        'scf_dipole_field_bs': (k3_bs_rows(polarity, k3, t3), max_abs((k3,), (t3,))),
+        'direct_energy_force_pot_bs': (k2_rows(k2, t2), max_abs(k2, t2)),
+    }

@@ -75,6 +75,39 @@ def pair_list(o_pos, box, cutoff, capacity):
     return torch.stack([flat // n, flat % n], dim=1), mask, n_found
 
 
+def _triplet_candidates(edge, k_max):
+    """Per-center candidate block: (order [n, K], the K first neighbors of
+    each center j in ascending index order; keep [n, K, K], the kept
+    triplets (order[j, p], j, order[j, q]) with p < q)."""
+    n, dev = edge.shape[0], edge.device
+    order = torch.argsort((~edge).to(torch.int8), dim=1, stable=True)[:, :k_max]
+    valid = torch.gather(edge, 1, order)                            # [n, K]
+
+    centers = torch.arange(n, device=dev)[:, None, None]            # j
+    i_idx = order[:, :, None]                                       # [n, K, 1]
+    k_idx = order[:, None, :]                                       # [n, 1, K]
+    ar = torch.arange(k_max, device=dev)
+    pq_upper = (ar[:, None] < ar[None, :])[None]
+    cand = valid[:, :, None] & valid[:, None, :] & pq_upper         # i < k
+    ik_edge = edge[i_idx, k_idx]
+    return order, cand & (~ik_edge | (centers < i_idx))
+
+
+def neighbor_counts(o_pos, box, cutoff, triplets=False):
+    """Exact counts for capacity tuning, from the same edge matrix as the
+    builders: (pairs i<j within the cutoff, neighbors per molecule [n],
+    and with triplets=True the 'complete' triplets per center [n], else
+    None). Reads the counts on the host."""
+    edge = _edge_matrix(o_pos, box, cutoff)
+    degree = torch.sum(edge, dim=1)
+    per_center = None
+    if triplets:
+        k_max = int(torch.max(degree)) if edge.shape[0] else 0
+        per_center = (torch.zeros_like(degree) if k_max < 2 else
+                      torch.sum(_triplet_candidates(edge, k_max)[1], dim=(1, 2)))
+    return int(torch.sum(degree)) // 2, degree, per_center
+
+
 def triplet_list(o_pos, box, cutoff, capacity, k_max=None, kt=None):
     """Padded 'complete' triplet list (see module docstring).
 
@@ -96,19 +129,7 @@ def triplet_list(o_pos, box, cutoff, capacity, k_max=None, kt=None):
                 torch.zeros((), dtype=torch.int64, device=dev))
     kt = max_kt if kt is None else min(int(kt), max_kt)
     edge = _edge_matrix(o_pos, box, cutoff)
-
-    # per-center padded neighbor list, ascending index order
-    order = torch.argsort((~edge).to(torch.int8), dim=1, stable=True)[:, :k_max]
-    valid = torch.gather(edge, 1, order)                            # [n, K]
-
-    centers = torch.arange(n, device=dev)[:, None, None]            # j
-    i_idx = order[:, :, None]                                       # [n, K, 1]
-    k_idx = order[:, None, :]                                       # [n, 1, K]
-    ar = torch.arange(k_max, device=dev)
-    pq_upper = (ar[:, None] < ar[None, :])[None]
-    cand = valid[:, :, None] & valid[:, None, :] & pq_upper         # i < k
-    ik_edge = edge[i_idx, k_idx]
-    keep = cand & (~ik_edge | (centers < i_idx))
+    order, keep = _triplet_candidates(edge, k_max)
 
     # stage 1: per-center compaction (kept (p, q) flat offsets, ascending)
     flat = keep.reshape(n, k_max * k_max)

@@ -143,3 +143,18 @@ def minimum_image(delta, box):
         return delta
     b = box_tensor(box, delta)
     return delta - torch.floor(delta / b + 0.5) * b
+
+
+def replicate(system: System, positions, reps):
+    """The periodic water box repeated reps = (nx, ny, nz) times along its
+    axes: (System of the enlarged box, positions [nx*ny*nz*natoms, 3]).
+    Copy (a, b, c), shifted by (a, b, c) * box, is the block of waters
+    ((a * ny + b) * nz + c) * n_waters ... onward. Water-only layouts."""
+    if not system.periodic or system.n_ions:
+        raise ValueError('replicate takes a periodic water-only system')
+    box = np.asarray(system.box, np.float64)
+    shifts = [(a, b, c) for a in range(reps[0]) for b in range(reps[1]) for c in range(reps[2])]
+    shift = torch.as_tensor(np.asarray(shifts, np.float64) * box, dtype=positions.dtype,
+                            device=positions.device)
+    big = System.waters(system.n_waters * len(shifts), box=box * np.asarray(reps))
+    return big, (positions[None] + shift[:, None, :]).reshape(-1, 3)

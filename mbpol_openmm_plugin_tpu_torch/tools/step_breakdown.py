@@ -1,15 +1,20 @@
-"""Where the time of a water256 MD step goes, on one CUDA card.
+"""Where the time of an MD step goes, on one CUDA card.
 
-    python -m mbpol_openmm_plugin_tpu_torch.tools.step_breakdown [--reps 10] [--steps 20] [--out FILE]
+    python -m mbpol_openmm_plugin_tpu_torch.tools.step_breakdown [--waters 256|4096]
+        [--reps 10] [--steps 20] [--out FILE]
 
-At the production operating point (MBPolConfig.for_dynamics(), float32,
-the tests/fixtures water256 box) it reports:
+At the production operating point (MBPolConfig.for_dynamics(), float32)
+on the tests/fixtures water256 box (analytic list capacities, dense
+electrostatics) or on water4096, that box repeated 2 x 2 x 4 (after
+tune_capacities; 'auto' picks block electrostatics and pair dispersion),
+it reports:
 
 1. pieces of one warm evaluation, each the median of --reps calls timed on
    the host clock around a synchronized call: the whole evaluation with
    prebuilt lists and an ASPC predictor, PME electrostatics, the DMS charges
    with dq/dr, the one-, two- and three-body terms and dispersion (forward
-   and backward), the neighbor-list build, and the K1/K2 wrapper calls;
+   and backward), the list builds, and the direct-space kernel wrapper
+   calls (K1/K2, or K1-bs/K3-bs/K2-bs and the tile-pair list);
 2. Simulation.step under torch.profiler, run for --steps and for 2 x
    --steps steps. The difference of the two runs is --steps steps without
    the fixed cost of a call (the converged evaluations at the chunk start
@@ -64,11 +69,14 @@ def _fwd_bwd(term, pos):
 def pieces(pot, pos, reps):
     from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
     from mbpol_openmm_plugin_tpu_torch.models import pme as pme_mod
-    from mbpol_openmm_plugin_tpu_torch.models.dispersion import dispersion_energy
+    from mbpol_openmm_plugin_tpu_torch.models.dispersion import (dispersion_energy,
+                                                                  dispersion_energy_pairs)
     from mbpol_openmm_plugin_tpu_torch.models.one_body import one_body_energy
     from mbpol_openmm_plugin_tpu_torch.models.three_body import three_body_energy
     from mbpol_openmm_plugin_tpu_torch.models.two_body import two_body_energy
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as BS
+    from mbpol_openmm_plugin_tpu_torch.ops import neighbors
     from mbpol_openmm_plugin_tpu_torch.system import compute_virtual_sites, water_positions
 
     sys_, cfg, params = pot.system, pot.config, pot.elec_params
@@ -78,11 +86,7 @@ def pieces(pot, pos, reps):
     charges, _ = elec.assemble_charges(params, pos_v)
     consts = ED.DirectConsts.from_setup(pot.pme, params.thole)
     dev = pos.device
-    sites = ED.pack_sites(
-        pos_v, charges,
-        torch.as_tensor(np.asarray(params.damping) ** (-1.0 / 6.0), dtype=pos.dtype, device=dev),
-        torch.as_tensor(params.mol_index, device=dev),
-        torch.as_tensor(params.atom_type == 0, device=dev))
+    o_pos = pos[0::4]
 
     def no_grad(fn):
         def run():
@@ -90,10 +94,24 @@ def pieces(pot, pos, reps):
                 fn()
         return run
 
+    if pot.disp_mode == 'pairs':
+        def disp_list():
+            return neighbors.pair_list(o_pos, sys_.box, pot.disp_pair_cut, pot.disp_pair_cap)
+        mp, mp_mask, _ = disp_list()
+        disp = ('dispersion fwd+bwd (pairs)', _fwd_bwd(
+            lambda p: dispersion_energy_pairs(sys_, compute_virtual_sites(sys_, p), mp, mp_mask,
+                                              cutoff=cfg.cutoff,
+                                              switch_width=cfg.dispersion_switch_width), pos))
+    else:
+        disp = ('dispersion fwd+bwd (dense)', _fwd_bwd(
+            lambda p: dispersion_energy(sys_, compute_virtual_sites(sys_, p), cutoff=cfg.cutoff,
+                                        switch_width=cfg.dispersion_switch_width), pos))
     table = {
         'evaluation (ASPC, prebuilt lists)': lambda: pot._energy_forces_impl(pos, mu0, (pl, tl)),
         'PME electrostatics (ASPC)': no_grad(
-            lambda: pme_mod.pme_electrostatics(params, pot.pme, pos_v, mu0=mu0)),
+            lambda: pme_mod.pme_electrostatics(params, pot.pme, pos_v, mu0=mu0,
+                                               block=pot._block_info,
+                                               tables=pot._site_tables())),
         'DMS charges + dq/dr': no_grad(lambda: elec.assemble_charges(params, pos_v)),
         'three-body fwd+bwd': _fwd_bwd(
             lambda p: three_body_energy(sys_, compute_virtual_sites(sys_, p), tl[0], tl[1]), pos),
@@ -101,13 +119,36 @@ def pieces(pot, pos, reps):
             lambda p: two_body_energy(sys_, compute_virtual_sites(sys_, p), pl[0], pl[1]), pos),
         'one-body fwd+bwd': _fwd_bwd(
             lambda p: torch.sum(one_body_energy(water_positions(sys_, p))), pos),
-        'dispersion fwd+bwd': _fwd_bwd(
-            lambda p: dispersion_energy(sys_, compute_virtual_sites(sys_, p), cutoff=cfg.cutoff,
-                                        switch_width=cfg.dispersion_switch_width), pos),
-        'neighbor-list build': lambda: pot.build_neighbor_lists(pos),
-        'K1 wrapper call': lambda: ED.fixed_field_and_scf_factors(sites, consts),
-        'K2 wrapper call': lambda: ED.direct_energy_force_pot(sites, mu0.contiguous(), consts),
+        disp[0]: disp[1],
+        'neighbor-list build (2B/3B)': lambda: pot.build_neighbor_lists(pos),
     }
+    if pot.disp_mode == 'pairs':
+        table['dispersion pair-list build'] = disp_list
+    if pot.elec_mode == 'block':
+        sites, tiles = pme_mod.block_sites(params, pot.pme, pos_v, charges, pot._block_info)
+        n = pos_v.shape[0]
+        mu_s = mu0[pot._block_info['perm']].contiguous()
+        _, s3, s5 = BS.fixed_field_and_scf_blocks(sites, n, tiles, consts)
+        mu_pad = BS.pad_rows(mu_s, sites.shape[0])
+        table.update({
+            'tile-pair list build': lambda: pme_mod.block_sites(params, pot.pme, pos_v, charges,
+                                                                pot._block_info),
+            'K1-bs wrapper call': lambda: BS.fixed_field_and_scf_blocks(sites, n, tiles, consts),
+            'K3-bs wrapper call': lambda: BS.scf_dipole_field_bs(sites, s3, s5, mu_pad, tiles, n,
+                                                                 consts),
+            'K2-bs wrapper call': lambda: BS.direct_energy_force_pot_bs(sites, mu_s, n, tiles,
+                                                                        consts)})
+    else:
+        sites = ED.pack_sites(
+            pos_v, charges,
+            torch.as_tensor(np.asarray(params.damping) ** (-1.0 / 6.0), dtype=pos.dtype,
+                            device=dev),
+            torch.as_tensor(params.mol_index, device=dev),
+            torch.as_tensor(params.atom_type == 0, device=dev))
+        table.update({
+            'K1 wrapper call': lambda: ED.fixed_field_and_scf_factors(sites, consts),
+            'K2 wrapper call': lambda: ED.direct_energy_force_pot(sites, mu0.contiguous(),
+                                                                  consts)})
     return {name: median_ms(fn, reps) for name, fn in table.items()}
 
 
@@ -131,6 +172,7 @@ def profiled_steps(sim, n):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--waters', type=int, choices=(256, 4096), default=256)
     ap.add_argument('--reps', type=int, default=10)
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--out', default=None)
@@ -141,14 +183,20 @@ def main(argv=None):
     from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
     from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
     from mbpol_openmm_plugin_tpu_torch.system import (System, compute_virtual_sites,
-                                                      make_molecules_whole)
+                                                      make_molecules_whole, replicate)
     card = card_line()
     dev = torch.device('cuda')
     with np.load(FIXTURE) as z:
         system = System.from_atom_names(z['names'], z['resnames'], box=[BOX] * 3)
         pos = torch.as_tensor(np.array(z['positions']), dtype=torch.float32, device=dev)
-    pos = compute_virtual_sites(system, make_molecules_whole(system, pos))
+    pos = make_molecules_whole(system, pos)
+    if args.waters == 4096:
+        system, pos = replicate(system, pos, (2, 2, 4))
+    pos = compute_virtual_sites(system, pos)
     pot = MBPol(system, MBPolConfig.for_dynamics())
+    if args.waters == 4096:
+        pot.tune_capacities(pos)
+    print(f'water{system.n_waters}: electrostatics {pot.elec_mode}, dispersion {pot.disp_mode}')
 
     ms = pieces(pot, pos, args.reps)
     print(f'pieces of one evaluation, median of {args.reps} synchronized calls ({card}):')
@@ -171,7 +219,9 @@ def main(argv=None):
     print(f'largest device items over {2 * n} steps (count, ms):')
     for key, (c, us) in top:
         print(f'  {c:7d} {us / 1e3:9.3f}  {key[:90]}')
-    result = dict(card=card, reps=args.reps, steps=n, pieces_ms=ms, step_wall_ms=step_ms,
+    result = dict(card=card, waters=system.n_waters, elec_mode=pot.elec_mode,
+                  disp_mode=pot.disp_mode, reps=args.reps, steps=n, pieces_ms=ms,
+                  step_wall_ms=step_ms,
                   kernels_per_step=launches, device_ms_per_step=dev_ms,
                   busy_share=dev_ms / step_ms,
                   top_device_items=[dict(name=k[:120], count=c, ms=us / 1e3)

@@ -40,7 +40,8 @@ def water50():
     pos_v = compute_virtual_sites(jsys, make_molecules_whole(jsys, pos))
     d = fixtures.load('water50')
     tsys = System.from_atom_names(d['names'], d['resnames'], box=box)
-    tpot = MBPol(tsys, MBPolConfig(nonbonded_method='PME', cutoff=0.85, target_epsilon=1e-7))
+    tpot = MBPol(tsys, MBPolConfig(nonbonded_method='PME', cutoff=0.85, target_epsilon=1e-7),
+                 device='cpu')
     params = jpot.elec_params
     charges, _ = jelec.assemble_charges(params, pos_v)
     d16_inv = np.asarray(params.damping) ** (-1.0 / 6.0)

@@ -1,8 +1,13 @@
 """The PyTorch port imports without jax and sets the float32 precision
-switches at import."""
+switches at import; its parameter tables are byte-identical copies of the
+JAX package's."""
 import os
 import subprocess
 import sys
+
+import pytest
+
+from mbpol_openmm_plugin_tpu_torch import _data
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -23,6 +28,7 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.ops.gamma',
     'mbpol_openmm_plugin_tpu_torch.ops.bspline',
     'mbpol_openmm_plugin_tpu_torch.ops.elec_direct',
+    'mbpol_openmm_plugin_tpu_torch.ops.elec_direct_bs',
     'mbpol_openmm_plugin_tpu_torch.ops.elec_direct_check',
     'mbpol_openmm_plugin_tpu_torch.ops._build',
     'mbpol_openmm_plugin_tpu_torch.md.integrators',
@@ -62,3 +68,13 @@ def test_chip_smoke_refuses_without_the_package(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize('name', _data.TABLES)
+def test_parameter_tables_are_the_jax_packages_bytes(name):
+    """The port reads its own data/ copy, byte for byte the JAX package's."""
+    assert os.path.dirname(_data.DATA_DIR) == os.path.join(REPO, 'mbpol_openmm_plugin_tpu_torch')
+    with open(os.path.join(_data.DATA_DIR, name + '.npz'), 'rb') as f:
+        ours = f.read()
+    with open(os.path.join(REPO, 'mbpol_openmm_plugin_tpu', 'data', name + '.npz'), 'rb') as f:
+        assert ours == f.read()

@@ -1,6 +1,8 @@
 """The hand-written CUDA kernels of ops/elec_direct against their plain
-PyTorch twins on a CUDA card, float32, at water50 and water256; and the
-card's one-hot row gather (ops/gather.py).
+PyTorch twins on a CUDA card, float32, at water50 and water256; the
+block-sparse kernels of ops/elec_direct_bs against theirs at water1024
+(the water256 fixture repeated 2 x 2 x 1, 16 row tiles, sorted as
+tune_capacities sorts it); and the card's row gather (ops/gather.py).
 
 Needs a card: each test skips without one. This file imports no jax, so
 on a machine without jax it runs without the suite's conftest:
@@ -90,18 +92,70 @@ def test_float64_cuda_tensor_is_refused(cuda):
         ED.fixed_field_and_scf_factors(sites.double(), consts)
 
 
-def test_gather_rows_on_the_card_is_exact_and_deterministic(cuda):
-    """The one-hot gather selects rows bit-exactly and its backward gives
-    the same bits on every call."""
+@pytest.fixture(scope='module')
+def water1024_block():
+    """Sorted packed sites, polarity, tile list and constants of water1024
+    in block mode, on the card (None without one)."""
+    if not torch.cuda.is_available():
+        return None
+    from mbpol_openmm_plugin_tpu_torch.models import pme
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol
+    from mbpol_openmm_plugin_tpu_torch.system import replicate
+    fname, box, cutoff = SYSTEMS['water256']
+    with np.load(os.path.join(FIXTURES, fname + '.npz')) as z:
+        sys_ = System.from_atom_names(z['names'], z['resnames'], box=[box] * 3)
+        pos = torch.as_tensor(np.array(z['positions']), dtype=torch.float32, device='cuda')
+    big, pos = replicate(sys_, make_molecules_whole(sys_, pos), (2, 2, 1))
+    pos = compute_virtual_sites(big, pos)
+    pot = MBPol(big, MBPolConfig(nonbonded_method='PME', cutoff=cutoff,
+                                 electrostatics_mode='block')).tune_capacities(pos)
+    params, block = pot.elec_params, pot._block_info
+    charges, _ = elec.assemble_charges(params, pos)
+    sites, tiles = pme.block_sites(params, pot.pme, pos, charges, block)
+    polarity = torch.as_tensor(params.polarity[block['site_perm']], dtype=torch.float32,
+                               device='cuda')
+    return sites, polarity, tiles, pos.shape[0], ED.DirectConsts.from_setup(pot.pme,
+                                                                             params.thole)
+
+
+def test_block_kernels_match_twins(cuda, water1024_block):
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
+    sites, polarity, tiles, n, consts = water1024_block
+    assert int(tiles.n_act) <= tiles.capacity
+    before = [k.launches for k in bs.KERNELS]
+    checks = check.block_kernel_rows(sites, polarity, tiles, n, consts)
+    torch.cuda.synchronize()
+    assert [k.launches for k in bs.KERNELS] == [b + 1 for b in before]
+    for name, (rows, _) in checks.items():
+        _assert_rows(rows)
+
+
+def test_block_kernels_refuse_float64(cuda, water1024_block):
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
+    sites, _, tiles, n, consts = water1024_block
+    with pytest.raises(TypeError):
+        bs.fixed_field_and_scf_blocks(sites.double(), n, tiles, consts)
+
+
+@pytest.mark.parametrize('masked', [False, True])
+def test_gather_rows_on_the_card_is_exact_and_deterministic(cuda, masked):
+    """The gather selects rows bit-exactly and its backward gives the same
+    bits on every call (with a list mask: padded entries, all index 0,
+    left out of the backward)."""
     from mbpol_openmm_plugin_tpu_torch.ops.gather import gather_rows
     gen = torch.Generator(device='cpu').manual_seed(0)
     table = torch.randn(256, 9, generator=gen).to(cuda).requires_grad_(True)
     idx = torch.randint(0, 256, (40000,), generator=gen).to(cuda)
     w = torch.randn(40000, 9, generator=gen).to(cuda)
-    out = gather_rows(table, idx)
+    mask = None
+    if masked:
+        mask = torch.arange(40000, device=cuda) < 30000
+        idx = torch.where(mask, idx, 0)
+    out = gather_rows(table, idx, mask)
     assert torch.equal(out, table[idx])
-    grads = [torch.autograd.grad((gather_rows(table, idx) * w).sum(), table)[0]
+    grads = [torch.autograd.grad((gather_rows(table, idx, mask) * w).sum(), table)[0]
              for _ in range(2)]
     assert torch.equal(grads[0], grads[1])
-    ref = torch.zeros_like(table).index_add_(0, idx, w)
+    keep = slice(None) if mask is None else mask
+    ref = torch.zeros_like(table).index_add_(0, idx[keep], w[keep])
     torch.testing.assert_close(grads[0], ref, rtol=1e-5, atol=1e-4)

@@ -62,7 +62,7 @@ def test_three_verlet_steps_match_jax():
 
     d = fixtures.load('water50')
     tsys = System.from_atom_names(d['names'], d['resnames'], box=[1.8] * 3)
-    sim = Simulation(MBPol(tsys, MBPolConfig.for_dynamics()),
+    sim = Simulation(MBPol(tsys, MBPolConfig.for_dynamics(), device='cpu'),
                      SimulationConfig(dt=DT, nlist_rebuild_interval='auto'))
     sim.set_positions(torch.as_tensor(np.array(jpos)))
     out = sim.step(N_STEPS)
@@ -71,5 +71,8 @@ def test_three_verlet_steps_match_jax():
     np.testing.assert_allclose(sim.state.velocities.numpy(), vel_j, rtol=0, atol=1e-6)
     assert abs(out['potential_energy'][-1] - e_j) <= 1e-6
     assert sim.state.step == N_STEPS
+    e_steps = out['step_total_energy']
+    assert e_steps.shape == (N_STEPS + 1,)
+    np.testing.assert_allclose(e_steps[-1], out['total_energy'][-1], rtol=1e-12)
     t = float(I.temperature(tsys, sim.state.velocities))
     np.testing.assert_allclose(out['temperature'][-1], t, rtol=1e-12)

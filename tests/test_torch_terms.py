@@ -223,3 +223,94 @@ def test_neighbor_lists_vs_jax_water50(cutoff):
     # a per-center bound below the real count must surface as overflow
     _, _, n_small = tnb.triplet_list(T(o), box, cutoff, cap_t, k_max=k_max, kt=1)
     assert int(n_small) > cap_t
+
+
+@pytest.mark.parametrize('switch_width', [0.0, 0.1])
+def test_dispersion_pairs_vs_jax_water50(switch_width):
+    """The water-pair dispersion (block mode's) against JAX's on the same
+    list at cutoff + PAIR_MARGIN, and against the dense port term."""
+    jsys, tsys, pos = water50_box()
+    pos_v = np.asarray(jsystem.compute_virtual_sites(jsys, jnp.asarray(pos)))
+    assert tdisp.PAIR_MARGIN == jdisp.PAIR_MARGIN
+    box = np.asarray([1.8] * 3)
+    cut = 0.85 + tdisp.PAIR_MARGIN
+    cap = tnb.pair_capacity(50, box, cut)
+    mp, mask, n = tnb.pair_list(T(pos_v[0::4]), box, cut, cap)
+    assert int(n) <= cap
+    e_j, g_j = jax.value_and_grad(lambda p: jdisp.dispersion_energy_pairs(
+        jsys, p, jnp.asarray(mp.numpy()), jnp.asarray(mask.numpy()), cutoff=0.85,
+        switch_width=switch_width))(jnp.asarray(pos_v))
+    e_t, g_t = t_grad(lambda p: tdisp.dispersion_energy_pairs(
+        tsys, p, mp, mask, cutoff=0.85, switch_width=switch_width), pos_v)
+    np.testing.assert_allclose(e_t, float(e_j), **E_TOL)
+    np.testing.assert_allclose(g_t, np.asarray(g_j), **F_TOL)
+    e_d, _ = t_grad(lambda p: tdisp.dispersion_energy(
+        tsys, p, cutoff=0.85, switch_width=switch_width), pos_v)
+    np.testing.assert_allclose(e_t, e_d, **E_TOL)
+
+
+@pytest.mark.parametrize('cutoff', [0.47, 0.67, 1.17])
+def test_neighbor_counts_vs_native(cutoff):
+    """tune_capacities' exact counts (the port's torch builders) against the
+    JAX package's native voxel-hash lists on water256."""
+    from mbpol_openmm_plugin_tpu.ops import native
+    box = np.asarray([19.3996888399961804 / 10.0] * 3)
+    _, pos = fixtures.load_system('water256_integration_test', box=box)
+    o = np.asarray(pos)[0::4]
+    _, n_p = native.pair_list(o, box, cutoff)
+    pairs, _ = native.pair_list(o, box, cutoff, capacity=n_p + 1)
+    _, n_t = native.triplet_list(o, box, cutoff)
+    trips, _ = native.triplet_list(o, box, cutoff, capacity=n_t + 1)   # untruncated
+    n_pt, degree, per_center = tnb.neighbor_counts(T(o), box, cutoff, triplets=True)
+    assert n_pt == n_p
+    np.testing.assert_array_equal(degree.numpy(), np.bincount(pairs.ravel(), minlength=256))
+    assert int(per_center.sum()) == n_t
+    np.testing.assert_array_equal(per_center.numpy(), np.bincount(trips[:, 1], minlength=256))
+
+
+def test_card_gather_backward_on_cpu_tensors():
+    """The card's gather (index_select forward, sorted segment_reduce
+    backward that leaves masked entries out), run on CPU tensors: exact
+    rows, and the gradient of the plain index_add over the unmasked
+    entries."""
+    from mbpol_openmm_plugin_tpu_torch.ops.gather import _GatherRows
+    rng = np.random.default_rng(4)
+    table = T(rng.normal(size=(256, 9))).requires_grad_(True)
+    idx = torch.as_tensor(rng.integers(0, 250, size=40000))     # rows 250.. unused
+    mask = torch.as_tensor(rng.random(40000) < 0.8)
+    w = T(rng.normal(size=(40000, 9)))
+    for m in (None, mask):
+        out = _GatherRows.apply(table, idx, m)
+        assert torch.equal(out, table[idx])
+        (g,) = torch.autograd.grad((out * w).sum(), table)
+        keep = torch.ones_like(mask) if m is None else m
+        ref = torch.zeros_like(table).index_add_(0, idx[keep], w[keep])
+        np.testing.assert_allclose(g.numpy(), ref.numpy(), rtol=1e-12, atol=1e-11)
+        assert not g[250:].any()
+
+
+@pytest.mark.parametrize('term', ['two_body', 'three_body', 'dispersion_pairs'])
+def test_card_gather_in_the_terms_on_cpu_tensors(term, monkeypatch):
+    """The terms through the card's gather (padded entries left out of the
+    backward) give the plain CPU energies and forces on padded lists."""
+    from mbpol_openmm_plugin_tpu_torch.ops.gather import _GatherRows
+    jsys, tsys, pos = water50_box()
+    pos_v = np.asarray(jsystem.compute_virtual_sites(jsys, jnp.asarray(pos)))
+    box = np.asarray([1.8] * 3)
+    o = T(pos_v[0::4])
+    if term == 'three_body':
+        lst, mask, n = tnb.triplet_list(o, box, 0.47, tnb.triplet_capacity(50, box, 0.47))
+        module, fn = t3b, lambda p: t3b.three_body_energy(tsys, p, lst, mask)
+    elif term == 'two_body':
+        lst, mask, n = tnb.pair_list(o, box, 0.67, tnb.pair_capacity(50, box, 0.67))
+        module, fn = t2b, lambda p: t2b.two_body_energy(tsys, p, lst, mask)
+    else:
+        lst, mask, n = tnb.pair_list(o, box, 1.1, tnb.pair_capacity(50, box, 1.1))
+        module, fn = tdisp, lambda p: tdisp.dispersion_energy_pairs(tsys, p, lst, mask, 0.85)
+    assert int(n) < len(mask)                                     # padded entries present
+    e_plain, g_plain = t_grad(fn, pos_v)
+    monkeypatch.setattr(module, 'gather_rows',
+                        lambda table, idx, m=None: _GatherRows.apply(table, idx, m))
+    e_card, g_card = t_grad(fn, pos_v)
+    assert e_card == e_plain
+    np.testing.assert_allclose(g_card, g_plain, rtol=0, atol=1e-10)
