@@ -1,13 +1,15 @@
 #!/usr/bin/env python3
 """GPU smoke run of the PyTorch/CUDA port (mbpol_openmm_plugin_tpu_torch).
 
-Drives the port's two paths on one CUDA card, in float32, through the
-entry points a user calls (MBPol, tune_capacities, energy_forces,
-Simulation): MB-pol water256 bulk PME in the dense electrostatics mode,
-and water4096 (the water256 fixture repeated 2 x 2 x 4, 16,384 sites) in
-the block-sparse mode that 'auto' picks above 2560 waters on a card. It
-builds the hand-written CUDA kernels from csrc/ and holds each against its
-plain PyTorch twin at the shapes its path gives it.
+Drives the port's paths on one CUDA card, in float32, through the entry
+points a user calls (MBPol, tune_capacities, energy_forces, Simulation):
+MB-pol water256 bulk PME in the dense electrostatics mode, water4096 (the
+water256 fixture repeated 2 x 2 x 4, 16,384 sites) in the block-sparse
+mode that 'auto' picks above 2560 waters on a card, and water256 again
+with the 2B/3B polynomials evaluated by each fused kernel
+(MBPolConfig.pip_impl). It builds the hand-written CUDA kernels from csrc/
+and holds each against its plain PyTorch twin at the shapes its path gives
+it.
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit), TF32 off;
@@ -31,7 +33,20 @@ Phases (any failure raises and the script exits non-zero):
   8. water4096 MD, 200 steps under for_dynamics() after tune_capacities:
      finite energies, no list or tile overflow, healthy SCF, the
      conservation gate of phase 5 scaled to the 16 copies, each block
-     kernel launched at least once per step; steps/s.
+     kernel launched at least once per step; steps/s;
+  9. the four fused PIP kernels against their twins, for poly2b and poly3b,
+     on the variables the water256 lists give two_body/three_body and on
+     4096 seeded rows uniform in [1e-4, 1], on the bounds of
+     ops/pip_fused_check.py; device time, the twin's time and the time of
+     the default plain evaluator on the same variables;
+ 10. water256 single point under each fused pip_impl: 'quad_bf16' and
+     'vech_pallas' (the default's formula) within PIP_E_TOL_KCAL of phase
+     4's two- and three-body energies and REPLICA_F_WHOLE of its forces;
+     'quad_pallas' and 'pallas' (exp/log forms) within the golden band;
+ 11. water256 MD under for_dynamics(pip_impl=...): 200 steps under
+     'quad_bf16' with phase 5's checks and conservation gate, 20 steps
+     under each of the other three (finite, no overflow, healthy SCF); the
+     impl's kernel launched at least twice per step; steps/s.
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 
@@ -80,6 +95,7 @@ FP32_FLOPS = 67e12
 OPS_TEST, OPS_K1, OPS_K2, OPS_K3 = 25, 60, 150, 36
 SOURCE = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct.cu'
 SOURCE_BS = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct_bs.cu'
+SOURCE_PIP = 'mbpol_openmm_plugin_tpu_torch/csrc/pip_fused.cu'
 KERNELS = {   # wrapper name: (CUDA kernel name, source, the TPU kernel it replaces)
     'fixed_field_and_scf_factors': (
         'fixed_field_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:315'),
@@ -91,8 +107,23 @@ KERNELS = {   # wrapper name: (CUDA kernel name, source, the TPU kernel it repla
         'scf_field_bs_kernel', SOURCE_BS, 'mbpol_openmm_plugin_tpu/ops/elec_pallas_bs.py:209'),
     'direct_energy_force_pot_bs': (
         'direct_efp_bs_kernel', SOURCE_BS, 'mbpol_openmm_plugin_tpu/ops/elec_pallas_bs.py:249'),
+    'pip_energy_grad': (
+        'pip_monomial_kernel', SOURCE_PIP, 'mbpol_openmm_plugin_tpu/ops/pip_pallas.py:34'),
+    'pip_quad_energy_grad': (
+        'pip_quad_explog_kernel', SOURCE_PIP, 'mbpol_openmm_plugin_tpu/ops/pip_pallas.py:105'),
+    'pip_quad_product_energy_grad': (
+        'pip_quad_product_kernel', SOURCE_PIP, 'mbpol_openmm_plugin_tpu/ops/pip_pallas.py:250'),
+    'pip_vech_energy_grad': (
+        'pip_quad_vech_kernel', SOURCE_PIP, 'mbpol_openmm_plugin_tpu/ops/pip_pallas.py:317'),
 }
-# The kernel/twin bounds are in mbpol_openmm_plugin_tpu_torch/ops/elec_direct_check.py.
+# The kernel/twin bounds are in mbpol_openmm_plugin_tpu_torch/ops/elec_direct_check.py and
+# ops/pip_fused_check.py.
+PIP_RANDOM_ROWS = 4096
+PIP_E_TOL_KCAL = 1.0              # 2B and 3B energies, exact-product impls vs the default
+PIP_MD_STEPS_SHORT = 20
+# operations per (row, monomial) of the monomial expansion: <= 4 adds, one
+# exp, one multiply, one add for e, <= 4 adds for g
+OPS_MONO = 10
 
 
 def log(*a):
@@ -146,11 +177,11 @@ def bound(n_bytes, n_ops):
     return (max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations')
 
 
-def kernel_record(name, max_abs, ms, plain_ms, bound_ms_by):
+def kernel_record(name, max_abs, ms, plain_ms, bound_ms_by, library_ms=None):
     cuda_name, source, replaces = KERNELS[name]
     return dict(name=name, route='cuda', source=source, replaces=replaces,
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms_by[0],
-                bound_by=bound_ms_by[1], library_ms=None)
+                bound_by=bound_ms_by[1], library_ms=library_ms)
 
 
 def time_kernel(torch, card, name, kern, plain, n_plain=N_TIMING):
@@ -284,7 +315,8 @@ SINGLE_POINT = dict(nonbonded_method='PME', cutoff=0.9, target_epsilon=1e-4, nli
 
 def phase_single_point(torch, card):
     """Phase 4: water256 PME f32 single point against the golden total.
-    Returns (potential, energy kJ/mol, forces) for phase 7."""
+    Returns (potential, energy kJ/mol, forces, per-term energies) for
+    phases 7 and 10."""
     from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
     from mbpol_openmm_plugin_tpu_torch.utils import units
@@ -310,7 +342,7 @@ def phase_single_point(torch, card):
     assert not bool(diag['pair_overflow']) and not bool(diag['triplet_overflow'])
     assert abs(e_kcal - GOLDEN_KCAL) <= GOLDEN_TOL_KCAL, e_kcal
     assert all(n > 0 for n in launches.values()), launches
-    return pot, float(e), f
+    return pot, float(e), f, parts
 
 
 def second_half_fit(e_tot):
@@ -358,6 +390,7 @@ def phase_md(torch, card, record):
     assert all(n >= MD_STEPS for n in launches.values()), launches
     for name, n in launches.items():
         record[name]['launches'] = n
+    return MD_STEPS / wall
 
 
 def water4096_potential(torch, card):
@@ -521,6 +554,139 @@ def phase_md4096(torch, card, record, pot, pos):
         record[name]['launches'] = n
 
 
+def pip_variables(torch):
+    """{polynomial: x [P, V]} that two_body/three_body hand to pip_apply at
+    water256 with the lists of for_dynamics() (padded to the list
+    capacities, as in the MD phases)."""
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.models.three_body import three_body_variables
+    from mbpol_openmm_plugin_tpu_torch.models.two_body import two_body_variables
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    pot = MBPol(system, MBPolConfig.for_dynamics())
+    (pl, tl), diag = pot.build_neighbor_lists(pos)
+    with torch.no_grad():
+        x = {'poly2b': two_body_variables(system, pos, pl[0], pl[1]).contiguous(),
+             'poly3b': three_body_variables(system, pos, tl[0], tl[1]).contiguous()}
+    log(f'  water256 lists: {int(diag["n_pairs"])} pairs in {pot.pair_cap} rows, '
+        f'{int(diag["n_triplets"])} triplets in {pot.trip_cap} rows')
+    return x
+
+
+def phase_pip_kernels(torch, card, record):
+    """Phase 9: the fused PIP kernels against their twins."""
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused as PF
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused_check as check
+    from mbpol_openmm_plugin_tpu_torch.ops import polyeval
+
+    real = pip_variables(torch)
+    failures = []
+    max_abs = {k.__name__: 0.0 for k in PF.KERNELS}
+    for poly, x in real.items():
+        rng = np.random.default_rng(x.shape[1])
+        seeded = torch.as_tensor(
+            rng.uniform(1e-4, 1.0, (PIP_RANDOM_ROWS, x.shape[1])).astype(np.float32),
+            device=x.device)
+        for what, xs in (('water256', x), ('seeded', seeded)):
+            for wrapper in PF.KERNELS:
+                kname = wrapper.__name__
+                rows, err = check.kernel_rows(wrapper, poly, xs, physical=what == 'water256')
+                torch.cuda.synchronize()
+                if what == 'water256':
+                    max_abs[kname] = max(max_abs[kname], err)
+                for row in rows:
+                    log(f'  {kname:28s} {poly} {what:8s} [{xs.shape[0]:5d}] {row}')
+                    if not row.ok:
+                        failures.append(f'{kname}.{poly}.{what}.{row.output}.{row.measure}')
+
+    # the default plain evaluator of the same function on the same variables
+    library = {PF.pip_energy_grad: polyeval.pip_energy_and_grad}
+    for poly, x in real.items():
+        p, v = x.shape
+        b, nmono = polyeval.load_quad(poly)[0].shape[0], polyeval.load_pip(poly).nmono
+        io_bytes = 4 * p * (2 * v + 1)
+        bounds = {w.__name__: bound(io_bytes + 4 * b * b, 2 * p * b * b + 2 * p * b * v)
+                  for w in PF.KERNELS[1:]}
+        bounds['pip_energy_grad'] = bound(io_bytes + 5 * 4 * nmono, OPS_MONO * p * nmono)
+        for wrapper in PF.KERNELS:
+            kname = wrapper.__name__
+            lib = library.get(wrapper, polyeval.pip_quad_energy_and_grad)
+            ms, plain_ms = time_kernel(torch, card, kname, lambda: wrapper(poly, x),
+                                       lambda: PF.PLAIN[wrapper](poly, x), N_TIMING_TWIN_BS)
+            lib_ms = loop_ms(torch, lambda: lib(x, poly), N_TIMING_TWIN_BS)
+            log(f'  {kname:28s} {poly} [{p}, {v}]: bound {bounds[kname][0]:.4f} ms '
+                f'({bounds[kname][1]}); {lib.__name__} on the same variables '
+                f'{lib_ms:.4f} ms per call ({card})')
+            if poly == 'poly3b':       # the record holds the larger polynomial's shape
+                record[kname] = kernel_record(kname, max_abs[kname], ms, plain_ms,
+                                              bounds[kname], lib_ms)
+    if failures:
+        raise AssertionError(f'PIP kernel/twin mismatch: {failures}')
+
+
+def phase_pip_single_point(torch, card, e256, f256, parts256):
+    """Phase 10: the water256 single point under each fused pip_impl."""
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused as PF
+    from mbpol_openmm_plugin_tpu_torch.utils import units
+
+    kcal = units.KJ_PER_MOL_TO_KCAL_PER_MOL
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    for impl, wrapper in PF.WRAPPERS.items():
+        pot = MBPol(system, MBPolConfig(pip_impl=impl, **SINGLE_POINT))
+        PF.reset_launch_counts()
+        e, f, parts, diag = pot.energy_forces(pos)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in PF.KERNELS}
+        d2, d3 = (float(parts[k] - parts256[k]) * kcal for k in ('two_body', 'three_body'))
+        f_rel = float((f - f256).abs().max() / f256.abs().max())
+        e_kcal = float(e) * kcal
+        log(f'  pip_impl={impl!r}: total {e_kcal:.4f} kcal/mol; against the default: two-body '
+            f'{d2:+.4f}, three-body {d3:+.4f} kcal/mol, forces max |dF| / max |F| {f_rel:.3e}; '
+            f'launches {launches}')
+        assert bool(diag['converged']) and bool(torch.isfinite(f).all())
+        assert not bool(diag['pair_overflow']) and not bool(diag['triplet_overflow'])
+        assert launches == {k.__name__: 2 * (k is wrapper) for k in PF.KERNELS}, launches
+        assert abs(e_kcal - GOLDEN_KCAL) <= GOLDEN_TOL_KCAL, e_kcal
+        if impl in ('quad_bf16', 'vech_pallas'):
+            assert abs(d2) <= PIP_E_TOL_KCAL and abs(d3) <= PIP_E_TOL_KCAL, (d2, d3)
+            assert f_rel <= REPLICA_F_WHOLE, f_rel
+
+
+def phase_pip_md(torch, card, record, quad_steps_per_s):
+    """Phase 11: water256 MD under each fused pip_impl."""
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused as PF
+
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    for impl, wrapper in PF.WRAPPERS.items():
+        steps = MD_STEPS if impl == 'quad_bf16' else PIP_MD_STEPS_SHORT
+        pot = MBPol(system, MBPolConfig.for_dynamics(pip_impl=impl))
+        sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+        sim.set_positions(pos)
+        torch.cuda.synchronize()
+        PF.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sim.step(steps)         # raises on NaN, list overflow or a failed SCF
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in PF.KERNELS}
+        e_tot = out['step_total_energy']
+        log(f'  pip_impl={impl!r}: {steps} steps in {wall:.3f} s = {steps / wall:.2f} steps/s '
+            f"(phase 5, the default 'quad': {quad_steps_per_s:.2f}) ({card}); E_tot "
+            f'{e_tot[0]:.4f} -> {e_tot[-1]:.4f} kJ/mol, T_end {out["temperature"][-1]:.2f} K; '
+            f'launches {launches}')
+        assert np.all(np.isfinite(e_tot)), out
+        assert launches[wrapper.__name__] >= 2 * steps, launches
+        assert sum(launches.values()) == launches[wrapper.__name__], launches
+        if steps == MD_STEPS:
+            fit = second_half_fit(e_tot)
+            log(f'    second half: change {e_tot[-1] - e_tot[steps // 2]:+.4f}, fitted change '
+                f'{fit:+.4f} kJ/mol (bound |fit| <= {MD_FIT_TOL_KJ})')
+            assert abs(fit) <= MD_FIT_TOL_KJ, fit
+        record[wrapper.__name__]['launches'] = launches[wrapper.__name__]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -552,9 +718,9 @@ def main():
     log('== phase 3: kernels vs twins (water256, float32)')
     phase_kernels(torch, card, record)
     log('== phase 4: single point (water256 PME, float32)')
-    pot256, e256, f256 = phase_single_point(torch, card)
+    pot256, e256, f256, parts256 = phase_single_point(torch, card)
     log(f'== phase 5: MD (water256, for_dynamics, {MD_STEPS} Verlet steps at 0.2 fs)')
-    phase_md(torch, card, record)
+    quad_steps_per_s = phase_md(torch, card, record)
     log('== phase 6: block kernels vs twins (water4096, float32)')
     pot4096, pos4096 = water4096_potential(torch, card)
     phase_block_kernels(torch, card, record, pot4096, pos4096)
@@ -564,6 +730,15 @@ def main():
         f'at 0.2 fs)')
     torch.cuda.reset_peak_memory_stats()
     phase_md4096(torch, card, record, pot4096, pos4096)
+    del pot4096, pos4096
+    torch.cuda.empty_cache()
+    log('== phase 9: fused PIP kernels vs twins (water256 lists and seeded rows, float32)')
+    phase_pip_kernels(torch, card, record)
+    log('== phase 10: single point under each fused pip_impl (water256 PME, float32)')
+    phase_pip_single_point(torch, card, e256, f256, parts256)
+    log(f'== phase 11: MD under each fused pip_impl (water256, for_dynamics; {MD_STEPS} Verlet '
+        f"steps under 'quad_bf16', {PIP_MD_STEPS_SHORT} under the others)")
+    phase_pip_md(torch, card, record, quad_steps_per_s)
 
     log(card)
     log(json.dumps({'kernels': [record[k] for k in KERNELS]}))

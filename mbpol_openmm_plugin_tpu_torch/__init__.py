@@ -5,13 +5,16 @@ module names mirror it (``system``, ``models/*``, ``ops/*``, ``md/*``) so
 each function has an obvious counterpart. This package imports ``torch``
 and never ``jax``.
 
-Slice covered so far: water PME molecular dynamics in the dense
-electrostatics mode (``MBPolConfig.for_dynamics()``, velocity Verlet with
-the ASPC dipole closure). The direct-space electrostatics pair work runs in
-two hand-written CUDA kernels on CUDA float32 tensors
-(``ops/elec_direct.py``, ``csrc/elec_direct.cu``) and in their plain
-PyTorch twins on the CPU. Everything outside the slice raises
-``NotImplementedError`` pointing at ROADMAP.md.
+Slices covered so far: water PME molecular dynamics
+(``MBPolConfig.for_dynamics()``, velocity Verlet with the ASPC dipole
+closure) in the dense and the block-sparse electrostatics modes, with the
+2B/3B polynomials in plain PyTorch or, as ``MBPolConfig.pip_impl`` says,
+in a fused kernel. The direct-space electrostatics pair work and the fused
+polynomials run in hand-written CUDA kernels on CUDA float32 tensors
+(``ops/elec_direct.py``, ``ops/elec_direct_bs.py``, ``ops/pip_fused.py``;
+sources in ``csrc/``) and in their plain PyTorch twins on the CPU.
+Everything outside the slices raises ``NotImplementedError`` pointing at
+ROADMAP.md.
 
 Units follow OpenMM: nm, kJ/mol, amu, e, ps.
 """

@@ -12,7 +12,7 @@ import numpy as np
 DATA_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), 'data')
 
 TABLES = ('onebody', 'twobody_constants', 'threebody_constants', 'dms', 'forcefield',
-          'poly2b_quad', 'poly3b_quad')
+          'poly2b', 'poly3b', 'poly2b_quad', 'poly3b_quad')
 
 
 @functools.lru_cache(maxsize=None)

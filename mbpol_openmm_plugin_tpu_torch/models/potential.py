@@ -37,7 +37,7 @@ from mbpol_openmm_plugin_tpu_torch.models.one_body import one_body_energy
 from mbpol_openmm_plugin_tpu_torch.models.three_body import three_body_energy
 from mbpol_openmm_plugin_tpu_torch.models.two_body import two_body_energy
 from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
-from mbpol_openmm_plugin_tpu_torch.ops import neighbors
+from mbpol_openmm_plugin_tpu_torch.ops import neighbors, polyeval
 from mbpol_openmm_plugin_tpu_torch.system import (System, _contiguous_waters,
                                                   compute_virtual_sites,
                                                   make_molecules_whole,
@@ -54,9 +54,17 @@ DENSE_LIMIT = 512
 @dataclasses.dataclass(frozen=True)
 class MBPolConfig:
     """Static evaluation options: the JAX package's MBPolConfig fields that
-    the slice uses, with the same defaults (list compaction, reference
-    triplet semantics, PIP impl/basis and the cluster restraint are not
-    ported)."""
+    the port uses, with the same defaults (list compaction, reference
+    triplet semantics and the cluster restraint are not ported).
+
+    `pip_impl` picks the evaluator of the 2B/3B polynomials, `pip_basis`
+    the basis construction of the 'quad' impl (ops/polyeval.pip_apply):
+    pip_impl None or 'quad' (the default, plain PyTorch quadratic form),
+    'monomial' (plain monomial expansion), or a fused CUDA kernel of
+    ops/pip_fused.py: 'pallas' (monomial), 'quad_pallas' (quadratic form,
+    exp/log basis), 'quad_bf16' (exact-product basis), 'vech_pallas' (vech
+    basis); pip_basis None or 'gather', 'bf16x3', 'vech'. The names are the
+    JAX package's; on CPU tensors a fused impl evaluates its plain twin."""
     nonbonded_method: str = 'NoCutoff'
     cutoff: float = 0.9
     cutoff_2b: float = 0.65
@@ -78,6 +86,8 @@ class MBPolConfig:
     dispersion_mode: str = 'auto'
     dispersion_switch_width: float = 0.0
     scf_eps_floor: Optional[float] = None
+    pip_impl: Optional[str] = None
+    pip_basis: Optional[str] = None
     terms: tuple = ('electrostatics', 'one_body', 'two_body', 'three_body', 'dispersion')
 
     @classmethod
@@ -110,6 +120,7 @@ def _check_config(system: System, config: MBPolConfig):
         raise ValueError(f'unknown electrostatics_mode {config.electrostatics_mode!r}')
     if config.dispersion_mode not in ('auto', 'dense', 'pairs'):
         raise ValueError(f'unknown dispersion_mode {config.dispersion_mode!r}')
+    polyeval._pip_impl_choice(config.pip_impl, config.pip_basis)   # raises on unknown values
     unsupported = [
         (config.scf_method not in ('sor', 'aspc'), f'scf_method={config.scf_method!r}'),
         (system.n_ions > 0 or not _contiguous_waters(system),
@@ -262,13 +273,12 @@ class MBPol:
         parts = {}
         if 'one_body' in cfg.terms:
             parts['one_body'] = torch.sum(one_body_energy(water_positions(sys_, pos)))
-        pl, tl = nlists if nlists is not None else (None, None)
+        pl, tl = nlists if nlists is not None else ((None, None), (None, None))
+        pip = (cfg.pip_impl, cfg.pip_basis)
         if 'two_body' in cfg.terms:
-            parts['two_body'] = (two_body_energy(sys_, pos, pl[0], pl[1]) if pl is not None
-                                 else two_body_energy(sys_, pos))
+            parts['two_body'] = two_body_energy(sys_, pos, pl[0], pl[1], pip=pip)
         if 'three_body' in cfg.terms:
-            parts['three_body'] = (three_body_energy(sys_, pos, tl[0], tl[1])
-                                   if tl is not None else three_body_energy(sys_, pos))
+            parts['three_body'] = three_body_energy(sys_, pos, tl[0], tl[1], pip=pip)
         if 'dispersion' in cfg.terms:
             sw = cfg.dispersion_switch_width
             if disp_pairs is not None:

@@ -2,9 +2,10 @@
 (port of mbpol_openmm_plugin_tpu/models/three_body.py).
 
 36 exponential variables over all intra/inter atom pairs feed the poly3b
-quadratic form; the switch product s = sab*sac + sab*sbc + sac*sbc of
-cosine switches on [0, 4.5] A makes any superset of the >=2-edge triplets
-give identical energies. Early exit if any O-O distance < 2 A.
+polynomial (ops/polyeval.pip_apply); the switch product
+s = sab*sac + sab*sbc + sac*sbc of cosine switches on [0, 4.5] A makes any
+superset of the >=2-edge triplets give identical energies. Early exit if
+any O-O distance < 2 A.
 """
 import functools
 import itertools
@@ -42,9 +43,10 @@ def _image_triplet(pos_a, pos_b, pos_c, box):
     return tuple(out)
 
 
-def three_body_energy_triplets(pos_a, pos_b, pos_c, valid):
-    """Three-body energies [T] in kcal/mol for monomer triplets [T, 3, 3]
-    (Angstrom, imaged); `valid` [T] masks padded entries."""
+def triplet_variables(pos_a, pos_b, pos_c, valid):
+    """(polynomial variables x [T, 36], (rab, rac, rbc) [T] each, active [T])
+    for monomer triplets [T, 3, 3] (Angstrom, imaged); `valid` [T] masks
+    padded entries."""
     c = _consts()
     dt, dev = pos_a.dtype, pos_a.device
     oa, ha1, ha2 = pos_a[:, 0], pos_a[:, 1], pos_a[:, 2]
@@ -90,8 +92,18 @@ def three_body_energy_triplets(pos_a, pos_b, pos_c, valid):
         var(kOH, dOH, oc, hb1), var(kOH, dOH, oc, hb2),
         var(kOO, dOO, oa, ob), var(kOO, dOO, oa, oc), var(kOO, dOO, ob, oc),
     ], dim=-1)
+    return x, (rab, rac, rbc), active
 
-    e_poly = pip_apply('poly3b', x)
+
+def three_body_energy_triplets(pos_a, pos_b, pos_c, valid, pip=None):
+    """Three-body energies [T] in kcal/mol for monomer triplets [T, 3, 3]
+    (Angstrom, imaged); `valid` [T] masks padded entries; `pip`: optional
+    (impl, basis) of the polynomial evaluator (MBPolConfig.pip_impl/
+    pip_basis; None entries = the defaults)."""
+    c = _consts()
+    x, (rab, rac, rbc), active = triplet_variables(pos_a, pos_b, pos_c, valid)
+    impl, basis = pip or (None, None)
+    e_poly = pip_apply('poly3b', x, impl=impl, basis=basis)
     sab = f_switch(rab, c['r3i'], c['r3f'])
     sac = f_switch(rac, c['r3i'], c['r3f'])
     sbc = f_switch(rbc, c['r3i'], c['r3f'])
@@ -99,12 +111,9 @@ def three_body_energy_triplets(pos_a, pos_b, pos_c, valid):
     return torch.where(active, s * e_poly, 0.0)
 
 
-def three_body_energy(system: System, positions, triplets=None, triplet_mask=None):
-    """Total three-body energy in kJ/mol.
-
-    triplets: optional [T, 3] integer tensor of water index triplets
-    (default: all i<j<k); triplet_mask: optional [T] bool.
-    """
+def _imaged_triplets(system: System, positions, triplets, triplet_mask):
+    """(pos_a, pos_b, pos_c [T, 3, 3] Angstrom, imaged; triplet_mask [T]) of
+    the listed water triplets (default: all i<j<k)."""
     dev = positions.device
     wpos = water_positions(system, positions) * units.NM_TO_ANGSTROM
     if triplets is None:
@@ -119,5 +128,22 @@ def three_body_energy(system: System, positions, triplets=None, triplet_mask=Non
     if system.periodic:
         box_a = box_tensor(system.box, positions) * units.NM_TO_ANGSTROM
         pos_a, pos_b, pos_c = _image_triplet(pos_a, pos_b, pos_c, box_a)
-    e_kcal = three_body_energy_triplets(pos_a, pos_b, pos_c, triplet_mask)
+    return pos_a, pos_b, pos_c, triplet_mask
+
+
+def three_body_variables(system: System, positions, triplets=None, triplet_mask=None):
+    """The polynomial variables x [T, 36] that `three_body_energy` evaluates
+    for these arguments (padded entries hold the substitute geometry)."""
+    return triplet_variables(*_imaged_triplets(system, positions, triplets, triplet_mask))[0]
+
+
+def three_body_energy(system: System, positions, triplets=None, triplet_mask=None, pip=None):
+    """Total three-body energy in kJ/mol.
+
+    triplets: optional [T, 3] integer tensor of water index triplets
+    (default: all i<j<k); triplet_mask: optional [T] bool; pip: optional
+    (impl, basis) of the polynomial evaluator.
+    """
+    e_kcal = three_body_energy_triplets(
+        *_imaged_triplets(system, positions, triplets, triplet_mask), pip=pip)
     return torch.sum(e_kcal) * units.KCAL_PER_MOL_TO_KJ_PER_MOL

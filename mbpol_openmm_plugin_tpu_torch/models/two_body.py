@@ -3,7 +3,8 @@
 
 Active for 2 A < rOO <= 6.5 A with a cosine switch on rOO in [4.5, 6.5] A;
 31 exponential/coulomb-type variables over atom and lone-pair sites feed
-the poly2b quadratic form. Forces come from autograd of the energy.
+the poly2b polynomial (ops/polyeval.pip_apply). Forces come from autograd
+of the energy.
 """
 import functools
 
@@ -65,9 +66,10 @@ def safe_norm(d, eps=1e-12):
     return torch.sqrt(torch.clamp_min(torch.sum(d * d, dim=-1), eps))
 
 
-def two_body_energy_pairs(pos_a, pos_b, valid):
-    """Two-body energies [P] in kcal/mol for monomer pairs [P, 3, 3]
-    (Angstrom, already imaged); `valid` [P] masks padded entries."""
+def pair_variables(pos_a, pos_b, valid):
+    """(polynomial variables x [P, 31], rOO [P], active [P]) for monomer
+    pairs [P, 3, 3] (Angstrom, already imaged); `valid` [P] masks padded
+    entries."""
     c = _consts()
     oa, ha1, ha2 = pos_a[:, 0], pos_a[:, 1], pos_a[:, 2]
 
@@ -129,8 +131,18 @@ def two_body_energy_pairs(pos_a, pos_b, valid):
         v_exp_inter(c['k_XX_main'], xa2, xb1),
         v_exp_inter(c['k_XX_main'], xa2, xb2),
     ], dim=-1)
+    return x, roo, active
 
-    e_poly = pip_apply('poly2b', x)
+
+def two_body_energy_pairs(pos_a, pos_b, valid, pip=None):
+    """Two-body energies [P] in kcal/mol for monomer pairs [P, 3, 3]
+    (Angstrom, already imaged); `valid` [P] masks padded entries; `pip`:
+    optional (impl, basis) of the polynomial evaluator
+    (MBPolConfig.pip_impl/pip_basis; None entries = the defaults)."""
+    c = _consts()
+    x, roo, active = pair_variables(pos_a, pos_b, valid)
+    impl, basis = pip or (None, None)
+    e_poly = pip_apply('poly2b', x, impl=impl, basis=basis)
     sw = f_switch(roo, c['r2i'], c['r2f'])
     return torch.where(active, sw * e_poly, 0.0)
 
@@ -140,12 +152,9 @@ def all_pairs(n):
     return np.stack([ii, jj], axis=1)
 
 
-def two_body_energy(system: System, positions, pairs=None, pair_mask=None):
-    """Total two-body energy in kJ/mol.
-
-    positions: [natoms, 3] nm. pairs: optional [P, 2] integer tensor of
-    water index pairs (default: all i<j); pair_mask: optional [P] bool.
-    """
+def _imaged_pairs(system: System, positions, pairs, pair_mask):
+    """(pos_a, pos_b [P, 3, 3] Angstrom, imaged; pair_mask [P]) of the
+    listed water pairs (default: all i<j)."""
     dev = positions.device
     wpos = water_positions(system, positions) * units.NM_TO_ANGSTROM
     if pairs is None:
@@ -158,5 +167,21 @@ def two_body_energy(system: System, positions, pairs=None, pair_mask=None):
     if system.periodic:
         box_a = box_tensor(system.box, positions) * units.NM_TO_ANGSTROM
         pos_a, pos_b = _image_pair(pos_a, pos_b, box_a)
-    e_kcal = two_body_energy_pairs(pos_a, pos_b, pair_mask)
+    return pos_a, pos_b, pair_mask
+
+
+def two_body_variables(system: System, positions, pairs=None, pair_mask=None):
+    """The polynomial variables x [P, 31] that `two_body_energy` evaluates
+    for these arguments (padded entries hold the substitute geometry)."""
+    return pair_variables(*_imaged_pairs(system, positions, pairs, pair_mask))[0]
+
+
+def two_body_energy(system: System, positions, pairs=None, pair_mask=None, pip=None):
+    """Total two-body energy in kJ/mol.
+
+    positions: [natoms, 3] nm. pairs: optional [P, 2] integer tensor of
+    water index pairs (default: all i<j); pair_mask: optional [P] bool;
+    pip: optional (impl, basis) of the polynomial evaluator.
+    """
+    e_kcal = two_body_energy_pairs(*_imaged_pairs(system, positions, pairs, pair_mask), pip=pip)
     return torch.sum(e_kcal) * units.KCAL_PER_MOL_TO_KJ_PER_MOL

@@ -1,13 +1,14 @@
 """Where the time of an MD step goes, on one CUDA card.
 
     python -m mbpol_openmm_plugin_tpu_torch.tools.step_breakdown [--waters 256|4096]
-        [--reps 10] [--steps 20] [--out FILE]
+        [--pip-impl IMPL] [--reps 10] [--steps 20] [--out FILE]
 
 At the production operating point (MBPolConfig.for_dynamics(), float32)
 on the tests/fixtures water256 box (analytic list capacities, dense
 electrostatics) or on water4096, that box repeated 2 x 2 x 4 (after
 tune_capacities; 'auto' picks block electrostatics and pair dispersion),
-it reports:
+with the 2B/3B polynomials evaluated by --pip-impl (MBPolConfig.pip_impl;
+default: the plain 'quad' evaluator), it reports:
 
 1. pieces of one warm evaluation, each the median of --reps calls timed on
    the host clock around a synchronized call: the whole evaluation with
@@ -80,6 +81,7 @@ def pieces(pot, pos, reps):
     from mbpol_openmm_plugin_tpu_torch.system import compute_virtual_sites, water_positions
 
     sys_, cfg, params = pot.system, pot.config, pot.elec_params
+    pip = (cfg.pip_impl, cfg.pip_basis)
     (pl, tl), _ = pot.build_neighbor_lists(pos)
     mu0 = pot._energy_forces_impl(pos)[3]['induced_dipoles']
     pos_v = compute_virtual_sites(sys_, pos)
@@ -114,9 +116,11 @@ def pieces(pot, pos, reps):
                                                tables=pot._site_tables())),
         'DMS charges + dq/dr': no_grad(lambda: elec.assemble_charges(params, pos_v)),
         'three-body fwd+bwd': _fwd_bwd(
-            lambda p: three_body_energy(sys_, compute_virtual_sites(sys_, p), tl[0], tl[1]), pos),
+            lambda p: three_body_energy(sys_, compute_virtual_sites(sys_, p), tl[0], tl[1],
+                                        pip=pip), pos),
         'two-body fwd+bwd': _fwd_bwd(
-            lambda p: two_body_energy(sys_, compute_virtual_sites(sys_, p), pl[0], pl[1]), pos),
+            lambda p: two_body_energy(sys_, compute_virtual_sites(sys_, p), pl[0], pl[1],
+                                      pip=pip), pos),
         'one-body fwd+bwd': _fwd_bwd(
             lambda p: torch.sum(one_body_energy(water_positions(sys_, p))), pos),
         disp[0]: disp[1],
@@ -173,6 +177,9 @@ def profiled_steps(sim, n):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--waters', type=int, choices=(256, 4096), default=256)
+    ap.add_argument('--pip-impl', default=None,
+                    help="MBPolConfig.pip_impl: 'quad' (default), 'monomial', 'pallas', "
+                         "'quad_pallas', 'quad_bf16' or 'vech_pallas'")
     ap.add_argument('--reps', type=int, default=10)
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--out', default=None)
@@ -193,10 +200,11 @@ def main(argv=None):
     if args.waters == 4096:
         system, pos = replicate(system, pos, (2, 2, 4))
     pos = compute_virtual_sites(system, pos)
-    pot = MBPol(system, MBPolConfig.for_dynamics())
+    pot = MBPol(system, MBPolConfig.for_dynamics(pip_impl=args.pip_impl))
     if args.waters == 4096:
         pot.tune_capacities(pos)
-    print(f'water{system.n_waters}: electrostatics {pot.elec_mode}, dispersion {pot.disp_mode}')
+    print(f'water{system.n_waters}: electrostatics {pot.elec_mode}, dispersion {pot.disp_mode}, '
+          f'pip_impl {args.pip_impl or "quad"}')
 
     ms = pieces(pot, pos, args.reps)
     print(f'pieces of one evaluation, median of {args.reps} synchronized calls ({card}):')
@@ -220,7 +228,8 @@ def main(argv=None):
     for key, (c, us) in top:
         print(f'  {c:7d} {us / 1e3:9.3f}  {key[:90]}')
     result = dict(card=card, waters=system.n_waters, elec_mode=pot.elec_mode,
-                  disp_mode=pot.disp_mode, reps=args.reps, steps=n, pieces_ms=ms,
+                  disp_mode=pot.disp_mode, pip_impl=args.pip_impl or 'quad', reps=args.reps,
+                  steps=n, pieces_ms=ms,
                   step_wall_ms=step_ms,
                   kernels_per_step=launches, device_ms_per_step=dev_ms,
                   busy_share=dev_ms / step_ms,

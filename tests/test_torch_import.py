@@ -30,6 +30,8 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.ops.elec_direct',
     'mbpol_openmm_plugin_tpu_torch.ops.elec_direct_bs',
     'mbpol_openmm_plugin_tpu_torch.ops.elec_direct_check',
+    'mbpol_openmm_plugin_tpu_torch.ops.pip_fused',
+    'mbpol_openmm_plugin_tpu_torch.ops.pip_fused_check',
     'mbpol_openmm_plugin_tpu_torch.ops._build',
     'mbpol_openmm_plugin_tpu_torch.md.integrators',
     'mbpol_openmm_plugin_tpu_torch.md.simulation',

@@ -2,7 +2,9 @@
 PyTorch twins on a CUDA card, float32, at water50 and water256; the
 block-sparse kernels of ops/elec_direct_bs against theirs at water1024
 (the water256 fixture repeated 2 x 2 x 1, 16 row tiles, sorted as
-tune_capacities sorts it); and the card's row gather (ops/gather.py).
+tune_capacities sorts it); the fused PIP kernels of ops/pip_fused against
+theirs on seeded variables and on the water256 lists' variables; and the
+card's row gather (ops/gather.py).
 
 Needs a card: each test skips without one. This file imports no jax, so
 on a machine without jax it runs without the suite's conftest:
@@ -10,7 +12,7 @@ on a machine without jax it runs without the suite's conftest:
     python -m pytest --noconftest -c tests/pytest.ini -m cuda tests/test_torch_kernels_cuda.py
 
 The entry sets and bounds are those of chip_smoke.py, from
-ops/elec_direct_check.py.
+ops/elec_direct_check.py and ops/pip_fused_check.py.
 """
 import os
 
@@ -159,3 +161,58 @@ def test_gather_rows_on_the_card_is_exact_and_deterministic(cuda, masked):
     keep = slice(None) if mask is None else mask
     ref = torch.zeros_like(table).index_add_(0, idx[keep], w[keep])
     torch.testing.assert_close(grads[0], ref, rtol=1e-5, atol=1e-4)
+
+
+def _pip_variables(name, source, cuda):
+    """[P, V] float32 on the card: 'seeded' rows uniform in [1e-4, 1] (a
+    count that is no multiple of the kernels' 32-row tile), or the
+    variables the water256 lists give the two-/three-body term."""
+    from mbpol_openmm_plugin_tpu_torch.ops import polyeval
+    if source == 'seeded':
+        nv = polyeval.load_pip(name).nvars
+        x = np.random.default_rng(nv).uniform(1e-4, 1.0, (4096 + 17, nv)).astype(np.float32)
+        return torch.as_tensor(x, device=cuda)
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol
+    from mbpol_openmm_plugin_tpu_torch.models.three_body import three_body_variables
+    from mbpol_openmm_plugin_tpu_torch.models.two_body import two_body_variables
+    fname, box, _ = SYSTEMS['water256']
+    with np.load(os.path.join(FIXTURES, fname + '.npz')) as z:
+        sys_ = System.from_atom_names(z['names'], z['resnames'], box=[box] * 3)
+        pos = torch.as_tensor(np.array(z['positions']), dtype=torch.float32, device=cuda)
+    pos = compute_virtual_sites(sys_, make_molecules_whole(sys_, pos))
+    (pl, tl), _ = MBPol(sys_, MBPolConfig.for_dynamics()).build_neighbor_lists(pos)
+    if name == 'poly2b':
+        return two_body_variables(sys_, pos, pl[0], pl[1]).contiguous()
+    return three_body_variables(sys_, pos, tl[0], tl[1]).contiguous()
+
+
+PIP_IMPLS = ('pallas', 'quad_pallas', 'quad_bf16', 'vech_pallas')
+
+
+@pytest.mark.parametrize('source', ['seeded', 'water256'])
+@pytest.mark.parametrize('name', ['poly2b', 'poly3b'])
+@pytest.mark.parametrize('impl', PIP_IMPLS)
+def test_pip_kernel_matches_twin(cuda, impl, name, source):
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused, pip_fused_check
+    wrapper = pip_fused.WRAPPERS[impl]
+    x = _pip_variables(name, source, cuda)
+    before = wrapper.launches
+    rows, _ = pip_fused_check.kernel_rows(wrapper, name, x, physical=source == 'water256')
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    _assert_rows(rows)
+
+
+@pytest.mark.parametrize('impl', PIP_IMPLS)
+def test_pip_kernel_is_bitwise_reproducible_and_refuses_float64(cuda, impl):
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused
+    wrapper = pip_fused.WRAPPERS[impl]
+    x = _pip_variables('poly3b', 'seeded', cuda)
+    e0, g0 = wrapper('poly3b', x)
+    e1, g1 = wrapper('poly3b', x)
+    assert torch.equal(e0, e1) and torch.equal(g0, g1)
+    # a tail tile's rows do not depend on the batch around them
+    e2, g2 = wrapper('poly3b', x[:45].contiguous())
+    assert torch.equal(e2, e0[:45]) and torch.equal(g2, g0[:45])
+    with pytest.raises(TypeError):
+        wrapper('poly3b', x.double())
