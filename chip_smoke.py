@@ -14,7 +14,7 @@ it.
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit), TF32 off;
   2. kernel build (one nvcc per source, in parallel; timed, with the
-     compiler's resource report);
+     compiler's resource report and warnings);
   3. the dense kernels K1/K2 against their twins on the water256 fixture,
      on the entry sets and bounds of ops/elec_direct_check.py; device time
      (torch.profiler) and the twin's time per call;
@@ -38,7 +38,11 @@ Phases (any failure raises and the script exits non-zero):
      on the variables the water256 lists give two_body/three_body and on
      4096 seeded rows uniform in [1e-4, 1], on the bounds of
      ops/pip_fused_check.py; device time, the twin's time and the time of
-     the default plain evaluator on the same variables;
+     the default plain evaluator on the same variables. The two tensor-core
+     kernels (exp/log and exact-product quadratic forms) are bounded by
+     their six bf16 passes at the tensor cores' dense peak plus their CUDA-
+     core work, and log kernel / library, effective TFLOP/s, blocks and
+     waves at both batches. Every kernel's time is held above its bound;
  10. water256 single point under each fused pip_impl: 'quad_bf16' and
      'vech_pallas' (the default's formula) within PIP_E_TOL_KCAL of phase
      4's two- and three-body energies and REPLICA_F_WHOLE of its forces;
@@ -84,9 +88,11 @@ REPLICA_F_REL = 1e-3
 REPLICA_F_WHOLE = 6e-3
 N_TIMING = 20
 N_TIMING_TWIN_BS = 3              # the block twins take ~0.1-1 s per call
-# H100 SXM peaks: HBM bytes/s, fp32 FLOP/s
+# H100 SXM peaks: HBM bytes/s, fp32 FLOP/s on the CUDA cores, dense bf16
+# FLOP/s on the tensor cores
 HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
+BF16_TENSOR_FLOPS = 989e12
 # operations per site pair, each arithmetic operation or transcendental
 # counted once: the cutoff test of every candidate pair (3 differences,
 # minimum image, r^2, sqrt, compare), the rest of the chain per in-cutoff
@@ -124,6 +130,15 @@ PIP_MD_STEPS_SHORT = 20
 # operations per (row, monomial) of the monomial expansion: <= 4 adds, one
 # exp, one multiply, one add for e, <= 4 adds for g
 OPS_MONO = 10
+# the tensor-core quadratic forms: bf16 passes of the W product (2 P B^2
+# operations each), and CUDA-core operations per (row, basis element): the
+# basis value (a multiply; exp/log: an add and an exp), the 3-way bf16 split
+# (3 roundings, 2 widenings, 2 subtractions) and the epilogue (m2 wm, its
+# double, the energy sum) and the 3-way split of z; the gradient z @ F is
+# three more bf16 passes of 2 P B V operations (F is exact in bf16)
+QUAD_PASSES, QUAD_GRAD_PASSES = 6, 3
+OPS_QUAD_ELEM = {'pip_quad_energy_grad': 2 + 7 + 3 + 7,
+                 'pip_quad_product_energy_grad': 1 + 7 + 3 + 7}
 
 
 def log(*a):
@@ -170,15 +185,21 @@ def loop_ms(torch, fn, n=N_TIMING):
     return start.elapsed_time(end) / n
 
 
-def bound(n_bytes, n_ops):
-    """(least time in ms the card could take, 'bytes' or 'operations'):
-    the larger of bytes over HBM_BPS and operations over FP32_FLOPS."""
-    t_bytes, t_ops = n_bytes / HBM_BPS, n_ops / FP32_FLOPS
-    return (max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else 'operations')
+def bound(n_bytes, n_ops, n_tensor_ops=0, tensor_scheme=None):
+    """(least time in ms the card could take, what bounds it): the larger
+    of bytes over HBM_BPS and the operations' time, which is the CUDA-core
+    operations over FP32_FLOPS plus, for a tensor-core kernel, the bf16
+    operations of the passes it issues over BF16_TENSOR_FLOPS (then named
+    'operations (<scheme>)')."""
+    t_bytes = n_bytes / HBM_BPS
+    t_ops = n_ops / FP32_FLOPS + n_tensor_ops / BF16_TENSOR_FLOPS
+    by = 'operations' + (f' ({tensor_scheme})' if n_tensor_ops else '')
+    return (max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else by)
 
 
 def kernel_record(name, max_abs, ms, plain_ms, bound_ms_by, library_ms=None):
     cuda_name, source, replaces = KERNELS[name]
+    assert ms >= bound_ms_by[0], (name, ms, bound_ms_by)    # faster than the bound: a wrong count
     return dict(name=name, route='cuda', source=source, replaces=replaces,
                 max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms_by[0],
                 bound_by=bound_ms_by[1], library_ms=library_ms)
@@ -600,22 +621,39 @@ def phase_pip_kernels(torch, card, record):
 
     # the default plain evaluator of the same function on the same variables
     library = {PF.pip_energy_grad: polyeval.pip_energy_and_grad}
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
     for poly, x in real.items():
         p, v = x.shape
         b, nmono = polyeval.load_quad(poly)[0].shape[0], polyeval.load_pip(poly).nmono
         io_bytes = 4 * p * (2 * v + 1)
-        bounds = {w.__name__: bound(io_bytes + 4 * b * b, 2 * p * b * b + 2 * p * b * v)
-                  for w in PF.KERNELS[1:]}
-        bounds['pip_energy_grad'] = bound(io_bytes + 5 * 4 * nmono, OPS_MONO * p * nmono)
+        fp32_bound = bound(io_bytes + 4 * b * b, 2 * p * b * b + 2 * p * b * v)
+        bounds = {'pip_vech_energy_grad': fp32_bound,
+                  'pip_energy_grad': bound(io_bytes + 5 * 4 * nmono, OPS_MONO * p * nmono)}
+        tables = PF.quad_kernel_tables(poly)
+        table_bytes = sum(2 * int(np.prod(t.shape)) for t in tables)
+        for kname, elem in OPS_QUAD_ELEM.items():
+            bounds[kname] = bound(io_bytes + table_bytes, p * (b * elem + v),
+                                  2 * p * b * (QUAD_PASSES * b + QUAD_GRAD_PASSES * v),
+                                  f'bf16 x {QUAD_PASSES}')
         for wrapper in PF.KERNELS:
             kname = wrapper.__name__
             lib = library.get(wrapper, polyeval.pip_quad_energy_and_grad)
             ms, plain_ms = time_kernel(torch, card, kname, lambda: wrapper(poly, x),
                                        lambda: PF.PLAIN[wrapper](poly, x), N_TIMING_TWIN_BS)
-            lib_ms = loop_ms(torch, lambda: lib(x, poly), N_TIMING_TWIN_BS)
+            lib_ms = loop_ms(torch, lambda: lib(x, poly))
             log(f'  {kname:28s} {poly} [{p}, {v}]: bound {bounds[kname][0]:.4f} ms '
                 f'({bounds[kname][1]}); {lib.__name__} on the same variables '
                 f'{lib_ms:.4f} ms per call ({card})')
+            if kname in OPS_QUAD_ELEM:
+                blocks, waves = PF.quad_launch_shape(p, n_sms)
+                log(f'  {kname:28s} {poly} [{p}, {v}]: kernel {ms:.4f} ms, bound '
+                    f'{bounds[kname][0]:.4f} ms (as plain fp32 operations it was '
+                    f'{fp32_bound[0]:.4f} ms), twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, '
+                    f'kernel / library {ms / lib_ms:.3f}, '
+                    f'{2.0 * p * b * b / ms / 1e9:.1f} TFLOP/s effective (2 P B^2 over the '
+                    f'kernel time), {blocks} blocks = {waves:.2f} waves of '
+                    f'{PF.QUAD_BLOCKS_PER_SM} x {n_sms} ({card})')
+            assert ms >= bounds[kname][0], (kname, poly, ms, bounds[kname])
             if poly == 'poly3b':       # the record holds the larger polynomial's shape
                 record[kname] = kernel_record(kname, max_abs[kname], ms, plain_ms,
                                               bounds[kname], lib_ms)
@@ -711,7 +749,7 @@ def main():
     path = _build.build()
     log(f'  built {os.path.relpath(path, REPO)} in {time.perf_counter() - t0:.2f} s')
     for line in _build.build_log().splitlines():
-        if 'registers' in line or 'spill' in line or 'Compiling' in line:
+        if any(w in line for w in ('registers', 'spill', 'Compiling', 'arning')):
             log('  ' + line.strip())
 
     record = {}

@@ -122,8 +122,9 @@ def load():
     # fused PIP kernels (csrc/pip_fused.cu): x, p, v, tables..., e, g, stream
     lib.mbpol_pip_monomial.argtypes = [ptr, i32, i32, ptr, ptr, i32, ptr, ptr, ptr]
     lib.mbpol_pip_monomial.restype = i32
+    # x, p, v, bp, idx, W tiles, F tiles, e, g, stream
     for fn in (lib.mbpol_pip_quad_explog, lib.mbpol_pip_quad_product):
-        fn.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr, ptr, ptr]
+        fn.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, ptr]
         fn.restype = i32
     lib.mbpol_pip_quad_vech.argtypes = [ptr, i32, i32, i32, ptr, ptr, ptr, ptr]
     lib.mbpol_pip_quad_vech.restype = i32

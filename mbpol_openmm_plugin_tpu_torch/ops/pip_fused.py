@@ -18,8 +18,13 @@ mbpol_openmm_plugin_tpu/ops/pip_pallas.py).
 All take `name` ('poly2b' | 'poly3b') and x [P, V] and return (e [P],
 g [P, V]). The design of the kernels is in csrc/pip_fused.cu. The TPU
 layouts do not come along (no lane padding, no energy column, no padded
-copy of x), nor do the bf16 multi-pass products: the kernels are plain
-fp32.
+copy of x). The monomial and vech kernels are plain fp32 on the CUDA
+cores. The exp/log and exact-product kernels run the product m2 @ W on
+the tensor cores as the six highest cross products of exact 3-way bf16
+splits of m2 and W, summed in float32 (`split_product`, the scheme of the
+JAX kernels' `_dot6`), and the gradient contraction z @ F as three exact
+bf16 passes over the split of z (their `_dot3`); W's splits and F are laid
+out once on the host in the tiles the kernel streams (`quad_kernel_tables`).
 
 Dispatch: a CPU tensor goes to the wrapper's own plain twin (`*_plain`); a
 CUDA float32 tensor goes to the kernel; anything else raises. There is no
@@ -40,6 +45,10 @@ from mbpol_openmm_plugin_tpu_torch.ops.elec_direct import _check, _on_kernel, _s
 
 MONO_SLOTS = 4           # factor slots per monomial (total degree <= 4)
 PLAIN_CHUNK = 1024       # rows per chunk of the monomial twin
+# Tiling of the tensor-core quadratic-form kernels (csrc/pip_fused.cu): W
+# streams in tiles of K_TILE basis rows x N_CHUNK output columns; F, for the
+# gradient z @ F, in tiles of K_TILE basis rows x V_PAD variables.
+K_TILE, N_CHUNK, V_PAD = 16, 176, 40
 
 
 # ----------------------------------------------------------------------
@@ -66,19 +75,6 @@ def monomial_factors(name):
 
 
 @functools.lru_cache(maxsize=None)
-def gradient_lists(name):
-    """(ptr [V+1], rows) int32: for each variable a, the basis rows k with
-    F[k, a] > 0 in ascending order, a row listed F[k, a] times, so that
-    (z @ F)[a] = sum of z over rows[ptr[a]:ptr[a+1]]."""
-    F, _ = polyeval.load_quad(name)
-    rows, ptr = [], [0]
-    for a in range(F.shape[1]):
-        rows.append(np.repeat(np.arange(F.shape[0]), F[:, a]))
-        ptr.append(ptr[-1] + len(rows[-1]))
-    return np.asarray(ptr, np.int32), np.concatenate(rows).astype(np.int32)
-
-
-@functools.lru_cache(maxsize=None)
 def vech_w(name):
     """W in the natural vech order; raises for an asymmetric W (the kernel
     computes m2 @ W where the transposed layout means W @ m2, and
@@ -89,21 +85,75 @@ def vech_w(name):
     return W
 
 
+def split_w(W):
+    """The exact 3-way bf16 split of float32(W): (w1, w2, w3) bfloat16 with
+    w1 + w2 + w3 == float32(W) bit for bit."""
+    return polyeval._split3_bf16(torch.as_tensor(np.asarray(W), dtype=torch.float32))
+
+
+def _core_tiles(m, n_group):
+    """A [K, N] bfloat16 B operand in the K-major core-matrix layout of
+    `wgmma`, N in groups of n_group columns: [N group][K tile of K_TILE]
+    [group of 8 columns][half of 8 rows][column][row], the [8 columns]
+    [8 rows] blocks (128 bytes) being the core matrices."""
+    k, n = m.shape
+    tiles = m.reshape(k // K_TILE, 2, 8, n // n_group, n_group // 8, 8)
+    return tiles.permute(3, 0, 4, 1, 5, 2)
+
+
+@functools.lru_cache(maxsize=None)
+def quad_kernel_tables(name):
+    """Host tables of the tensor-core quadratic-form kernels:
+
+      idx [Bp] uint16 (numpy)
+            factor indices ia | ib << 8 of basis row k (m2_k = xa[ia] *
+            xa[ib]); rows B..Bp, the padding to a multiple of N_CHUNK, hold
+            V | V << 8 (1 * 1);
+      wtiles bfloat16 [Bp / N_CHUNK, Bp / K_TILE, 3, N_CHUNK / 8, 2, 8, 8]
+            W padded with zeros to [Bp, Bp], split 3 ways (`split_w`) and cut
+            into the tiles the kernel streams, in streaming order: [chunk of
+            N_CHUNK columns][tile of K_TILE rows][part], each part of a tile
+            in the layout of `_core_tiles`;
+      ftiles bfloat16 [Bp / N_CHUNK, N_CHUNK / K_TILE, V_PAD / 8, 2, 8, 8]
+            F (entries 0, 1, 2: exact in bfloat16) padded with zeros to
+            [Bp, V_PAD], its rows cut by chunk and K_TILE: [chunk][tile]
+            then the layout of `_core_tiles`, for the gradient z @ F."""
+    F, W = polyeval.load_quad(name)
+    ia, ib = polyeval._quad_factor_indices(name)
+    b, v = F.shape
+    bp = -(-b // N_CHUNK) * N_CHUNK
+    if v > V_PAD or F.max() > 2:
+        raise ValueError(f'{name}: {v} variables / basis exponent {F.max()} do not fit the '
+                         'kernel tables')
+    idx = np.full(bp, v | v << 8, np.uint16)
+    idx[:b] = ia | ib << 8
+    Wp = np.zeros((bp, bp), np.float32)
+    Wp[:b, :b] = W
+    wtiles = torch.stack([_core_tiles(part, N_CHUNK) for part in split_w(Wp)], dim=2)
+    Fp = torch.zeros(bp, V_PAD, dtype=torch.bfloat16)
+    Fp[:b, :v] = torch.as_tensor(F, dtype=torch.bfloat16)
+    ftiles = _core_tiles(Fp, V_PAD)[0].reshape(bp // N_CHUNK, N_CHUNK // K_TILE, V_PAD // 8,
+                                               2, 8, 8)
+    return idx, wtiles.contiguous(), ftiles.contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def _device_tables(name, kind, dtype, device):
     """Device-resident tables of one polynomial: kind 'monomial' (factors
-    uint8 [nmono, 4], c), 'quad' (ia, ib int32 [B], W, ptr, rows) or
-    'vech' (W_nat,)."""
+    uint8 [nmono, 4], c), 'quad' (the kernel tables of `quad_kernel_tables`,
+    idx as int16 bits), 'split' (F and the three splits of W as
+    `dtype`, for the twins) or 'vech' (W_nat,)."""
     def dev(a, dt=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
     if kind == 'monomial':
         factors, c = monomial_factors(name)
         return dev(factors), dev(c, dtype)
     if kind == 'quad':
-        ia, ib = polyeval._quad_factor_indices(name)
-        ptr, rows = gradient_lists(name)
-        return (dev(ia, torch.int32), dev(ib, torch.int32),
-                dev(polyeval.load_quad(name)[1], dtype), dev(ptr), dev(rows))
+        idx, wtiles, ftiles = quad_kernel_tables(name)
+        return dev(idx.view(np.int16)), wtiles.to(device), ftiles.to(device)
+    if kind == 'split':
+        F, W = polyeval.load_quad(name)
+        return dev(F, dtype), tuple(w.to(device=device, dtype=dtype) for w in split_w(W))
     if kind == 'vech':
         return (dev(vech_w(name), dtype),)
     raise ValueError(kind)
@@ -132,14 +182,39 @@ def pip_energy_grad_plain(name, x):
     return torch.cat(e_out), torch.cat(g_out)
 
 
+def split_product(m2, ws):
+    """m2 @ W in float32 from bf16 operands, as the tensor-core kernels
+    compute it: m2 [P, B] float32 is split exactly into three bf16 parts,
+    `ws` holds the three parts of W (`split_w`, as float32 tensors), and the
+    six highest of the nine cross products are summed in float32, smallest
+    first. Each elementary product of two bf16 values is exact in float32;
+    the three products left out are at most 2^-24 of the largest."""
+    m = [part.to(m2.dtype) for part in polyeval._split3_bf16(m2)]
+    low = (m[0] @ ws[2] + m[1] @ ws[1]) + m[2] @ ws[0]
+    mid = m[0] @ ws[1] + m[1] @ ws[0]
+    return (low + mid) + m[0] @ ws[0]
+
+
+def _quad_split_plain(name, x, basis):
+    """(e, dE/dx) of the quadratic form over `basis` with the W product by
+    `split_product`; float64 variables take the plain product (the split is
+    a float32 device)."""
+    if x.dtype != torch.float32:
+        return polyeval.pip_quad_energy_and_grad(x, name, basis=basis)
+    F, ws = _device_tables(name, 'split', x.dtype, x.device)
+    m2 = polyeval.quad_basis(x, name, basis)
+    wm = split_product(m2, ws)
+    return torch.sum(m2 * wm, dim=-1), ((m2 * (2.0 * wm)) @ F) / x
+
+
 def pip_quad_energy_grad_plain(name, x):
     """Plain twin of the exp/log quadratic-form kernel."""
-    return polyeval.pip_quad_energy_and_grad(x, name, basis='explog')
+    return _quad_split_plain(name, x, 'explog')
 
 
 def pip_quad_product_energy_grad_plain(name, x):
     """Plain twin of the exact-product quadratic-form kernel."""
-    return polyeval.pip_quad_energy_and_grad(x, name, basis='gather')
+    return _quad_split_plain(name, x, 'gather')
 
 
 def pip_vech_energy_grad_plain(name, x):
@@ -179,14 +254,27 @@ def pip_energy_grad(name, x):
     return e, g
 
 
+QUAD_BLOCK_ROWS = 64     # a block is one warpgroup: `wgmma` owns 64 rows
+QUAD_BLOCKS_PER_SM = 2   # resident at once (registers and shared memory)
+
+
+def quad_launch_shape(p, n_sms):
+    """(blocks, waves) of the tensor-core kernels for p rows on a card with
+    n_sms SMs: one block per 64 rows, two resident per SM, so a wave is
+    2 n_sms blocks. Two-warpgroup blocks sharing one ring of W (half the
+    traffic of W from L2) were measured slower at every batch (PERF.md)."""
+    blocks = -(-p // QUAD_BLOCK_ROWS)
+    return blocks, blocks / (QUAD_BLOCKS_PER_SM * n_sms)
+
+
 def _quad_launch(entry, wrapper, name, x):
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     fn = getattr(_build.load(), entry)
-    ia, ib, w, ptr, rows = _device_tables(name, 'quad', x.dtype, x.device)
+    idx, wtiles, ftiles = _device_tables(name, 'quad', x.dtype, x.device)
     e, g = _outputs(x)
-    _check(fn(x.data_ptr(), x.shape[0], x.shape[1], w.shape[0], ia.data_ptr(), ib.data_ptr(),
-              w.data_ptr(), ptr.data_ptr(), rows.data_ptr(), e.data_ptr(), g.data_ptr(),
-              _stream()), wrapper.__name__)
+    _check(fn(x.data_ptr(), x.shape[0], x.shape[1], idx.shape[0], idx.data_ptr(),
+              wtiles.data_ptr(), ftiles.data_ptr(), e.data_ptr(), g.data_ptr(), _stream()),
+           wrapper.__name__)
     wrapper.launches += 1
     return e, g
 

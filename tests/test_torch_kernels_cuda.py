@@ -165,7 +165,7 @@ def test_gather_rows_on_the_card_is_exact_and_deterministic(cuda, masked):
 
 def _pip_variables(name, source, cuda):
     """[P, V] float32 on the card: 'seeded' rows uniform in [1e-4, 1] (a
-    count that is no multiple of the kernels' 32-row tile), or the
+    count that is no multiple of the kernels' 32- or 64-row tiles), or the
     variables the water256 lists give the two-/three-body term."""
     from mbpol_openmm_plugin_tpu_torch.ops import polyeval
     if source == 'seeded':
@@ -216,3 +216,31 @@ def test_pip_kernel_is_bitwise_reproducible_and_refuses_float64(cuda, impl):
     assert torch.equal(e2, e0[:45]) and torch.equal(g2, g0[:45])
     with pytest.raises(TypeError):
         wrapper('poly3b', x.double())
+
+
+@pytest.mark.parametrize('rows', [1, 63, 64, 65, 129, 33801])
+@pytest.mark.parametrize('impl', ['quad_pallas', 'quad_bf16'])
+def test_tensor_core_pip_kernels_on_ragged_batches(cuda, impl, rows):
+    """The tensor-core kernels own 64 rows per block: batches around one
+    and two blocks, and one above two waves of blocks (2 x 2 x 132 x 64
+    rows on an H100), have in every row the bits that row has in a larger
+    batch (a row does not depend on the rows around it or on where its
+    block runs), and the larger batch matches the twin (its 4096 further
+    rows set the scale of the bound: one row's energy can cancel to
+    nothing)."""
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused, pip_fused_check, polyeval
+    wrapper = pip_fused.WRAPPERS[impl]
+    nv = polyeval.load_pip('poly3b').nvars
+    x = torch.as_tensor(np.random.default_rng(rows).uniform(
+        1e-4, 1.0, (rows + 4096, nv)).astype(np.float32), device=cuda)
+    blocks, waves = pip_fused.quad_launch_shape(
+        rows, torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert blocks == -(-rows // 64) and (rows < 33801 or waves > 2.0)
+    check, _ = pip_fused_check.kernel_rows(wrapper, 'poly3b', x)
+    _assert_rows(check)
+    e_all, g_all = wrapper('poly3b', x)
+    e, g = wrapper('poly3b', x[:rows].contiguous())
+    torch.cuda.synchronize()
+    assert e.shape == (rows,) and g.shape == (rows, nv)
+    assert bool(torch.isfinite(e).all()) and bool(torch.isfinite(g).all())
+    assert torch.equal(e, e_all[:rows]) and torch.equal(g, g_all[:rows])

@@ -14,7 +14,16 @@ for the whole potential. Bounds:
       order against 'gather' at 1e-12;
   (d) MBPol(device='cpu') under each pip_impl against the JAX MBPol with
       the same value (which evaluates 'quad' or 'monomial' on the CPU):
-      1e-6 kJ/mol per term, 1e-6 kJ/mol/nm on forces.
+      1e-6 kJ/mol per term, 1e-6 kJ/mol/nm on forces;
+  (e) the bf16 x 6 split product of the two tensor-core kernels' twins:
+      against the JAX package's `_dot6` on the same operands at 1e-6 of
+      max |m2 W| (the same 36 bf16 x bf16 products per output, summed in
+      float32 in another order); the float32 twins against the Pallas
+      kernels in interpret mode at 2e-5 as in (b); on the water256
+      fixture's variables, no further from float64 than ACC_FACTOR = 2
+      times the plain float32 evaluator; the 3-way split exact bit for bit;
+      the kernels' host tables (tiled split W, tiled F) against the dense
+      ones, exactly.
 """
 import functools
 
@@ -148,9 +157,9 @@ def test_vech_order_matches_gather(name):
 @pytest.mark.parametrize('name', POLYS)
 def test_kernel_tables_hold_the_polynomial(name):
     """The compact tables the CUDA kernels read, against the dense ones:
-    the monomial factor list rebuilds the exponent matrix; the per-variable
-    gradient lists sum to z @ F; the vech kernel's closed-form index of
-    basis row (i, j) sums to z @ F_nat; the selectors match the indices."""
+    the monomial factor list rebuilds the exponent matrix; the vech kernel's
+    closed-form index of basis row (i, j) sums to z @ F_nat; the selectors
+    match the indices."""
     pip = polyeval.load_pip(name)
     factors, c = pip_fused.monomial_factors(name)
     expo = np.zeros((pip.nmono, pip.nvars + 1), np.int64)
@@ -158,13 +167,8 @@ def test_kernel_tables_hold_the_polynomial(name):
     np.testing.assert_array_equal(expo[:, :pip.nvars], pip.exponents)
     np.testing.assert_array_equal(c, pip.coeffs)
 
-    F, _ = polyeval.load_quad(name)
-    z = np.random.default_rng(5).normal(size=F.shape[0])
-    ptr, rows = pip_fused.gradient_lists(name)
-    np.testing.assert_allclose([z[rows[ptr[a]:ptr[a + 1]]].sum() for a in range(F.shape[1])],
-                               z @ F, rtol=1e-12, atol=1e-12)
-
     Fn, _ = polyeval.load_quad_vech(name)
+    z = np.random.default_rng(5).normal(size=Fn.shape[0])
     va = Fn.shape[1] + 1
 
     def row(i, j):
@@ -177,6 +181,141 @@ def test_kernel_tables_hold_the_polynomial(name):
     Aj, Bj = jpoly._quad_factor_selectors(name)
     np.testing.assert_array_equal(A, Aj)
     np.testing.assert_array_equal(B, Bj)
+
+
+# ---- (e) the bf16 x 6 split product of the tensor-core kernels
+
+SPLIT_TWINS = {'quad_pallas': (pip_fused.pip_quad_energy_grad_plain, 'explog'),
+               'quad_bf16': (pip_fused.pip_quad_product_energy_grad_plain, 'gather')}
+
+
+@pytest.mark.parametrize('name', POLYS)
+def test_split_product_matches_jax_dot6(name):
+    """`split_product` against the JAX kernels' `_dot6` over their own
+    3-way splits of the same m2 and W."""
+    x = torch.as_tensor(variables(name, np.float32))
+    m2 = polyeval.quad_basis(x, name)
+    _, W = polyeval.load_quad(name)
+    ws = pip_fused.split_w(W)
+    jw = jnp.asarray(W, jnp.float32)
+    jws = jpallas._split3(jw)
+    for t, j in zip(ws, jws):                      # the splits themselves agree bit for bit
+        np.testing.assert_array_equal(t.float().numpy(), np.asarray(j.astype(jnp.float32)))
+    want = np.asarray(jpallas._dot6(jpallas._split3(jnp.asarray(m2.numpy())), jws))
+    got = pip_fused.split_product(m2, [w.float() for w in ws]).numpy()
+    assert np.max(np.abs(got - want)) <= 1e-6 * np.max(np.abs(want))
+    plain = (m2.double() @ torch.as_tensor(W)).numpy()
+    assert np.max(np.abs(got - plain)) <= 1e-6 * np.max(np.abs(plain))
+
+
+@pytest.mark.parametrize('name', POLYS)
+@pytest.mark.parametrize('impl', sorted(SPLIT_TWINS))
+def test_split_twin_matches_pallas_interpret(impl, name, monkeypatch):
+    """The split-product float32 twin, called by name, against the Pallas
+    kernel it mirrors in interpret mode: 2e-5 of the max, as in (b)."""
+    x = variables(name, np.float32)
+    if impl == 'quad_bf16':
+        want = jpallas.pip_quad_bf16_energy_grad_tpu(name, jnp.asarray(x), interpret=True)
+    else:
+        monkeypatch.setattr(jpallas.pl, 'pallas_call',
+                            functools.partial(pl.pallas_call, interpret=True))
+        want = jpallas.pip_quad_energy_grad_tpu(name, jnp.asarray(x))
+    twin, basis = SPLIT_TWINS[impl]
+    got = twin(name, torch.as_tensor(x))
+    assert got[0].dtype == torch.float32
+    assert_close(got, want, 2e-5)
+    # float64 variables take the plain product
+    x64 = torch.as_tensor(x).double()
+    assert_close(twin(name, x64), polyeval.pip_quad_energy_and_grad(x64, name, basis=basis), 0.0)
+
+
+@pytest.fixture(scope='module')
+def water256_variables():
+    from mbpol_openmm_plugin_tpu_torch.tools.pip_split_accuracy import water256_variables
+    return water256_variables(torch.device('cpu'))
+
+
+@pytest.mark.parametrize('name', POLYS)
+@pytest.mark.parametrize('impl', sorted(SPLIT_TWINS))
+def test_split_twin_is_as_accurate_as_float32_on_a_water_box(impl, name, water256_variables):
+    """The choice of the arithmetic, as a test: on the variables the
+    water256 lists give the polynomial (the first 8192 rows), where the
+    fits cancel over three orders of magnitude, the split twin's error
+    against float64 is at most ACC_FACTOR times the plain float32
+    evaluator's, for e and for g."""
+    x = water256_variables[name][:8192]
+    twin, basis = SPLIT_TWINS[impl]
+    ref = polyeval.pip_quad_energy_and_grad(x.double(), name, basis=basis)
+    plain = polyeval.pip_quad_energy_and_grad(x, name, basis=basis)
+    got = twin(name, x)
+    for g, f32, r in zip(got, plain, ref):
+        err, err32 = float((g.double() - r).abs().max()), float((f32.double() - r).abs().max())
+        assert err32 > 0.0
+        assert err <= pip_fused_check.ACC_FACTOR * err32, (err, err32)
+
+
+@pytest.mark.parametrize('name', POLYS)
+def test_split3_round_trips_bit_for_bit(name):
+    """hi + mid + lo == x exactly, for basis values and for W; each part is
+    a bf16 value."""
+    x = torch.as_tensor(variables(name, np.float32))
+    w32 = torch.as_tensor(polyeval.load_quad(name)[1], dtype=torch.float32)
+    for v in (polyeval.quad_basis(x, name), polyeval.quad_basis(x, name, 'explog'), w32):
+        hi, mid, lo = polyeval._split3_bf16(v)
+        assert hi.dtype == mid.dtype == lo.dtype == torch.bfloat16
+        assert torch.equal((hi.float() + mid.float()) + lo.float(), v)
+    assert all(torch.equal(a, b) for a, b in zip(pip_fused.split_w(w32.numpy()),
+                                                 polyeval._split3_bf16(w32)))
+
+
+@pytest.mark.parametrize('name', POLYS)
+def test_quad_kernel_tables_hold_the_polynomial(name):
+    """The tables the tensor-core kernels read, against the dense ones: the
+    packed factor indices; the tiled 3-way split of W, which sums back to
+    float32(W) bit for bit with zero padding; the tiled F, exactly."""
+    F, W = polyeval.load_quad(name)
+    ia, ib = polyeval._quad_factor_indices(name)
+    b, v = F.shape
+    idx, wtiles, ftiles = pip_fused.quad_kernel_tables(name)
+    bp = len(idx)
+    assert bp % pip_fused.N_CHUNK == 0 and bp % pip_fused.K_TILE == 0 and b <= bp < b + 176
+    np.testing.assert_array_equal(idx[:b] & 0xff, ia)
+    np.testing.assert_array_equal(idx[:b] >> 8, ib)
+    assert np.all(idx[b:] == (v | v << 8))
+
+    # [chunk][tile][part][column group][row half][column][row] -> [part][row][column]
+    assert wtiles.dtype == torch.bfloat16 and wtiles.is_contiguous()
+    assert tuple(wtiles.shape) == (bp // 176, bp // 16, 3, 22, 2, 8, 8)
+    parts = wtiles.float().permute(2, 1, 4, 6, 0, 3, 5).reshape(3, bp, bp)
+    Wp = np.zeros((bp, bp), np.float32)
+    Wp[:b, :b] = W
+    np.testing.assert_array_equal(((parts[0] + parts[1]) + parts[2]).numpy(), Wp)
+    # one tile of the stream, element by element: chunk 1, tile 2, part 0
+    w1 = pip_fused.split_w(Wp)[0].float().numpy()
+    tile = wtiles[1, 2, 0].float().numpy()            # [22, 2, 8 columns, 8 rows]
+    for j, h, r, c in ((0, 0, 0, 0), (3, 1, 2, 5), (21, 1, 7, 7)):
+        assert tile[j, h, r, c] == w1[2 * 16 + 8 * h + c, 176 + 8 * j + r]
+
+    # [chunk][tile][variable group][row half][variable][row] -> [row][variable]
+    assert ftiles.dtype == torch.bfloat16 and ftiles.is_contiguous()
+    assert tuple(ftiles.shape) == (bp // 176, 11, pip_fused.V_PAD // 8, 2, 8, 8)
+    Fp = np.zeros((bp, pip_fused.V_PAD), np.float32)
+    Fp[:b, :v] = F
+    np.testing.assert_array_equal(
+        ftiles.float().permute(0, 1, 3, 5, 2, 4).reshape(bp, pip_fused.V_PAD).numpy(), Fp)
+    tile = ftiles[1, 3].float().numpy()               # rows 176 + 48 .. + 64
+    for j, h, r, c in ((0, 0, 0, 0), (2, 1, 3, 6), (4, 1, 7, 7)):
+        assert tile[j, h, r, c] == Fp[176 + 48 + 8 * h + c, 8 * j + r]
+
+
+def test_quad_launch_shape():
+    assert pip_fused.quad_launch_shape(1, 132) == (1, 1 / 264)
+    assert pip_fused.quad_launch_shape(64, 132)[0] == 1
+    assert pip_fused.quad_launch_shape(65, 132)[0] == 2
+    blocks, waves = pip_fused.quad_launch_shape(8545, 132)      # the water256 pair batch
+    assert blocks == 134 and waves < 1.0
+    blocks, waves = pip_fused.quad_launch_shape(40448, 132)     # the triplet batch
+    assert blocks == 632 and 2.0 < waves < 3.0
 
 
 def test_vech_wrapper_refuses_an_asymmetric_w(monkeypatch):
