@@ -38,11 +38,16 @@ Phases (any failure raises and the script exits non-zero):
      on the variables the water256 lists give two_body/three_body and on
      4096 seeded rows uniform in [1e-4, 1], on the bounds of
      ops/pip_fused_check.py; device time, the twin's time and the time of
-     the default plain evaluator on the same variables. The two tensor-core
-     kernels (exp/log and exact-product quadratic forms) are bounded by
-     their six bf16 passes at the tensor cores' dense peak plus their CUDA-
-     core work, and log kernel / library, effective TFLOP/s, blocks and
-     waves at both batches. Every kernel's time is held above its bound;
+     the default plain evaluator on the same variables. The three quadratic
+     forms (exp/log, exact-product and vech bases) are bounded by the
+     larger of their six bf16 passes at the tensor cores' dense peak and
+     their CUDA-core work (the two units run side by side), the monomial
+     kernel by the largest of its bytes, the function's own CUDA-core
+     operations and its expf count over the transcendental unit's rate (the
+     cost of its route, the dense bf16 x 3 product with a sparse exponent
+     matrix, is logged beside the bound and is not part of it); each logs
+     kernel / library, its effective rate, blocks and waves at both
+     batches. Every kernel's time is held above its bound;
  10. water256 single point under each fused pip_impl: 'quad_bf16' and
      'vech_pallas' (the default's formula) within PIP_E_TOL_KCAL of phase
      4's two- and three-body energies and REPLICA_F_WHOLE of its forces;
@@ -127,9 +132,21 @@ KERNELS = {   # wrapper name: (CUDA kernel name, source, the TPU kernel it repla
 PIP_RANDOM_ROWS = 4096
 PIP_E_TOL_KCAL = 1.0              # 2B and 3B energies, exact-product impls vs the default
 PIP_MD_STEPS_SHORT = 20
-# operations per (row, monomial) of the monomial expansion: <= 4 adds, one
-# exp, one multiply, one add for e, <= 4 adds for g
-OPS_MONO = 10
+# the monomial expansion, as the function needs it whatever the route:
+# CUDA-core operations per (row, monomial): 3 adds of factor logs, the
+# multiply by c, the add into e and one multiply-add into g per factor slot
+# (an exponent matrix row has at most MONO_SLOTS non-zeros); and one expf
+# per (row, monomial) on the transcendental unit, MUFU_PER_CLOCK_PER_SM
+# results per clock per SM at the card's maximum SM clock. What the kernel's
+# route adds to that is logged and bounds nothing: the 3-way bf16 split of mc
+# (3 roundings, 2 widenings, 2 subtractions), V + 1 adds of the sums per (row,
+# tile of MONO_TILE monomials), and three dense bf16 passes of
+# 2 P M (V + 1) tensor operations.
+MONO_SLOTS = 4
+OPS_MONO = 3 + 1 + 1 + MONO_SLOTS
+OPS_MONO_SPLIT = 7
+MONO_TILE, MONO_PASSES = 16, 3
+MUFU_PER_CLOCK_PER_SM = 16
 # the tensor-core quadratic forms: bf16 passes of the W product (2 P B^2
 # operations each), and CUDA-core operations per (row, basis element): the
 # basis value (a multiply; exp/log: an add and an exp), the 3-way bf16 split
@@ -138,7 +155,8 @@ OPS_MONO = 10
 # three more bf16 passes of 2 P B V operations (F is exact in bf16)
 QUAD_PASSES, QUAD_GRAD_PASSES = 6, 3
 OPS_QUAD_ELEM = {'pip_quad_energy_grad': 2 + 7 + 3 + 7,
-                 'pip_quad_product_energy_grad': 1 + 7 + 3 + 7}
+                 'pip_quad_product_energy_grad': 1 + 7 + 3 + 7,
+                 'pip_vech_energy_grad': 1 + 7 + 3 + 7}
 
 
 def log(*a):
@@ -185,16 +203,29 @@ def loop_ms(torch, fn, n=N_TIMING):
     return start.elapsed_time(end) / n
 
 
-def bound(n_bytes, n_ops, n_tensor_ops=0, tensor_scheme=None):
-    """(least time in ms the card could take, what bounds it): the larger
-    of bytes over HBM_BPS and the operations' time, which is the CUDA-core
-    operations over FP32_FLOPS plus, for a tensor-core kernel, the bf16
-    operations of the passes it issues over BF16_TENSOR_FLOPS (then named
-    'operations (<scheme>)')."""
-    t_bytes = n_bytes / HBM_BPS
-    t_ops = n_ops / FP32_FLOPS + n_tensor_ops / BF16_TENSOR_FLOPS
-    by = 'operations' + (f' ({tensor_scheme})' if n_tensor_ops else '')
-    return (max(t_bytes, t_ops) * 1e3, 'bytes' if t_bytes >= t_ops else by)
+def bound(n_bytes, n_ops, n_tensor_ops=0, tensor_scheme=None, n_transcendental=0,
+          transcendental_rate=None):
+    """(least time in ms the card could take, what bounds it): the largest
+    of bytes over HBM_BPS ('bytes'); the CUDA-core operations over
+    FP32_FLOPS ('operations'); for a tensor-core kernel, the bf16 operations
+    of its passes over BF16_TENSOR_FLOPS ('operations (<scheme>)'); and,
+    where given, the transcendentals over the transcendental unit's results
+    per second ('operations (transcendentals)'). The units run side by side,
+    so their times are not added."""
+    times = {'bytes': n_bytes / HBM_BPS, 'operations': n_ops / FP32_FLOPS}
+    if n_tensor_ops:
+        times[f'operations ({tensor_scheme})'] = n_tensor_ops / BF16_TENSOR_FLOPS
+    if n_transcendental:
+        times['operations (transcendentals)'] = n_transcendental / transcendental_rate
+    by = max(times, key=times.get)
+    return times[by] * 1e3, by
+
+
+def max_sm_clock_hz():
+    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, check=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def kernel_record(name, max_abs, ms, plain_ms, bound_ms_by, library_ms=None):
@@ -622,17 +653,32 @@ def phase_pip_kernels(torch, card, record):
     # the default plain evaluator of the same function on the same variables
     library = {PF.pip_energy_grad: polyeval.pip_energy_and_grad}
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mufu_rate = MUFU_PER_CLOCK_PER_SM * n_sms * max_sm_clock_hz()
+    log(f'  transcendental unit: {MUFU_PER_CLOCK_PER_SM} results per clock per SM x {n_sms} SMs '
+        f'x {mufu_rate / MUFU_PER_CLOCK_PER_SM / n_sms / 1e6:.0f} MHz (maximum SM clock) = '
+        f'{mufu_rate / 1e12:.3f} T results/s')
+
+    def n_bytes(tables):
+        return sum(t.numel() * t.element_size() if torch.is_tensor(t) else t.nbytes
+                   for t in tables)
     for poly, x in real.items():
         p, v = x.shape
         b, nmono = polyeval.load_quad(poly)[0].shape[0], polyeval.load_pip(poly).nmono
         io_bytes = 4 * p * (2 * v + 1)
         fp32_bound = bound(io_bytes + 4 * b * b, 2 * p * b * b + 2 * p * b * v)
-        bounds = {'pip_vech_energy_grad': fp32_bound,
-                  'pip_energy_grad': bound(io_bytes + 5 * 4 * nmono, OPS_MONO * p * nmono)}
-        tables = PF.quad_kernel_tables(poly)
-        table_bytes = sum(2 * int(np.prod(t.shape)) for t in tables)
+        mono = PF.monomial_kernel_tables(poly)
+        bounds = {'pip_energy_grad': bound(
+            io_bytes + n_bytes((mono.c, mono.offsets, mono.ettiles)), p * nmono * OPS_MONO,
+            n_transcendental=p * nmono, transcendental_rate=mufu_rate)}
+        # what the kernel's route costs on top (information, not the bound)
+        mono_route = (
+            p * (nmono * OPS_MONO_SPLIT + len(mono.c) // MONO_TILE * (v + 1)) / FP32_FLOPS,
+            MONO_PASSES * 2 * p * nmono * (v + 1) / BF16_TENSOR_FLOPS)
+        tables = {'pip_quad_energy_grad': PF.quad_kernel_tables(poly),
+                  'pip_quad_product_energy_grad': PF.quad_kernel_tables(poly),
+                  'pip_vech_energy_grad': PF.vech_kernel_tables(poly)}
         for kname, elem in OPS_QUAD_ELEM.items():
-            bounds[kname] = bound(io_bytes + table_bytes, p * (b * elem + v),
+            bounds[kname] = bound(io_bytes + n_bytes(tables[kname]), p * (b * elem + v),
                                   2 * p * b * (QUAD_PASSES * b + QUAD_GRAD_PASSES * v),
                                   f'bf16 x {QUAD_PASSES}')
         for wrapper in PF.KERNELS:
@@ -645,7 +691,7 @@ def phase_pip_kernels(torch, card, record):
                 f'({bounds[kname][1]}); {lib.__name__} on the same variables '
                 f'{lib_ms:.4f} ms per call ({card})')
             if kname in OPS_QUAD_ELEM:
-                blocks, waves = PF.quad_launch_shape(p, n_sms)
+                blocks, waves = PF.launch_shape(p, n_sms)
                 log(f'  {kname:28s} {poly} [{p}, {v}]: kernel {ms:.4f} ms, bound '
                     f'{bounds[kname][0]:.4f} ms (as plain fp32 operations it was '
                     f'{fp32_bound[0]:.4f} ms), twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, '
@@ -653,6 +699,17 @@ def phase_pip_kernels(torch, card, record):
                     f'{2.0 * p * b * b / ms / 1e9:.1f} TFLOP/s effective (2 P B^2 over the '
                     f'kernel time), {blocks} blocks = {waves:.2f} waves of '
                     f'{PF.QUAD_BLOCKS_PER_SM} x {n_sms} ({card})')
+            else:
+                blocks, waves = PF.launch_shape(p, n_sms, PF.MONO_BLOCKS_PER_SM)
+                rate = p * nmono / (ms * 1e-3)
+                log(f'  {kname:28s} {poly} [{p}, {v}]: kernel {ms:.4f} ms, bound '
+                    f'{bounds[kname][0]:.4f} ms (the route adds, outside the bound, '
+                    f'{mono_route[0] * 1e3:.4f} ms of split and tile sums on the CUDA cores and '
+                    f'{mono_route[1] * 1e3:.4f} ms of dense bf16 x {MONO_PASSES} passes), '
+                    f'twin {plain_ms:.4f} ms, library {lib_ms:.4f} ms, '
+                    f'kernel / library {ms / lib_ms:.3f}, {rate / 1e12:.3f} T monomials/s = '
+                    f'{rate / mufu_rate:.1%} of the transcendental peak, {blocks} blocks = '
+                    f'{waves:.2f} waves of {PF.MONO_BLOCKS_PER_SM} x {n_sms} ({card})')
             assert ms >= bounds[kname][0], (kname, poly, ms, bounds[kname])
             if poly == 'poly3b':       # the record holds the larger polynomial's shape
                 record[kname] = kernel_record(kname, max_abs[kname], ms, plain_ms,

@@ -2,7 +2,7 @@
 
 `from_jax_arrays` takes the JAX MBPol's electrostatics parameters, PME
 setup and list capacities as plain numpy arrays and scalars (the caller
-extracts them; this module does not import jax) and returns the port's
+extracts them; this module imports nothing of JAX) and returns the port's
 MBPol evaluating the same static shapes.
 """
 from __future__ import annotations

@@ -19,52 +19,79 @@
 // e [P] and g = dE/dx [P, V]. No atomics: every sum runs in a fixed order,
 // so results are bit-identical run to run, and a row's result does not
 // depend on the batch around it. Tail rows are guarded in the kernels (no
-// padded copy of x).
+// padded copy of x). All four run their contractions on the tensor cores
+// (`wgmma`, bf16 operands split exactly from float32, float32 sums); a
+// block is one warpgroup and owns 64 rows.
 //
 // What bounds them on the H100, at the water256 triplet batch (P ~ 40k
 // rows, V = 36):
-//  - monomial: P x 33,525 expf and ~10 flops each; operations. One warp
-//    holds 32 rows (lane = row) and one of 8 slices of the monomial list, so
-//    the factor indices and the coefficient are warp-uniform loads and the
-//    per-row log x and the (double) gradient accumulators live in shared
-//    memory as [variable][lane] (conflict-free under a uniform index). The 8
-//    slices are summed at the end in slice order.
-//  - exp/log and exact-product quadratic forms: 2 P B^2 flops of the product
+//  - exp/log, exact-product and vech quadratic forms (one body,
+//    `quad_tc_body`, three bases): 2 P B^2 flops of the product
 //    wm = m2 W (B = 703), which must keep float32 accuracy (the fit cancels
 //    over three orders of magnitude); operations. The product runs on the
-//    tensor cores as the TPU kernel runs it on its matrix unit: m2 and W are
-//    split exactly into three bf16 parts each and the six highest cross
+//    tensor cores as the TPU kernels run it on their matrix unit: m2 and W
+//    are split exactly into three bf16 parts each and the six highest cross
 //    products are summed in float32 (six `wgmma` passes, 989 / 6 TFLOP/s
-//    against 67 on the CUDA cores). A block is one warpgroup and owns 64
-//    rows; it walks the output columns in chunks of 176 (528 = 3 x 176,
-//    704 = 4 x 176) with the chunk's wm in registers. m2 never reaches
-//    shared memory: for each 16-deep K tile a thread computes the 8 basis
-//    values of its A fragment from the block's variables (two shared loads
-//    and a multiply, or an expf), splits them in registers and feeds `wgmma`
-//    with A from registers; the epilogue recomputes m2 the same way for
-//    e = sum m2 wm and z = 2 m2 wm. W's three parts are tiled on the host in
-//    streaming order, each 16 x 176 tile in the K-major core-matrix layout
-//    of `wgmma`, so one bulk asynchronous copy (TMA, completion on an
-//    mbarrier) brings a stage of the ring. The tensor core adds into its
-//    accumulator by truncation; a chain of 44 K tiles x 6 passes would bias
-//    the cancelling sum. So each K tile's six products are summed from zero,
-//    smallest first, and that partial sum is added to the running sum on the
-//    CUDA cores (round to nearest). The gradient z @ F runs on the tensor
-//    cores too: two column groups of the accumulator layout are one K tile
-//    of the A layout, so z is split three ways from registers to registers
-//    and multiplied with the chunk's 16 x 40 tiles of F (entries 0, 1, 2,
-//    exact in bf16: three exact passes), summed from zero per chunk and added
-//    to the gradient so far on the CUDA cores. Two blocks are resident per
-//    SM, so that one block's basis, flush and epilogue overlap the other's
-//    products. Measured and not kept: two-warpgroup blocks sharing one ring
-//    of W (half the 2.97 MB of W each block streams from L2), building the
-//    next tile's fragments under a tile's products, two half-chunk groups in
-//    flight in turn, and the gradient through per-variable lists of basis
-//    rows in shared memory (a latency-bound walk, a fifth of the time).
-//  - vech: the same function on the CUDA cores. A block owns 32 rows: m2
-//    [B][32] and z [B][32] in shared memory, W (1.98 MB, resident in L2)
-//    streamed in 16 x 128 tiles with a register prefetch, a 4 x 4 register
-//    tile per thread, closed-form indices for the gradient.
+//    against 67 on the CUDA cores). The block walks the output columns in
+//    chunks of 176 (528 = 3 x 176, 704 = 4 x 176) with the chunk's wm in
+//    registers. m2 never reaches shared memory: for each 16-deep K tile a
+//    thread computes the 8 basis values of its A fragment from the block's
+//    variables (two shared loads and a multiply, or an expf), splits them
+//    in registers and feeds `wgmma` with A from registers; the epilogue
+//    recomputes m2 the same way for e = sum m2 wm and z = 2 m2 wm. W's three
+//    parts are tiled on the host in streaming order, each 16 x 176 tile in
+//    the K-major core-matrix layout of `wgmma`, so one bulk asynchronous
+//    copy (TMA, completion on an mbarrier) brings a stage of the ring. The
+//    tensor core adds into its accumulator by truncation; a chain of 44 K
+//    tiles x 6 passes would bias the cancelling sum. So each K tile's six
+//    products are summed from zero, smallest first, and that partial sum is
+//    added to the running sum on the CUDA cores (round to nearest). The
+//    gradient z @ F runs on the tensor cores too: two column groups of the
+//    accumulator layout are one K tile of the A layout, so z is split three
+//    ways from registers to registers and multiplied with the chunk's
+//    16 x 40 tiles of F (entries 0, 1, 2, exact in bf16: three exact
+//    passes), summed from zero per chunk and added to the gradient so far on
+//    the CUDA cores. Two blocks are resident per SM, so that one block's
+//    basis, flush and epilogue overlap the other's products. The vech basis
+//    differs in its input (transposed, so its loads are coalesced along the
+//    rows) and in its factor pairs, which the block derives in closed form
+//    from the natural vech order instead of reading an index table.
+//    Measured and not kept: two-warpgroup blocks sharing one ring of W (half
+//    the 2.97 MB of W each block streams from L2), building the next tile's
+//    fragments under a tile's products, two half-chunk groups in flight in
+//    turn, and the gradient through per-variable lists of basis rows in
+//    shared memory (a latency-bound walk, a fifth of the time).
+//  - monomial: P x 33,525 monomials, each four shared loads of log x, three
+//    adds, an expf, a multiply and its share of a 3-way split; operations
+//    (the CUDA cores' instruction issue and the shared-memory loads; the
+//    expf alone would take a third of a millisecond on the transcendental
+//    unit). The gradient g = (mc @ Et) / x is the gradient stage of the
+//    quadratic forms with K the monomials: per tile of 16 monomials a thread
+//    builds the 8 values mc = c exp(sum of four logs) of its A fragment
+//    (rows r, r + 8 of its warp's 16; log x of both rows is one 8-byte
+//    shared load at a byte offset the host table holds ready), splits them
+//    three ways and issues three `wgmma` m64n40k16 against the tile of the
+//    exponent matrix, which carries a column of ones so that the energy
+//    falls out of the same product. Two tiles go into one sum of the
+//    tensor core's accumulator (six passes from zero, smallest parts first,
+//    as in the quadratic forms); that sum is added on the CUDA cores to a
+//    float32 inner sum, which is added to the outer sum every 32 tiles: two
+//    levels of float32 stay as close to float64 as the plain float32
+//    evaluation (tools/pip_split_accuracy.py) at a tenth of the cost of
+//    double sums. Waiting for a tile's products right after issuing them
+//    cost a third of the time (the four warps of a warpgroup meet at every
+//    `wgmma`), so the fragments are double-buffered: while the tensor cores
+//    multiply one group of tiles the CUDA cores build the next one. The
+//    monomials are ordered on the host so that the four monomials one shared
+//    load serves hold the same or neighbouring variables (2.1 wavefronts per
+//    8-byte load against 2.5 in the file's order; 2 is conflict-free). The
+//    tiles of the exponent matrix (1,280 B), the factor offsets (256 B) and
+//    the coefficients (64 B) stream in stages of 8 tiles through a ring of
+//    bulk asynchronous copies; the whole table (3.4 MB) stays in L2. Four
+//    blocks are resident per SM (128 registers). Measured and not kept:
+//    `mma.sync` m16n8k16 per warp instead of `wgmma` (no meeting of the
+//    warps, but 15 instructions and 10 shared loads a tile), 5 or 6 resident
+//    blocks with a smaller ring, groups of 4 tiles at 2 blocks per SM.
 //
 // The C entry points take device pointers, sizes and the stream, allocate
 // nothing and return the first CUDA error (0 = success).
@@ -75,86 +102,11 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kRows = 32;                   // rows per block (all kernels)
-constexpr int kSlices = kThreads / kRows;   // monomial slices per block
-constexpr int kTK = 16;                     // W tile: k extent
-constexpr int kTC = 128;                    // W tile: output columns
-constexpr int kPre = kTK * kTC / kThreads;  // W tile floats per thread
-
 // ---------------------------------------------------------------------
-// Monomial expansion
+// Quadratic forms on the tensor cores (exp/log, exact-product and vech bases)
 // ---------------------------------------------------------------------
 
-// Sums over monomials run in double: a slice adds ~4,200 terms that cancel
-// over three orders of magnitude, and in float32 that chain alone left the
-// kernel 1.3x (e) and 1.7x (g) further from float64 than the plain float32
-// evaluation; with double sums the float32 rounding of log, exp and c * mono
-// is all that is left.
-using Acc = double;
-
-size_t monomial_smem_bytes(int v) {
-  return sizeof(Acc) * (size_t)(kSlices * (v + 1) * kRows + kSlices * kRows)
-         + sizeof(float) * (size_t)((v + 1) * kRows);
-}
-
-__global__ void __launch_bounds__(kThreads)
-pip_monomial_kernel(const float* __restrict__ x, int p, int v,
-                    const uchar4* __restrict__ factors, const float* __restrict__ coeffs,
-                    int nmono, float* __restrict__ e_out, float* __restrict__ g_out) {
-  extern __shared__ __align__(16) float smem[];
-  const int va = v + 1;                      // slot v: log 1 = 0, gradient dump
-  Acc* gs = reinterpret_cast<Acc*>(smem);    // [kSlices][va][kRows]
-  Acc* es = gs + kSlices * va * kRows;       // [kSlices][kRows]
-  float* la = reinterpret_cast<float*>(es + kSlices * kRows);   // [va][kRows] log x
-  const int t = threadIdx.x, r = t % kRows, s = t / kRows;
-  const size_t base = (size_t)blockIdx.x * kRows * v;
-  const int nrows = min(kRows, p - blockIdx.x * kRows);
-
-  for (int i = t; i < kRows * v; i += kThreads) {
-    const int rr = i / v, a = i % v;
-    la[a * kRows + rr] = rr < nrows ? logf(x[base + i]) : 0.0f;
-  }
-  if (t < kRows) la[v * kRows + t] = 0.0f;
-  Acc* g = gs + s * va * kRows + r;
-  for (int a = 0; a < va; ++a) g[a * kRows] = 0;
-  __syncthreads();
-
-  const int chunk = (nmono + kSlices - 1) / kSlices;
-  const int m1 = min(nmono, (s + 1) * chunk);
-  const float* l = la + r;
-  Acc e = 0;
-  for (int m = s * chunk; m < m1; ++m) {
-    const uchar4 k = factors[m];
-    const float sum = ((l[k.x * kRows] + l[k.y * kRows]) + l[k.z * kRows]) + l[k.w * kRows];
-    const float mc = coeffs[m] * expf(sum);
-    e += mc;
-    g[k.x * kRows] += mc;
-    g[k.y * kRows] += mc;
-    g[k.z * kRows] += mc;
-    g[k.w * kRows] += mc;
-  }
-  es[s * kRows + r] = e;
-  __syncthreads();
-
-  for (int i = t; i < nrows * v; i += kThreads) {
-    const int rr = i / v, a = i % v;
-    Acc sum = 0;
-    for (int q = 0; q < kSlices; ++q) sum += gs[(q * va + a) * kRows + rr];
-    g_out[base + i] = static_cast<float>(sum) / x[base + i];
-  }
-  if (t < nrows) {
-    Acc sum = 0;
-    for (int q = 0; q < kSlices; ++q) sum += es[q * kRows + t];
-    e_out[(size_t)blockIdx.x * kRows + t] = static_cast<float>(sum);
-  }
-}
-
-// ---------------------------------------------------------------------
-// Quadratic forms on the tensor cores (exp/log and exact-product bases)
-// ---------------------------------------------------------------------
-
-enum Basis { kExpLog = 0, kProduct = 1 };
+enum Basis { kExpLog = 0, kProduct = 1, kVech = 2 };
 
 constexpr int kQRows = 64;                  // rows per warpgroup (wgmma M)
 constexpr int kWG = 128;                    // threads per warpgroup
@@ -334,10 +286,16 @@ __device__ __forceinline__ void build_frag(uint32_t (&a)[3][4], const float* x0,
          a[2][3]);
 }
 
-// x [p, v]; idx [bp] packed factor indices; wtiles: the three bf16 parts of
-// W in streaming order (bp / kNC chunks x bp / kKT tiles x kStageBytes);
-// ftiles: F in 16 x 40 tiles, kFChunkBytes per chunk (ops/pip_fused.py,
-// quad_kernel_tables). A block is one warpgroup and owns 64 rows.
+// Offset of block i of the natural vech order over va augmented variables:
+// row vech_offset(i, va) + j - i is the pair (i, j), i <= j.
+__device__ __forceinline__ int vech_offset(int i, int va) { return i * va - i * (i - 1) / 2; }
+
+// x [p, v] (kVech: xat [v + 1, p], the variables transposed, last row ones);
+// idx [bp] packed factor indices (kVech: none, the block derives them);
+// wtiles: the three bf16 parts of W in streaming order (bp / kNC chunks x
+// bp / kKT tiles x kStageBytes); ftiles: F in 16 x 40 tiles, kFChunkBytes
+// per chunk (ops/pip_fused.py, quad_kernel_tables, vech_kernel_tables). A
+// block is one warpgroup and owns 64 rows.
 template <Basis kBasis>
 __device__ __forceinline__ void quad_tc_body(const float* __restrict__ x, int p, int v, int bp,
                                              const uint16_t* __restrict__ idx_g,
@@ -360,18 +318,37 @@ __device__ __forceinline__ void quad_tc_body(const float* __restrict__ x, int p,
     for (int s = 0; s <= kStages; ++s) mbar_init(full0 + 8 * s, 1);
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
-  for (int i = tid; i < bp; i += kWG) idx_s[i] = idx_g[i];
+  if (kBasis == kVech) {
+    // the factor pairs of the natural vech order, in closed form; the rows
+    // that pad the basis to bp are 1 * 1 against zero rows of W
+    const int va = v + 1;
+    for (int i = tid; i < va; i += kWG) {
+      uint16_t* row = idx_s + vech_offset(i, va) - i;
+      for (int j = i; j < va; ++j) row[j] = static_cast<uint16_t>(i | j << 8);
+    }
+    for (int k = va * (va + 1) / 2 + tid; k < bp; k += kWG)
+      idx_s[k] = static_cast<uint16_t>(v | v << 8);
+  } else {
+    for (int i = tid; i < bp; i += kWG) idx_s[i] = idx_g[i];
+  }
 
   // the block's variables; tail rows get xa = 1
   const int row0 = blockIdx.x * kQRows;
   const int nrows = min(kQRows, p - row0);
   const size_t base = (size_t)row0 * v;
-  for (int i = tid; i < kQRows * v; i += kWG) {
-    const int rr = i / v, a = i % v;
-    const float val = rr < nrows ? x[base + i] : 1.0f;
-    xs[a * kXS + rr] = kBasis == kExpLog ? logf(val) : val;
+  if (kBasis == kVech) {                // rows of xat: coalesced along the batch
+    for (int i = tid; i < kQRows * (v + 1); i += kWG) {
+      const int a = i / kQRows, rr = i % kQRows;
+      xs[a * kXS + rr] = rr < nrows ? x[(size_t)a * p + row0 + rr] : 1.0f;
+    }
+  } else {
+    for (int i = tid; i < kQRows * v; i += kWG) {
+      const int rr = i / v, a = i % v;
+      const float val = rr < nrows ? x[base + i] : 1.0f;
+      xs[a * kXS + rr] = kBasis == kExpLog ? logf(val) : val;
+    }
+    if (tid < kQRows) xs[v * kXS + tid] = kBasis == kExpLog ? 0.0f : 1.0f;
   }
-  if (tid < kQRows) xs[v * kXS + tid] = kBasis == kExpLog ? 0.0f : 1.0f;
   __syncthreads();
 
   if (tid == 0) {
@@ -514,7 +491,7 @@ __device__ __forceinline__ void quad_tc_body(const float* __restrict__ x, int p,
       const int rr = r0 + 8 * (q / 2), var = 8 * j + 2 * t + q % 2;
       if (rr < nrows && var < v) {
         const size_t o = base + (size_t)rr * v + var;
-        g_out[o] = gs[(4 * j + q) * kWG] / x[o];
+        g_out[o] = gs[(4 * j + q) * kWG] / (kBasis == kVech ? xs[var * kXS + rr] : x[o]);
       }
     }
   }
@@ -538,6 +515,15 @@ pip_quad_product_kernel(const float* __restrict__ x, int p, int v, int bp,
   quad_tc_body<kProduct>(x, p, v, bp, idx, wtiles, ftiles, e_out, g_out);
 }
 
+// xat [v + 1, p]; idx is not read (pass nullptr): one signature for the three.
+__global__ void __launch_bounds__(kWG, 2)
+pip_quad_vech_kernel(const float* __restrict__ xat, int p, int v, int bp,
+                     const uint16_t* __restrict__ idx, const unsigned char* __restrict__ wtiles,
+                     const unsigned char* __restrict__ ftiles, float* __restrict__ e_out,
+                     float* __restrict__ g_out) {
+  quad_tc_body<kVech>(xat, p, v, bp, idx, wtiles, ftiles, e_out, g_out);
+}
+
 // Dynamic shared memory above 48 KB must be asked for; the answer is checked.
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
@@ -553,8 +539,12 @@ int run_quad_tc(const float* x, int p, int v, int bp, const void* idx, const voi
   if (p <= 0) return 0;
   if (bp <= 0 || bp % kNC != 0 || v <= 0 || v > kNV)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (kBasis == kVech && (v >= kNV || bp < (v + 1) * (v + 2) / 2))
+    return static_cast<int>(cudaErrorInvalidValue);
   static size_t granted = 0;
-  const auto kernel = kBasis == kExpLog ? pip_quad_explog_kernel : pip_quad_product_kernel;
+  const auto kernel = kBasis == kExpLog    ? pip_quad_explog_kernel
+                      : kBasis == kProduct ? pip_quad_product_kernel
+                                           : pip_quad_vech_kernel;
   const size_t bytes = tc_smem_bytes(v, bp);
   if (bytes > granted) {
     const cudaError_t rc = allow_smem(kernel, bytes);
@@ -568,159 +558,229 @@ int run_quad_tc(const float* x, int p, int v, int bp, const void* idx, const voi
 }
 
 // ---------------------------------------------------------------------
-// Quadratic form over the vech basis (CUDA cores)
+// Monomial expansion: mc from registers, mc @ Et on the tensor cores
 // ---------------------------------------------------------------------
 
-__device__ __forceinline__ int round_up(int n, int m) { return (n + m - 1) / m * m; }
+constexpr int kMonoBlocks = 4;              // resident blocks per SM
+constexpr int kMStageTiles = 8;             // tiles of 16 monomials per stage of the ring
+constexpr int kMStages = 3;
+constexpr int kMGroup = 2;                  // tiles summed in the tensor core's accumulator
+constexpr int kMFlush = 32;                 // tiles per flush of the inner sums
+constexpr int kEtBytes = kFTileBytes;       // a 16 x 40 bf16 tile of the exponent matrix
+constexpr int kMOffBytes = kKT * 16;        // a tile's factor offsets: four int32 a monomial
+constexpr int kMCoefBytes = kKT * 4;        // a tile's coefficients
+constexpr int kMTileBytes = kEtBytes + kMOffBytes + kMCoefBytes;
+constexpr int kMStageBytes = kMStageTiles * kMTileBytes;
+static_assert(kXS * 4 == 288, "LA_STRIDE_BYTES of ops/pip_fused.py");
+static_assert(kMFlush % kMStageTiles == 0, "the inner sums are flushed between stages");
+constexpr int kMGroups = kMStageTiles / kMGroup;   // groups per stage
+static_assert(kMStageTiles % kMGroup == 0 && kMGroups % 2 == 0,
+              "a stage holds an even number of whole groups");
 
-// Offset of block i of the vech order over va augmented variables.
-__device__ __forceinline__ int vech_offset(int i, int va) { return i * va - i * (i - 1) / 2; }
+// Shared memory: the ring (per stage the tiles of Et, then the stage's
+// factor offsets, then its coefficients), the mbarriers full[kMStages], then
+// la [v + 1][kXS] = log x of the block's rows (slot v: log 1 = 0).
+constexpr size_t kMBarOffset = (size_t)kMStages * kMStageBytes;
+constexpr size_t kMLaOffset = align_up(kMBarOffset + kMStages * 8, 16);
+size_t mono_smem_bytes(int v) { return kMLaOffset + sizeof(float) * (size_t)(v + 1) * kXS; }
 
-// One 16 x 128 tile of W (rows k0.., columns n0..) into registers; zero
-// outside [b, b].
-__device__ __forceinline__ void load_w_tile(const float* __restrict__ w, int b, int k0, int n0,
-                                            float (&pre)[kPre]) {
-#pragma unroll
-  for (int q = 0; q < kPre; ++q) {
-    const int i = threadIdx.x + kThreads * q;
-    const int k = k0 + i / kTC, n = n0 + i % kTC;
-    pre[q] = (k < b && n < b) ? w[(size_t)k * b + n] : 0.0f;
-  }
+// Slot of block row rr in a variable's kXS floats of la: the rows r, r + 8
+// that one thread's fragments hold lie side by side (one 8-byte load).
+__device__ __forceinline__ int la_slot(int rr) {
+  return 2 * ((rr >> 4) * 8 + (rr & 7)) + ((rr >> 3) & 1);
 }
 
-// xat [v + 1, p] = [x, 1]^T; w [b, b] in the natural vech order, symmetric.
-__global__ void __launch_bounds__(kThreads)
-pip_quad_vech_kernel(const float* __restrict__ xat, int p, int v, int b,
-                     const float* __restrict__ w, float* __restrict__ e_out,
-                     float* __restrict__ g_out) {
-  extern __shared__ __align__(16) float smem[];
-  const int va = v + 1;
-  const int bp = round_up(b, kTK);
-  float* m2s = smem;                    // [bp][kRows] basis values
-  float* zs = m2s + bp * kRows;         // [bp][kRows] z = 2 m2 (m2 W)
-  float* ws = zs + bp * kRows;          // [kTK][kTC] W tile
-  float* xs = ws + kTK * kTC;           // [va][kRows] xa
-  float* es = xs + va * kRows;          // [4][kRows] energy partials
-  const int t = threadIdx.x;
-  const int row0 = blockIdx.x * kRows;
-  const int nrows = min(kRows, p - row0);
+// exp(sum of the four factor logs, in slot order) of one monomial for the
+// two rows at lp (.x: row r, .y: row r + 8); k = the byte offsets of its
+// four factors' logs from lp (factor index x kXS floats).
+__device__ __forceinline__ float2 mono_pair(const unsigned char* lp, uint4 k) {
+  const float2 a = *reinterpret_cast<const float2*>(lp + k.x);
+  const float2 b = *reinterpret_cast<const float2*>(lp + k.y);
+  const float2 c = *reinterpret_cast<const float2*>(lp + k.z);
+  const float2 d = *reinterpret_cast<const float2*>(lp + k.w);
+  return make_float2(expf(((a.x + b.x) + c.x) + d.x), expf(((a.y + b.y) + c.y) + d.y));
+}
+
+// The A fragments of one tile of 16 monomials for the rows r, r + 8 at lp:
+// mc = c exp(...) of the monomials 2 t, 2 t + 1, 2 t + 8, 2 t + 9 (kw, cw:
+// the offsets and the coefficients of the first pair), split three ways:
+// a[part][register].
+__device__ __forceinline__ void build_mono_frag(uint32_t (&a)[3][4], const unsigned char* lp,
+                                                const uint4* kw, const float2* cw) {
+  const float2 c0 = cw[0], c1 = cw[kKT / 4];
+  const float2 m0 = mono_pair(lp, kw[0]), m1 = mono_pair(lp, kw[1]);
+  const float2 m2 = mono_pair(lp, kw[8]), m3 = mono_pair(lp, kw[9]);
+  split3(c0.x * m0.x, c0.y * m1.x, a[0][0], a[1][0], a[2][0]);
+  split3(c0.x * m0.y, c0.y * m1.y, a[0][1], a[1][1], a[2][1]);
+  split3(c1.x * m2.x, c1.y * m3.x, a[0][2], a[1][2], a[2][2]);
+  split3(c1.x * m2.y, c1.y * m3.y, a[0][3], a[1][3], a[2][3]);
+}
+
+// x [p, v]; ettiles: the augmented exponent matrix (column v: ones) in
+// ntiles 16 x 40 bf16 tiles, ntiles a multiple of kMStageTiles; offsets
+// [16 ntiles] four int32 a monomial, its factor indices x kXS x 4 bytes
+// (unused slots and padding: index v); coeffs [16 ntiles] (padding: 0)
+// (ops/pip_fused.py, monomial_kernel_tables, which also chooses the
+// monomials' order). A block is one warpgroup and owns 64 rows.
+__global__ void __launch_bounds__(kWG, kMonoBlocks)
+pip_monomial_kernel(const float* __restrict__ x, int p, int v,
+                    const unsigned char* __restrict__ ettiles,
+                    const unsigned char* __restrict__ offsets,
+                    const unsigned char* __restrict__ coeffs, int ntiles,
+                    float* __restrict__ e_out, float* __restrict__ g_out) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  const uint32_t ring = smem_u32(smem_raw);
+  const uint32_t full0 = ring + kMBarOffset;
+  float* la = reinterpret_cast<float*>(smem_raw + kMLaOffset);
+  const int tid = threadIdx.x;
+  const int nstage = ntiles / kMStageTiles;
+
+  // stage st of the tables into slot s of the ring: three copies, one barrier
+  auto load_stage = [&](int s, int st) {
+    const size_t t0 = (size_t)st * kMStageTiles;
+    const uint32_t dst = ring + s * kMStageBytes, bar = full0 + 8 * s;
+    mbar_expect_tx(bar, kMStageBytes);
+    bulk_load(dst, ettiles + t0 * kEtBytes, kMStageTiles * kEtBytes, bar);
+    bulk_load(dst + kMStageTiles * kEtBytes, offsets + t0 * kMOffBytes,
+              kMStageTiles * kMOffBytes, bar);
+    bulk_load(dst + kMStageTiles * (kEtBytes + kMOffBytes), coeffs + t0 * kMCoefBytes,
+              kMStageTiles * kMCoefBytes, bar);
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < kMStages; ++s) mbar_init(full0 + 8 * s, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  // log x of the block's rows; tail rows get log 1
+  const int row0 = blockIdx.x * kQRows;
+  const int nrows = min(kQRows, p - row0);
   const size_t base = (size_t)row0 * v;
-
-  // 1. the tile's variables; tail rows get xa = 1
-  for (int i = t; i < va * kRows; i += kThreads) {
-    const int a = i / kRows, rr = i % kRows;
-    xs[i] = rr < nrows ? xat[(size_t)a * p + row0 + rr] : 1.0f;
-  }
-  __syncthreads();
-
-  // 2. the basis tile m2 [bp][kRows] (rows b..bp zero)
-  for (int i = t; i < va * kRows; i += kThreads) {
-    const int a = i / kRows, rr = i % kRows;
-    const float xa = xs[i];
-    float* dst = m2s + (vech_offset(a, va) - a) * kRows + rr;
-    for (int j = a; j < va; ++j) dst[j * kRows] = xa * xs[j * kRows + rr];
-  }
-  for (int i = b * kRows + t; i < bp * kRows; i += kThreads) m2s[i] = 0.0f;
-  __syncthreads();
-
-  // 3. wm = m2 W in 32 x 128 output chunks; a warp covers 16 rows x 32
-  // columns (lane = column group + 8 * row group), a thread 4 x 4
-  const int lane = t % 32, warp = t / 32;
-  const int rbase = (warp / 4) * 16 + (lane / 8) * 4;       // first of 4 rows
-  const int cbase = (warp % 4) * 32 + (lane % 8) * 4;       // first of 4 columns in the chunk
-  float erow[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-  float pre[kPre];
-  for (int n0 = 0; n0 < b; n0 += kTC) {
-    float acc[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-    load_w_tile(w, b, 0, n0, pre);
-    for (int k0 = 0; k0 < bp; k0 += kTK) {
-      __syncthreads();                  // the previous tile is consumed
-#pragma unroll
-      for (int q = 0; q < kPre; ++q) ws[t + kThreads * q] = pre[q];
-      __syncthreads();
-      if (k0 + kTK < bp) load_w_tile(w, b, k0 + kTK, n0, pre);
-#pragma unroll
-      for (int kk = 0; kk < kTK; ++kk) {
-        const float4 a4 = *reinterpret_cast<const float4*>(m2s + (k0 + kk) * kRows + rbase);
-        const float4 b4 = *reinterpret_cast<const float4*>(ws + kk * kTC + cbase);
-        const float av[4] = {a4.x, a4.y, a4.z, a4.w};
-        const float bv[4] = {b4.x, b4.y, b4.z, b4.w};
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int n = n0 + cbase + j;
-      if (n < b) {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float mw = m2s[n * kRows + rbase + i] * acc[i][j];
-          erow[i] += mw;
-          zs[n * kRows + rbase + i] = 2.0f * mw;
-        }
-      }
-    }
-  }
-  // energy: over the 8 column groups of the warp, then the 4 column warps
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float e = erow[i];
-    e += __shfl_xor_sync(0xffffffffu, e, 1);
-    e += __shfl_xor_sync(0xffffffffu, e, 2);
-    e += __shfl_xor_sync(0xffffffffu, e, 4);
-    if (lane % 8 == 0) es[(warp % 4) * kRows + rbase + i] = e;
-  }
-  __syncthreads();                      // zs and es complete
-  if (t < nrows)
-    e_out[row0 + t] = ((es[t] + es[kRows + t]) + es[2 * kRows + t]) + es[3 * kRows + t];
-
-  // 4. gradient: sum_k F[k, a] z_k per (variable, row) by the closed-form
-  // row of pair (a, j), staged in xs (its last readers finished in step 2)
-  for (int i = t; i < v * kRows; i += kThreads) {
-    const int a = i / kRows, rr = i % kRows;
-    float sum = 0.0f;
-    for (int j = 0; j < va; ++j) {
-      const int lo = min(a, j), hi = max(a, j);
-      const float z = zs[(vech_offset(lo, va) + hi - lo) * kRows + rr];
-      sum += (j == a) ? z + z : z;
-    }
-    xs[i] = sum;
-  }
-  __syncthreads();
-  for (int i = t; i < nrows * v; i += kThreads) {
+  for (int i = tid; i < kQRows * v; i += kWG) {
     const int rr = i / v, a = i % v;
-    g_out[base + i] = xs[a * kRows + rr] / xat[(size_t)a * p + row0 + rr];
+    la[a * kXS + la_slot(rr)] = rr < nrows ? logf(x[base + i]) : 0.0f;
   }
-}
+  if (tid < kQRows) la[v * kXS + tid] = 0.0f;
+  __syncthreads();
+  if (tid == 0)
+    for (int s = 0; s < kMStages && s < nstage; ++s) load_stage(s, s);
+  __syncwarp();
 
-size_t vech_smem_bytes(int v, int b) {
-  const int bp = (b + kTK - 1) / kTK * kTK;
-  return sizeof(float) * (size_t)(2 * bp * kRows + kTK * kTC + (v + 1) * kRows + 4 * kRows);
+  // fragment coordinates: rows r0, r0 + 8 of the block's 64, monomials 2 t,
+  // 2 t + 1, 2 t + 8, 2 t + 9 of a tile, output columns 8 j + 2 t, + 1
+  const int lane = tid % 32, t = lane % 4;
+  const int r0 = (tid / 32) * 16 + lane / 4;
+  const unsigned char* lp = reinterpret_cast<const unsigned char*>(la + la_slot(r0));
+
+  // the fragments of group j (kMGroup tiles) of the stage in slot s
+  auto build_group = [&](uint32_t (&f)[kMGroup][3][4], int s, int j) {
+    const unsigned char* stage = smem_raw + s * kMStageBytes;
+    const uint4* kw =
+        reinterpret_cast<const uint4*>(stage + kMStageTiles * kEtBytes) + j * kMGroup * kKT + 2 * t;
+    const float2* cw =
+        reinterpret_cast<const float2*>(stage + kMStageTiles * (kEtBytes + kMOffBytes))
+        + j * kMGroup * (kKT / 2) + t;
+#pragma unroll
+    for (int u = 0; u < kMGroup; ++u) build_mono_frag(f[u], lp, kw + u * kKT, cw + u * (kKT / 2));
+  };
+
+  float acc[kGAcc], run[kGAcc], part[kGAcc];    // outer sum, inner sum, one group
+#pragma unroll
+  for (int i = 0; i < kGAcc; ++i) acc[i] = run[i] = part[i] = 0.0f;
+  // Two sets of fragments: while the tensor cores multiply one group, the
+  // CUDA cores build the next one, also across the end of a stage (a stage
+  // holds an even number of groups, so it starts with its first group in
+  // a[0]).
+  uint32_t a[2][kMGroup][3][4];
+  mbar_wait(full0, 0);
+  build_group(a[0], 0, 0);
+  int slot = 0;
+  uint32_t parity = 0;
+  for (int st = 0; st < nstage; ++st) {
+    const int next_slot = slot + 1 == kMStages ? 0 : slot + 1;
+    const uint32_t next_parity = parity ^ (next_slot == 0);
+#pragma unroll
+    for (int j = 0; j < kMGroups; ++j) {
+      uint32_t (&cur)[kMGroup][3][4] = a[j % 2];
+      uint32_t (&nxt)[kMGroup][3][4] = a[(j + 1) % 2];
+      // the group's exact passes from zero, smallest parts first
+      const uint64_t ed = b_desc(ring + slot * kMStageBytes + j * kMGroup * kEtBytes);
+#pragma unroll
+      for (int u = 0; u < kMGroup; ++u) fence_frag(cur[u]);
+      fence_acc(part);
+      asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+#pragma unroll
+      for (int s = 2; s >= 0; --s)
+#pragma unroll
+        for (int u = 0; u < kMGroup; ++u)
+          wgmma_n40(part, cur[u][s], ed + u * (kEtBytes >> 4), s < 2 || u > 0);
+      asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+      if (j + 1 < kMGroups) {
+        build_group(nxt, slot, j + 1);
+      } else if (st + 1 < nstage) {
+        mbar_wait(full0 + 8 * next_slot, next_parity);
+        build_group(nxt, next_slot, 0);
+      }
+      asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+      fence_acc(part);
+#pragma unroll
+      for (int u = 0; u < kMGroup; ++u) fence_frag(cur[u]);
+#pragma unroll
+      for (int i = 0; i < kGAcc; ++i) run[i] += part[i];
+    }
+    if ((st + 1) % (kMFlush / kMStageTiles) == 0) {
+#pragma unroll
+      for (int i = 0; i < kGAcc; ++i) {
+        acc[i] += run[i];
+        run[i] = 0.0f;
+      }
+    }
+    // every warp has left the slot: refill it with the stage kMStages ahead
+    __syncthreads();
+    if (tid == 0 && st + kMStages < nstage) load_stage(slot, st + kMStages);
+    __syncwarp();
+    slot = next_slot;
+    parity = next_parity;
+  }
+#pragma unroll
+  for (int i = 0; i < kGAcc; ++i) acc[i] += run[i];
+
+  // acc[4 j ..] = rows r0, r0 + 8 x columns 8 j + 2 t, + 1: the variables'
+  // dE/dlog x, and in column v the energy
+#pragma unroll
+  for (int j = 0; j < kNV / 8; ++j) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int rr = r0 + 8 * (q / 2), col = 8 * j + 2 * t + q % 2;
+      if (rr < nrows && col < v) {
+        const size_t o = base + (size_t)rr * v + col;
+        g_out[o] = acc[4 * j + q] / x[o];
+      } else if (rr < nrows && col == v) {
+        e_out[row0 + rr] = acc[4 * j + q];
+      }
+    }
+  }
 }
 
 }  // namespace
 
-extern "C" int mbpol_pip_monomial(const float* x, int p, int v, const void* factors,
-                                  const float* coeffs, int nmono, float* e, float* g,
-                                  void* stream) {
+extern "C" int mbpol_pip_monomial(const float* x, int p, int v, const void* ettiles,
+                                  const void* offsets, const void* coeffs, int ntiles,
+                                  float* e, float* g, void* stream) {
   if (p <= 0) return 0;
+  if (ntiles <= 0 || ntiles % kMStageTiles != 0 || v <= 0 || v >= kNV)
+    return static_cast<int>(cudaErrorInvalidValue);
   static size_t granted = 0;
-  const size_t bytes = monomial_smem_bytes(v);
+  const size_t bytes = mono_smem_bytes(v);
   if (bytes > granted) {
     const cudaError_t rc = allow_smem(pip_monomial_kernel, bytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     granted = bytes;
   }
-  pip_monomial_kernel<<<(p + kRows - 1) / kRows, kThreads, bytes,
+  pip_monomial_kernel<<<(p + kQRows - 1) / kQRows, kWG, bytes,
                         static_cast<cudaStream_t>(stream)>>>(
-      x, p, v, static_cast<const uchar4*>(factors), coeffs, nmono, e, g);
+      x, p, v, static_cast<const unsigned char*>(ettiles),
+      static_cast<const unsigned char*>(offsets), static_cast<const unsigned char*>(coeffs),
+      ntiles, e, g);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -736,18 +796,7 @@ extern "C" int mbpol_pip_quad_product(const float* x, int p, int v, int bp, cons
   return run_quad_tc<kProduct>(x, p, v, bp, idx, wtiles, ftiles, e, g, stream);
 }
 
-extern "C" int mbpol_pip_quad_vech(const float* xat, int p, int v, int b, const float* w,
-                                   float* e, float* g, void* stream) {
-  if (p <= 0) return 0;
-  if (b != (v + 1) * (v + 2) / 2) return static_cast<int>(cudaErrorInvalidValue);
-  static size_t granted = 0;
-  const size_t bytes = vech_smem_bytes(v, b);
-  if (bytes > granted) {
-    const cudaError_t rc = allow_smem(pip_quad_vech_kernel, bytes);
-    if (rc != cudaSuccess) return static_cast<int>(rc);
-    granted = bytes;
-  }
-  pip_quad_vech_kernel<<<(p + kRows - 1) / kRows, kThreads, bytes,
-                         static_cast<cudaStream_t>(stream)>>>(xat, p, v, b, w, e, g);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int mbpol_pip_quad_vech(const float* xat, int p, int v, int bp, const void* wtiles,
+                                   const void* ftiles, float* e, float* g, void* stream) {
+  return run_quad_tc<kVech>(xat, p, v, bp, nullptr, wtiles, ftiles, e, g, stream);
 }

@@ -18,24 +18,33 @@ mbpol_openmm_plugin_tpu/ops/pip_pallas.py).
 All take `name` ('poly2b' | 'poly3b') and x [P, V] and return (e [P],
 g [P, V]). The design of the kernels is in csrc/pip_fused.cu. The TPU
 layouts do not come along (no lane padding, no energy column, no padded
-copy of x). The monomial and vech kernels are plain fp32 on the CUDA
-cores. The exp/log and exact-product kernels run the product m2 @ W on
-the tensor cores as the six highest cross products of exact 3-way bf16
-splits of m2 and W, summed in float32 (`split_product`, the scheme of the
-JAX kernels' `_dot6`), and the gradient contraction z @ F as three exact
-bf16 passes over the split of z (their `_dot3`); W's splits and F are laid
-out once on the host in the tiles the kernel streams (`quad_kernel_tables`).
+copy of x). All four run their contractions on the tensor cores. The
+three quadratic-form kernels (one body, three bases) compute the product
+m2 @ W as the six highest cross products of exact 3-way bf16 splits of m2
+and W, summed in float32 (`split_product`, the scheme of the JAX kernels'
+`_dot6`), and the gradient contraction z @ F as three exact bf16 passes
+over the split of z (their `_dot3`); W's splits and F are laid out once on
+the host in the tiles the kernel streams (`quad_kernel_tables`; the vech
+kernel takes W and F in the natural vech order and no index table). The
+monomial kernel computes mc = c * exp(sum of four logs) in float32, splits
+it three ways and multiplies with the exponent matrix augmented by a
+column of ones (`monomial_kernel_tables`: entries 0..4, exact in bf16), so
+that the energy and the gradient fall out of one product of three exact
+passes per tile of 16 monomials.
 
 Dispatch: a CPU tensor goes to the wrapper's own plain twin (`*_plain`); a
 CUDA float32 tensor goes to the kernel; anything else raises. There is no
 fallback. The twins repeat the kernels' arithmetic in tensor operations
-(the monomial twin in row chunks, so that [P, 33525] stays small) and may
+(the monomial twin in row chunks, so that [P, 33525] stays small, and
+summing over the monomials in the kernel's blocks) and may
 be called by name to compare and time them; nothing on the card's path
-calls them. Each wrapper counts its launches in its `launches` attribute.
+calls them. Float64 variables take the plain products (the splits are a
+float32 device). Each wrapper counts its launches in its `launches` attribute.
 """
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -49,6 +58,14 @@ PLAIN_CHUNK = 1024       # rows per chunk of the monomial twin
 # streams in tiles of K_TILE basis rows x N_CHUNK output columns; F, for the
 # gradient z @ F, in tiles of K_TILE basis rows x V_PAD variables.
 K_TILE, N_CHUNK, V_PAD = 16, 176, 40
+# The monomial kernel walks the monomials in tiles of K_TILE against
+# K_TILE x V_PAD tiles of the augmented exponent matrix, which stream in
+# stages of MONO_STAGE_TILES tiles.
+MONO_STAGE_TILES = 8
+# The kernel sums MONO_GROUP_TILES tiles in one sum of the tensor core's
+# accumulator, adds that to a float32 inner sum, and adds the inner sum to
+# the outer one every MONO_FLUSH_TILES tiles.
+MONO_GROUP_TILES, MONO_FLUSH_TILES = 2, 32
 
 
 # ----------------------------------------------------------------------
@@ -101,9 +118,93 @@ def _core_tiles(m, n_group):
     return tiles.permute(3, 0, 4, 1, 5, 2)
 
 
+# Position in a tile of the monomial of rank r in the kernel's order: one
+# shared load of the kernel serves the monomials 2 t (t = 0..3) of a tile,
+# the next ones 2 t + 1, 2 t + 8, 2 t + 9, so consecutive ranks go to the
+# positions that load together.
+_TILE_POSITIONS = (0, 2, 4, 6, 1, 3, 5, 7, 8, 10, 12, 14, 9, 11, 13, 15)
+LA_STRIDE_BYTES = 72 * 4     # bytes per variable of the kernel's log x array (kXS floats)
+
+
+class MonomialTables(NamedTuple):
+    """Host tables of the monomial kernel (`monomial_kernel_tables`). The
+    kernel streams `c`, `offsets` and `ettiles`; `order`, `factors` and
+    `et_aug` serve the twin and the tests.
+
+      order   [Mp] int64 (numpy): the monomial of `monomial_factors` at each
+            place, nmono for padding;
+      factors [Mp, 4] uint8 and c [Mp] float32 (numpy), in that order;
+      offsets [Mp, 4] int32 (numpy): factors * LA_STRIDE_BYTES, the byte
+            offsets the kernel adds to its row's slot of log x;
+      et_aug  bfloat16 [Mp, V_PAD]: columns 0..V-1 the exponents (0..4, exact
+            in bfloat16), column V one for every real monomial, so that
+            mc @ et_aug holds dE/dlog x and, in column V, the energy;
+      ettiles bfloat16 [Mp / K_TILE, V_PAD / 8, 2, 8, 8]: et_aug cut into
+            tiles of K_TILE monomials in the layout of `_core_tiles`."""
+    order: np.ndarray
+    factors: np.ndarray
+    c: np.ndarray
+    offsets: np.ndarray
+    et_aug: torch.Tensor
+    ettiles: torch.Tensor
+
+
+@functools.lru_cache(maxsize=None)
+def monomial_kernel_tables(name):
+    """`MonomialTables` of one polynomial, the monomials padded to Mp, a
+    multiple of MONO_STAGE_TILES K_TILE (padding: factors V, c = 0, a zero row of Et) and
+    put in the kernel's order: sorted by their factor lists, last slot
+    first, and dealt within a tile to `_TILE_POSITIONS`. The four monomials
+    one shared load serves then mostly hold the same variable or neighbouring
+    ones in a slot, which is what the array of log x (LA_STRIDE_BYTES per
+    variable, 8 mod 32 banks) serves without bank conflicts: 2.09 / 2.14
+    wavefronts per 8-byte load (3B / 2B) against 2.50 in the file's order
+    and 2 at best."""
+    factors, c = monomial_factors(name)
+    pip = polyeval.load_pip(name)
+    nm, v = pip.nmono, pip.nvars
+    if v >= V_PAD:
+        raise ValueError(f'{name}: {v} variables and the energy column do not fit {V_PAD}')
+    mp = -(-nm // (MONO_STAGE_TILES * K_TILE)) * MONO_STAGE_TILES * K_TILE
+    fp = np.full((mp, MONO_SLOTS), v, np.uint8)
+    fp[:nm] = factors
+    rank = np.lexsort(tuple(fp[:, s] for s in range(MONO_SLOTS)))    # last slot is primary
+    order = np.empty(mp, np.int64)
+    order.reshape(-1, K_TILE)[:, _TILE_POSITIONS] = rank.reshape(-1, K_TILE)
+    fp = fp[order]
+    cp = np.append(c, np.zeros(mp - nm)).astype(np.float32)[order]
+    expo = np.zeros((mp, V_PAD), np.float32)
+    expo[:nm, :v] = pip.exponents
+    expo[:nm, v] = 1.0
+    et = torch.as_tensor(expo[order], dtype=torch.bfloat16)
+    order = np.where(order < nm, order, nm)
+    return MonomialTables(order, fp, cp, fp.astype(np.int32) * LA_STRIDE_BYTES, et,
+                          _core_tiles(et, V_PAD)[0].contiguous())
+
+
+def _tile_quad(F, W):
+    """(bp, wtiles, ftiles): W padded with zeros to [Bp, Bp], Bp a multiple
+    of N_CHUNK, split 3 ways (`split_w`) and cut into the tiles the kernels
+    stream, and F padded to [Bp, V_PAD] and cut likewise (layouts in
+    `quad_kernel_tables`)."""
+    b, v = F.shape
+    bp = -(-b // N_CHUNK) * N_CHUNK
+    if v > V_PAD or F.max() > 2:
+        raise ValueError(f'{v} variables / basis exponent {F.max()} do not fit the kernel '
+                         'tables')
+    Wp = np.zeros((bp, bp), np.float32)
+    Wp[:b, :b] = W
+    wtiles = torch.stack([_core_tiles(part, N_CHUNK) for part in split_w(Wp)], dim=2)
+    Fp = torch.zeros(bp, V_PAD, dtype=torch.bfloat16)
+    Fp[:b, :v] = torch.as_tensor(F, dtype=torch.bfloat16)
+    ftiles = _core_tiles(Fp, V_PAD)[0].reshape(bp // N_CHUNK, N_CHUNK // K_TILE, V_PAD // 8,
+                                               2, 8, 8)
+    return bp, wtiles.contiguous(), ftiles.contiguous()
+
+
 @functools.lru_cache(maxsize=None)
 def quad_kernel_tables(name):
-    """Host tables of the tensor-core quadratic-form kernels:
+    """Host tables of the exp/log and exact-product quadratic-form kernels:
 
       idx [Bp] uint16 (numpy)
             factor indices ia | ib << 8 of basis row k (m2_k = xa[ia] *
@@ -121,41 +222,68 @@ def quad_kernel_tables(name):
     F, W = polyeval.load_quad(name)
     ia, ib = polyeval._quad_factor_indices(name)
     b, v = F.shape
-    bp = -(-b // N_CHUNK) * N_CHUNK
-    if v > V_PAD or F.max() > 2:
-        raise ValueError(f'{name}: {v} variables / basis exponent {F.max()} do not fit the '
-                         'kernel tables')
+    bp, wtiles, ftiles = _tile_quad(F, W)
     idx = np.full(bp, v | v << 8, np.uint16)
     idx[:b] = ia | ib << 8
-    Wp = np.zeros((bp, bp), np.float32)
-    Wp[:b, :b] = W
-    wtiles = torch.stack([_core_tiles(part, N_CHUNK) for part in split_w(Wp)], dim=2)
-    Fp = torch.zeros(bp, V_PAD, dtype=torch.bfloat16)
-    Fp[:b, :v] = torch.as_tensor(F, dtype=torch.bfloat16)
-    ftiles = _core_tiles(Fp, V_PAD)[0].reshape(bp // N_CHUNK, N_CHUNK // K_TILE, V_PAD // 8,
-                                               2, 8, 8)
-    return idx, wtiles.contiguous(), ftiles.contiguous()
+    return idx, wtiles, ftiles
+
+
+def vech_factor_indices(va, bp=None):
+    """(ia, ib) int64 of the natural vech order over va augmented variables,
+    in the closed form the vech kernel uses: row i va - i (i - 1) / 2 + j - i
+    is the pair (i, j), i <= j. Rows from va (va + 1) / 2 up to `bp` (the
+    kernel's padding) are (va - 1, va - 1): 1 * 1 against zero rows of W."""
+    b = va * (va + 1) // 2
+    ia = np.full(b if bp is None else bp, va - 1, np.int64)
+    ib = ia.copy()
+    for i in range(va):
+        o = i * va - i * (i - 1) // 2
+        ia[o:o + va - i] = i
+        ib[o:o + va - i] = np.arange(i, va)
+    return ia, ib
+
+
+@functools.lru_cache(maxsize=None)
+def vech_kernel_tables(name):
+    """(wtiles, ftiles) of the vech kernel: `vech_w` (raises for an
+    asymmetric W) and F in the natural vech order, tiled as in
+    `quad_kernel_tables`. There is no index table: the kernel derives a basis
+    row's factor pair in closed form (`vech_factor_indices`)."""
+    F, _ = polyeval.load_quad_vech(name)
+    return _tile_quad(F, vech_w(name))[1:]
 
 
 @functools.lru_cache(maxsize=None)
 def _device_tables(name, kind, dtype, device):
-    """Device-resident tables of one polynomial: kind 'monomial' (factors
-    uint8 [nmono, 4], c), 'quad' (the kernel tables of `quad_kernel_tables`,
-    idx as int16 bits), 'split' (F and the three splits of W as
-    `dtype`, for the twins) or 'vech' (W_nat,)."""
+    """Device-resident tables of one polynomial. For the kernels: kind
+    'monomial' (factor offsets int32 [Mp, 4], c, the tiles of the augmented
+    exponent matrix), 'quad' (`quad_kernel_tables`, idx as int16 bits) or
+    'vech' (`vech_kernel_tables`). For the twins, as `dtype`: 'monomial_split'
+    (factor indices int64 [Mp, 4], c, the augmented exponent matrix),
+    'monomial_plain' (the same unpadded, with the plain exponent matrix),
+    'split' or 'split_vech' (F and the three splits of W, in the file or the
+    natural vech order)."""
     def dev(a, dt=None):
         return torch.as_tensor(np.ascontiguousarray(a), dtype=dt, device=device)
-    if kind == 'monomial':
+    if kind in ('monomial', 'monomial_split'):
+        t = monomial_kernel_tables(name)
+        if kind == 'monomial':
+            return dev(t.offsets), dev(t.c), t.ettiles.to(device)
+        return (dev(t.factors, torch.int64), dev(t.c, dtype),
+                t.et_aug.to(device=device, dtype=dtype))
+    if kind == 'monomial_plain':
         factors, c = monomial_factors(name)
-        return dev(factors), dev(c, dtype)
+        return dev(factors, torch.int64), dev(c, dtype), polyeval._pip_tables(name, dtype,
+                                                                              device)[0]
     if kind == 'quad':
         idx, wtiles, ftiles = quad_kernel_tables(name)
         return dev(idx.view(np.int16)), wtiles.to(device), ftiles.to(device)
-    if kind == 'split':
-        F, W = polyeval.load_quad(name)
-        return dev(F, dtype), tuple(w.to(device=device, dtype=dtype) for w in split_w(W))
     if kind == 'vech':
-        return (dev(vech_w(name), dtype),)
+        return tuple(t.to(device) for t in vech_kernel_tables(name))
+    if kind in ('split', 'split_vech'):
+        F, W = ((polyeval.load_quad_vech(name)[0], vech_w(name)) if kind == 'split_vech'
+                else polyeval.load_quad(name))
+        return dev(F, dtype), tuple(w.to(device=device, dtype=dtype) for w in split_w(W))
     raise ValueError(kind)
 
 
@@ -163,22 +291,58 @@ def _device_tables(name, kind, dtype, device):
 # Plain PyTorch twins
 # ----------------------------------------------------------------------
 
+def blocked_split_product(parts, E):
+    """sum over the parts of part @ E in float32, summed over the monomials
+    as the monomial kernel sums them: `parts` = (hi, mid, lo) [R, Mp] as
+    float32, E [Mp, N]. Each group of MONO_GROUP_TILES tiles is one sum from
+    zero of its three products, smallest part first; the groups are added one
+    at a time to an inner sum, and the inner sum to the outer one every
+    MONO_FLUSH_TILES tiles (and at the end)."""
+    hi, mid, lo = parts
+    r, mp = hi.shape
+    gk = MONO_GROUP_TILES * K_TILE
+    groups, per = mp // gk, MONO_FLUSH_TILES // MONO_GROUP_TILES
+    Eg = E.reshape(groups, gk, -1)
+
+    def prod(a):
+        return torch.bmm(a.reshape(r, groups, gk).transpose(0, 1), Eg)
+    part = (prod(lo) + prod(mid)) + prod(hi)                         # [groups, R, N]
+    blocks = -(-groups // per)
+    part = torch.nn.functional.pad(part, (0, 0, 0, 0, 0, blocks * per - groups))
+    part = part.reshape(blocks, per, r, -1)
+    run = torch.zeros_like(part[:, 0])
+    for j in range(per):
+        run = run + part[:, j]
+    acc = torch.zeros_like(run[0])
+    for b in range(blocks):
+        acc = acc + run[b]
+    return acc
+
+
 def pip_energy_grad_plain(name, x):
     """Plain twin of the monomial kernel: per monomial the sum of its four
-    factor logs in slot order, exp, times c; the gradient through the
-    dense exponent matrix. Rows in chunks of PLAIN_CHUNK. The sums over
-    monomials run in x's dtype (the kernel adds its float32 terms in
-    double)."""
-    factors, c = _device_tables(name, 'monomial', x.dtype, x.device)
-    E, _ = polyeval._pip_tables(name, x.dtype, x.device)
-    idx = factors.long()
+    factor logs in slot order, exp, times c; that mc is split exactly three
+    ways into bf16 and multiplied with the augmented exponent matrix in the
+    kernel's blocks (`blocked_split_product`), which gives dE/dlog x and, in
+    column V, the energy. Rows in chunks of PLAIN_CHUNK. Float64 variables
+    take the plain sum and product."""
+    split = x.dtype == torch.float32
+    idx, c, E = _device_tables(name, 'monomial_split' if split else 'monomial_plain', x.dtype,
+                               x.device)
+    v = x.shape[1]
     e_out, g_out = [], []
     for xc in torch.split(x, PLAIN_CHUNK):
         la = torch.cat([torch.log(xc), torch.zeros_like(xc[:, :1])], dim=1)
         s = ((la[:, idx[:, 0]] + la[:, idx[:, 1]]) + la[:, idx[:, 2]]) + la[:, idx[:, 3]]
         mc = torch.exp(s) * c
-        e_out.append(torch.sum(mc, dim=1))
-        g_out.append((mc @ E) / xc)
+        if split:
+            r = blocked_split_product(
+                tuple(part.to(x.dtype) for part in polyeval._split3_bf16(mc)), E)
+            e_out.append(r[:, v])
+            g_out.append(r[:, :v] / xc)
+        else:
+            e_out.append(torch.sum(mc, dim=1))
+            g_out.append((mc @ E) / xc)
     return torch.cat(e_out), torch.cat(g_out)
 
 
@@ -201,7 +365,8 @@ def _quad_split_plain(name, x, basis):
     a float32 device)."""
     if x.dtype != torch.float32:
         return polyeval.pip_quad_energy_and_grad(x, name, basis=basis)
-    F, ws = _device_tables(name, 'split', x.dtype, x.device)
+    F, ws = _device_tables(name, 'split_vech' if basis == 'vech' else 'split', x.dtype,
+                           x.device)
     m2 = polyeval.quad_basis(x, name, basis)
     wm = split_product(m2, ws)
     return torch.sum(m2 * wm, dim=-1), ((m2 * (2.0 * wm)) @ F) / x
@@ -218,10 +383,10 @@ def pip_quad_product_energy_grad_plain(name, x):
 
 
 def pip_vech_energy_grad_plain(name, x):
-    """Plain twin of the vech kernel (checks W's symmetry as the kernel's
-    wrapper does)."""
+    """Plain twin of the vech kernel: the split product over the natural
+    vech basis (checks W's symmetry as the kernel's wrapper does)."""
     vech_w(name)
-    return polyeval.pip_quad_energy_and_grad(x, name, basis='vech')
+    return _quad_split_plain(name, x, 'vech')
 
 
 # ----------------------------------------------------------------------
@@ -245,26 +410,29 @@ def pip_energy_grad(name, x):
         return pip_energy_grad_plain(name, x)
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
-    factors, c = _device_tables(name, 'monomial', x.dtype, x.device)
+    offsets, c, ettiles = _device_tables(name, 'monomial', x.dtype, x.device)
     e, g = _outputs(x)
-    _check(lib.mbpol_pip_monomial(x.data_ptr(), x.shape[0], x.shape[1], factors.data_ptr(),
-                                  c.data_ptr(), c.shape[0], e.data_ptr(), g.data_ptr(),
-                                  _stream()), 'pip_energy_grad')
+    _check(lib.mbpol_pip_monomial(x.data_ptr(), x.shape[0], x.shape[1], ettiles.data_ptr(),
+                                  offsets.data_ptr(), c.data_ptr(), ettiles.shape[0],
+                                  e.data_ptr(), g.data_ptr(), _stream()), 'pip_energy_grad')
     pip_energy_grad.launches += 1
     return e, g
 
 
 QUAD_BLOCK_ROWS = 64     # a block is one warpgroup: `wgmma` owns 64 rows
-QUAD_BLOCKS_PER_SM = 2   # resident at once (registers and shared memory)
+QUAD_BLOCKS_PER_SM = 2   # quadratic forms resident at once (registers, shared memory)
+MONO_BLOCKS_PER_SM = 4   # monomial kernel (its launch bounds)
 
 
-def quad_launch_shape(p, n_sms):
-    """(blocks, waves) of the tensor-core kernels for p rows on a card with
-    n_sms SMs: one block per 64 rows, two resident per SM, so a wave is
-    2 n_sms blocks. Two-warpgroup blocks sharing one ring of W (half the
-    traffic of W from L2) were measured slower at every batch (PERF.md)."""
+def launch_shape(p, n_sms, blocks_per_sm=QUAD_BLOCKS_PER_SM):
+    """(blocks, waves) of the PIP kernels for p rows on a card with n_sms SMs:
+    one block per 64 rows, `blocks_per_sm` resident per SM (the quadratic
+    forms two, the monomial kernel MONO_BLOCKS_PER_SM), so a wave is
+    blocks_per_sm n_sms blocks. Two-warpgroup blocks sharing one ring of W
+    (half the traffic of W from L2) were measured slower at every batch
+    (PERF.md)."""
     blocks = -(-p // QUAD_BLOCK_ROWS)
-    return blocks, blocks / (QUAD_BLOCKS_PER_SM * n_sms)
+    return blocks, blocks / (blocks_per_sm * n_sms)
 
 
 def _quad_launch(entry, wrapper, name, x):
@@ -304,11 +472,12 @@ def pip_vech_energy_grad(name, x):
         return pip_vech_energy_grad_plain(name, x)
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
-    (w,) = _device_tables(name, 'vech', x.dtype, x.device)
+    wtiles, ftiles = _device_tables(name, 'vech', x.dtype, x.device)
     xat = polyeval.augmented(x).T.contiguous()            # [V+1, P], batch on the fast axis
     e, g = _outputs(x)
-    _check(lib.mbpol_pip_quad_vech(xat.data_ptr(), x.shape[0], x.shape[1], w.shape[0],
-                                   w.data_ptr(), e.data_ptr(), g.data_ptr(), _stream()),
+    _check(lib.mbpol_pip_quad_vech(xat.data_ptr(), x.shape[0], x.shape[1],
+                                   wtiles.shape[0] * N_CHUNK, wtiles.data_ptr(),
+                                   ftiles.data_ptr(), e.data_ptr(), g.data_ptr(), _stream()),
            'pip_vech_energy_grad')
     pip_vech_energy_grad.launches += 1
     return e, g

@@ -15,15 +15,19 @@ for the whole potential. Bounds:
   (d) MBPol(device='cpu') under each pip_impl against the JAX MBPol with
       the same value (which evaluates 'quad' or 'monomial' on the CPU):
       1e-6 kJ/mol per term, 1e-6 kJ/mol/nm on forces;
-  (e) the bf16 x 6 split product of the two tensor-core kernels' twins:
-      against the JAX package's `_dot6` on the same operands at 1e-6 of
-      max |m2 W| (the same 36 bf16 x bf16 products per output, summed in
-      float32 in another order); the float32 twins against the Pallas
-      kernels in interpret mode at 2e-5 as in (b); on the water256
-      fixture's variables, no further from float64 than ACC_FACTOR = 2
-      times the plain float32 evaluator; the 3-way split exact bit for bit;
-      the kernels' host tables (tiled split W, tiled F) against the dense
-      ones, exactly.
+  (e) the bf16 x 6 split product of the three quadratic-form kernels'
+      twins: against the JAX package's `_dot6` on the same operands at 1e-6
+      of max |m2 W| (the same 36 bf16 x bf16 products per output, summed in
+      float32 in another order); the float32 split twins (the monomial
+      kernel's 3-way split of c * mono against the augmented exponent
+      matrix among them) against the Pallas kernels in interpret mode at
+      2e-5 as in (b); on the water256 fixture's variables, no further from
+      float64 than ACC_FACTOR = 2 times the plain float32 evaluator; the
+      3-way split exact bit for bit; the kernels' host tables (tiled split
+      W, tiled F, in the file and the natural vech order; the tiled
+      augmented exponent matrix, padded factors and coefficients) against
+      the dense ones, exactly; the vech kernel's closed-form factor pairs
+      against the basis' own.
 """
 import functools
 
@@ -127,6 +131,35 @@ def test_float32_twin_matches_pallas_interpret(impl, name, monkeypatch):
     assert_close(got, want, 2e-5)
 
 
+@pytest.mark.parametrize('groups', (16, 53))
+def test_monomial_twin_sums_in_the_kernels_blocks(groups):
+    """`blocked_split_product` adds the groups of two tiles one at a time to
+    an inner float32 sum and that to the outer sum every 32 tiles, as the
+    kernel does: with one non-zero per group (each group's own sum is then
+    exact) the result is that two-level sum bit for bit, and not the flat
+    one."""
+    gk = pip_fused.MONO_GROUP_TILES * pip_fused.K_TILE
+    per = pip_fused.MONO_FLUSH_TILES // pip_fused.MONO_GROUP_TILES
+    rng = np.random.default_rng(groups)
+    rows = 64
+    vals = (rng.normal(size=(rows, groups)) * 10.0 ** rng.uniform(-3, 3, (rows, groups)))
+    vals = vals.astype(np.float32)
+    hi = np.zeros((rows, groups * gk), np.float32)
+    hi[:, np.arange(groups) * gk + rng.integers(0, gk, groups)] = vals
+    zero = torch.zeros(rows, groups * gk)
+    got = pip_fused.blocked_split_product((torch.as_tensor(hi), zero, zero),
+                                          torch.ones(groups * gk, 1))[:, 0].numpy()
+    acc, run, flat = (np.zeros(rows, np.float32) for _ in range(3))
+    for g in range(groups):
+        run = run + vals[:, g]
+        flat = flat + vals[:, g]
+        if (g + 1) % per == 0:
+            acc, run = acc + run, np.zeros(rows, np.float32)
+    acc = acc + run
+    np.testing.assert_array_equal(got, acc)
+    assert groups <= per or np.any(got != flat)
+
+
 # ---- (c) the bases
 
 @pytest.mark.parametrize('name', POLYS)
@@ -167,6 +200,33 @@ def test_kernel_tables_hold_the_polynomial(name):
     np.testing.assert_array_equal(expo[:, :pip.nvars], pip.exponents)
     np.testing.assert_array_equal(c, pip.coeffs)
 
+    # the padded, reordered tables of the tensor-core monomial kernel
+    order, fp, cp, offsets, et, ettiles = pip_fused.monomial_kernel_tables(name)
+    mp, nv, nm = len(cp), pip.nvars, pip.nmono
+    stage = pip_fused.MONO_STAGE_TILES * pip_fused.K_TILE   # the tables stream in whole stages
+    assert mp % stage == 0 and nm <= mp < nm + stage
+    real = order < nm
+    np.testing.assert_array_equal(np.sort(order[real]), np.arange(nm))   # each monomial once
+    assert np.all(order[~real] == nm)
+    np.testing.assert_array_equal(fp[real], factors[order[real]])
+    np.testing.assert_array_equal(cp[real], pip.coeffs.astype(np.float32)[order[real]])
+    assert np.all(fp[~real] == nv) and np.all(cp[~real] == 0.0)
+    assert offsets.dtype == np.int32
+    np.testing.assert_array_equal(offsets, fp.astype(np.int64) * pip_fused.LA_STRIDE_BYTES)
+    assert et.dtype == torch.bfloat16 and tuple(et.shape) == (mp, pip_fused.V_PAD)
+    want = np.zeros((mp, pip_fused.V_PAD), np.float32)
+    want[real, :nv] = pip.exponents[order[real]]
+    want[real, nv] = 1.0                              # the energy column
+    np.testing.assert_array_equal(et.float().numpy(), want)
+    # [tile][variable group][row half][variable][row] -> [row][variable]
+    assert ettiles.dtype == torch.bfloat16 and ettiles.is_contiguous()
+    assert tuple(ettiles.shape) == (mp // 16, pip_fused.V_PAD // 8, 2, 8, 8)
+    np.testing.assert_array_equal(
+        ettiles.float().permute(0, 2, 4, 1, 3).reshape(mp, pip_fused.V_PAD).numpy(), want)
+    tile = ettiles[3].float().numpy()                 # monomials 48 .. 64
+    for j, h, r, c_ in ((0, 0, 0, 0), (2, 1, 3, 6), (4, 1, 7, 7)):
+        assert tile[j, h, r, c_] == want[48 + 8 * h + c_, 8 * j + r]
+
     Fn, _ = polyeval.load_quad_vech(name)
     z = np.random.default_rng(5).normal(size=Fn.shape[0])
     va = Fn.shape[1] + 1
@@ -185,8 +245,23 @@ def test_kernel_tables_hold_the_polynomial(name):
 
 # ---- (e) the bf16 x 6 split product of the tensor-core kernels
 
-SPLIT_TWINS = {'quad_pallas': (pip_fused.pip_quad_energy_grad_plain, 'explog'),
-               'quad_bf16': (pip_fused.pip_quad_product_energy_grad_plain, 'gather')}
+def _quad_plain(basis):
+    return lambda x, name: polyeval.pip_quad_energy_and_grad(x, name, basis=basis)
+
+
+def _monomial_plain(x, name):
+    """`polyeval.pip_energy_and_grad` in row chunks ([P, 33525] stays small)."""
+    parts = [polyeval.pip_energy_and_grad(xc, name) for xc in torch.split(x, 512)]
+    return tuple(torch.cat(p) for p in zip(*parts))
+
+
+# impl -> (its split twin, the plain evaluator of the same formula, rows of
+# the water256 batch the accuracy test takes)
+SPLIT_TWINS = {'quad_pallas': (pip_fused.pip_quad_energy_grad_plain, _quad_plain('explog'), 8192),
+               'quad_bf16': (pip_fused.pip_quad_product_energy_grad_plain,
+                             _quad_plain('gather'), 8192),
+               'vech_pallas': (pip_fused.pip_vech_energy_grad_plain, _quad_plain('vech'), 8192),
+               'pallas': (pip_fused.pip_energy_grad_plain, _monomial_plain, 2048)}
 
 
 @pytest.mark.parametrize('name', POLYS)
@@ -216,17 +291,21 @@ def test_split_twin_matches_pallas_interpret(impl, name, monkeypatch):
     x = variables(name, np.float32)
     if impl == 'quad_bf16':
         want = jpallas.pip_quad_bf16_energy_grad_tpu(name, jnp.asarray(x), interpret=True)
+    elif impl == 'vech_pallas':
+        want = jpallas.pip_vech_energy_grad_tpu(name, jnp.asarray(x), interpret=True)
     else:
         monkeypatch.setattr(jpallas.pl, 'pallas_call',
                             functools.partial(pl.pallas_call, interpret=True))
-        want = jpallas.pip_quad_energy_grad_tpu(name, jnp.asarray(x))
-    twin, basis = SPLIT_TWINS[impl]
+        fn = jpallas.pip_energy_grad_tpu if impl == 'pallas' else jpallas.pip_quad_energy_grad_tpu
+        want = fn(name, jnp.asarray(x))
+    twin, plain, _ = SPLIT_TWINS[impl]
     got = twin(name, torch.as_tensor(x))
     assert got[0].dtype == torch.float32
     assert_close(got, want, 2e-5)
-    # float64 variables take the plain product
+    # float64 variables take the plain product (the monomial twin sums its
+    # factor logs where the plain evaluator multiplies log x with E^T)
     x64 = torch.as_tensor(x).double()
-    assert_close(twin(name, x64), polyeval.pip_quad_energy_and_grad(x64, name, basis=basis), 0.0)
+    assert_close(twin(name, x64), plain(x64, name), 1e-10 if impl == 'pallas' else 0.0)
 
 
 @pytest.fixture(scope='module')
@@ -242,11 +321,11 @@ def test_split_twin_is_as_accurate_as_float32_on_a_water_box(impl, name, water25
     water256 lists give the polynomial (the first 8192 rows), where the
     fits cancel over three orders of magnitude, the split twin's error
     against float64 is at most ACC_FACTOR times the plain float32
-    evaluator's, for e and for g."""
-    x = water256_variables[name][:8192]
-    twin, basis = SPLIT_TWINS[impl]
-    ref = polyeval.pip_quad_energy_and_grad(x.double(), name, basis=basis)
-    plain = polyeval.pip_quad_energy_and_grad(x, name, basis=basis)
+    evaluator's, for e and for g (the monomial twin on the first 2048)."""
+    twin, plain_fn, rows = SPLIT_TWINS[impl]
+    x = water256_variables[name][:rows]
+    ref = plain_fn(x.double(), name)
+    plain = plain_fn(x, name)
     got = twin(name, x)
     for g, f32, r in zip(got, plain, ref):
         err, err32 = float((g.double() - r).abs().max()), float((f32.double() - r).abs().max())
@@ -268,20 +347,58 @@ def test_split3_round_trips_bit_for_bit(name):
                                                  polyeval._split3_bf16(w32)))
 
 
-@pytest.mark.parametrize('name', POLYS)
-def test_quad_kernel_tables_hold_the_polynomial(name):
-    """The tables the tensor-core kernels read, against the dense ones: the
-    packed factor indices; the tiled 3-way split of W, which sums back to
-    float32(W) bit for bit with zero padding; the tiled F, exactly."""
-    F, W = polyeval.load_quad(name)
+def vech_order(name):
+    """Permutation of the basis rows from the file order to the natural vech
+    order, as `polyeval.load_quad_vech` sorts them."""
     ia, ib = polyeval._quad_factor_indices(name)
-    b, v = F.shape
-    idx, wtiles, ftiles = pip_fused.quad_kernel_tables(name)
-    bp = len(idx)
+    return np.lexsort((np.maximum(ia, ib), np.minimum(ia, ib)))
+
+
+@pytest.mark.parametrize('name', POLYS)
+def test_vech_closed_form_matches_the_factor_indices(name):
+    """The factor pair the vech kernel derives for basis row k in closed
+    form is the basis' own pair (`_quad_factor_indices`) in vech order, and
+    the rows that pad the basis are (V, V) = 1 * 1."""
+    ia, ib = polyeval._quad_factor_indices(name)
+    order = vech_order(name)
+    b, va = len(ia), polyeval.load_pip(name).nvars + 1
+    ca, cb = pip_fused.vech_factor_indices(va)
+    np.testing.assert_array_equal(ca, np.minimum(ia, ib)[order])
+    np.testing.assert_array_equal(cb, np.maximum(ia, ib)[order])
+    bp = pip_fused.vech_kernel_tables(name)[0].shape[0] * pip_fused.N_CHUNK
+    pa, pb = pip_fused.vech_factor_indices(va, bp)
+    assert len(pa) == bp
+    np.testing.assert_array_equal(pa[:b], ca)
+    np.testing.assert_array_equal(pb[:b], cb)
+    assert np.all(pa[b:] == va - 1) and np.all(pb[b:] == va - 1)
+    # the basis built from those pairs is the vech basis
+    x = torch.as_tensor(variables(name, n=5))
+    xa = polyeval.augmented(x)
+    assert torch.equal(xa[:, ca] * xa[:, cb], polyeval.quad_basis(x, name, 'vech'))
+
+
+@pytest.mark.parametrize('name,order', [(n, o) for o in ('file', 'vech') for n in POLYS],
+                         ids=list(POLYS) + [n + '-vech' for n in POLYS])
+def test_quad_kernel_tables_hold_the_polynomial(name, order):
+    """The tables the tensor-core kernels read, against the dense ones: the
+    packed factor indices (file order; the vech kernel has no index table);
+    the tiled 3-way split of W (vech: W_nat), which sums back to float32(W)
+    bit for bit with zero padding; the tiled F (vech: F_nat), exactly."""
+    if order == 'vech':
+        F, W = polyeval.load_quad_vech(name)
+        wtiles, ftiles = pip_fused.vech_kernel_tables(name)
+        b, v = F.shape
+        bp = wtiles.shape[0] * pip_fused.N_CHUNK
+    else:
+        F, W = polyeval.load_quad(name)
+        ia, ib = polyeval._quad_factor_indices(name)
+        b, v = F.shape
+        idx, wtiles, ftiles = pip_fused.quad_kernel_tables(name)
+        bp = len(idx)
+        np.testing.assert_array_equal(idx[:b] & 0xff, ia)
+        np.testing.assert_array_equal(idx[:b] >> 8, ib)
+        assert np.all(idx[b:] == (v | v << 8))
     assert bp % pip_fused.N_CHUNK == 0 and bp % pip_fused.K_TILE == 0 and b <= bp < b + 176
-    np.testing.assert_array_equal(idx[:b] & 0xff, ia)
-    np.testing.assert_array_equal(idx[:b] >> 8, ib)
-    assert np.all(idx[b:] == (v | v << 8))
 
     # [chunk][tile][part][column group][row half][column][row] -> [part][row][column]
     assert wtiles.dtype == torch.bfloat16 and wtiles.is_contiguous()
@@ -309,12 +426,12 @@ def test_quad_kernel_tables_hold_the_polynomial(name):
 
 
 def test_quad_launch_shape():
-    assert pip_fused.quad_launch_shape(1, 132) == (1, 1 / 264)
-    assert pip_fused.quad_launch_shape(64, 132)[0] == 1
-    assert pip_fused.quad_launch_shape(65, 132)[0] == 2
-    blocks, waves = pip_fused.quad_launch_shape(8545, 132)      # the water256 pair batch
+    assert pip_fused.launch_shape(1, 132) == (1, 1 / 264)
+    assert pip_fused.launch_shape(64, 132)[0] == 1
+    assert pip_fused.launch_shape(65, 132)[0] == 2
+    blocks, waves = pip_fused.launch_shape(8545, 132)      # the water256 pair batch
     assert blocks == 134 and waves < 1.0
-    blocks, waves = pip_fused.quad_launch_shape(40448, 132)     # the triplet batch
+    blocks, waves = pip_fused.launch_shape(40448, 132)     # the triplet batch
     assert blocks == 632 and 2.0 < waves < 3.0
 
 
