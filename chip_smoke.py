@@ -26,6 +26,11 @@ Phases (any failure raises and the script exits non-zero):
   6. the block kernels K1-bs/K3-bs/K2-bs against their twins at water4096,
      in the sorted order tune_capacities picks (the padded list holds
      inactive-pair padding), on the entry sets of ops/elec_direct_check.py;
+     the live share of the (water, cluster) lines K3-bs/K2-bs test, each
+     kernel's bound from the in-cutoff pairs of this run (beside it, what
+     the routes touch: all candidates, live lines, whole blocks), and its
+     device time (cluster-box pre-pass included) beside the time before the
+     culling redesign;
   7. replication: the water4096 single point (PME grid exactly 2 x 2 x 4
      the water256 one, SCF to 1e-4) against phase 4, energy per water
      within 1e-4 relative, every copy's electrostatics + dispersion forces
@@ -99,11 +104,26 @@ HBM_BPS = 3.35e12
 FP32_FLOPS = 67e12
 BF16_TENSOR_FLOPS = 989e12
 # operations per site pair, each arithmetic operation or transcendental
-# counted once: the cutoff test of every candidate pair (3 differences,
-# minimum image, r^2, sqrt, compare), the rest of the chain per in-cutoff
-# pair (K1, K2), and K3's per-pair work (minimum image, projection, 2 x 3
-# multiply-adds) on every pair of an active block
+# counted once: the cutoff test (3 differences, minimum image, r^2, sqrt,
+# compare), the rest of the chain (K1, K2), and K3's per-pair work (minimum
+# image, projection, 2 x 3 multiply-adds). A bound charges them to the pairs
+# the function needs on this run's inputs, the in-cutoff ones, whatever the
+# route visits (candidates of the active blocks or of the live lines, which
+# phases 3 and 6 log beside it). The transcendentals of the chain per
+# in-cutoff pair (sqrtf, 1/r, erfcf, and the chain's expf calls: 3 in K1's,
+# 4 in K2's) go to the transcendental unit, at MUFU_PER_CLOCK_PER_SM results
+# per clock per SM.
 OPS_TEST, OPS_K1, OPS_K2, OPS_K3 = 25, 60, 150, 36
+TRANS_K1, TRANS_K2 = 6, 7
+# device ms per launch of the block kernels before the culling redesign
+# (this phase's reading of the earlier design, PERF.md section 6), logged
+# beside this run's
+BS_MS_BEFORE = {'fixed_field_and_scf_blocks': 1.1185, 'scf_dipole_field_bs': 1.2806,
+                'direct_energy_force_pot_bs': 1.4581}
+# kernels a wrapper launches besides its own, whose device time is part of
+# the wrapper's (the cluster boxes of the culling test)
+HELPER_KERNELS = {'scf_dipole_field_bs': ('cluster_boxes_kernel',),
+                  'direct_energy_force_pot_bs': ('cluster_boxes_kernel',)}
 SOURCE = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct.cu'
 SOURCE_BS = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct_bs.cu'
 SOURCE_PIP = 'mbpol_openmm_plugin_tpu_torch/csrc/pip_fused.cu'
@@ -228,6 +248,13 @@ def max_sm_clock_hz():
     return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
+def transcendental_rate(torch):
+    """Results per second of the transcendental unit: MUFU_PER_CLOCK_PER_SM
+    per clock per SM at the card's maximum SM clock."""
+    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    return MUFU_PER_CLOCK_PER_SM * n_sms * max_sm_clock_hz()
+
+
 def kernel_record(name, max_abs, ms, plain_ms, bound_ms_by, library_ms=None):
     cuda_name, source, replaces = KERNELS[name]
     assert ms >= bound_ms_by[0], (name, ms, bound_ms_by)    # faster than the bound: a wrong count
@@ -240,7 +267,8 @@ def time_kernel(torch, card, name, kern, plain, n_plain=N_TIMING):
     """(device ms per launch from torch.profiler, or the back-to-back call
     time when the trace has none; the twin's ms per call), logged."""
     cuda_name = KERNELS[name][0]
-    dev_ms, kern_loop = kernel_device_ms(torch, kern, cuda_name), loop_ms(torch, kern)
+    dev_ms = kernel_device_ms(torch, kern, cuda_name, HELPER_KERNELS.get(name, ()))
+    kern_loop = loop_ms(torch, kern)
     plain_loop = loop_ms(torch, plain, n_plain)
     call_ms = median_ms(torch, kern)
     log(f'  {name:28s} kernel device time '
@@ -251,10 +279,11 @@ def time_kernel(torch, card, name, kern, plain, n_plain=N_TIMING):
     return (dev_ms if dev_ms is not None else kern_loop), plain_loop
 
 
-def kernel_device_ms(torch, fn, kernel):
+def kernel_device_ms(torch, fn, kernel, helpers=()):
     """Mean device time of one launch of the CUDA kernel whose name
-    contains `kernel` over N_TIMING calls of fn, read from torch.profiler's
-    device trace. None when the trace holds no device time for it."""
+    contains `kernel`, plus that of the `helpers` kernels fn launches with
+    it, over N_TIMING calls of fn, read from torch.profiler's device trace.
+    None when the trace holds no device time for it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -262,12 +291,17 @@ def kernel_device_ms(torch, fn, kernel):
         for _ in range(N_TIMING):
             fn()
         torch.cuda.synchronize()
-    total_us, count = 0.0, 0
+    total_us, helper_us, count = 0.0, 0.0, 0
     for ev in prof.key_averages():
         if kernel in ev.key:
             total_us += ev.device_time_total
             count += ev.count
-    return total_us / count / 1e3 if count and total_us > 0 else None
+        elif any(h in ev.key for h in helpers):
+            helper_us += ev.device_time_total
+    if helpers and count:
+        log(f'    {kernel}: {total_us / count / 1e3:.4f} ms, {"/".join(helpers)}: '
+            f'{helper_us / count / 1e3:.4f} ms per launch')
+    return (total_us + helper_us) / count / 1e3 if count and total_us > 0 else None
 
 
 def load_water256(torch, device, dtype):
@@ -341,12 +375,18 @@ def phase_kernels(torch, card, record):
 
     n = sites.shape[0]
     n_pairs, n_in = n * (n - 1), n_in_cutoff((k1[1], k1[2]))
+    rate = transcendental_rate(torch)
     bounds = {
         'fixed_field_and_scf_factors': bound(n * 32 + n * 12 + 2 * n * n * 4,
-                                             n_pairs * OPS_TEST + n_in * OPS_K1),
-        'direct_energy_force_pot': bound(n * 32 + n * 12 + n * 20,
-                                         n_pairs * OPS_TEST + n_in * OPS_K2)}
-    log(f'  N={n}: {n_in} in-cutoff ordered pairs of {n_pairs}')
+                                             n_in * (OPS_TEST + OPS_K1),
+                                             n_transcendental=n_in * TRANS_K1,
+                                             transcendental_rate=rate),
+        'direct_energy_force_pot': bound(n * 32 + n * 12 + n * 20, n_in * (OPS_TEST + OPS_K2),
+                                         n_transcendental=n_in * TRANS_K2,
+                                         transcendental_rate=rate)}
+    log(f'  N={n}: {n_in} in-cutoff ordered pairs of {n_pairs} (the kernels test all '
+        f'{n_pairs}: {n_pairs * OPS_TEST / FP32_FLOPS * 1e3:.4f} ms of operations, outside '
+        f'the bound)')
     timed = (('fixed_field_and_scf_factors',
               lambda: ED.fixed_field_and_scf_factors(sites, consts),
               lambda: ED.fixed_field_and_scf_factors_plain(sites, consts)),
@@ -499,15 +539,32 @@ def phase_block_kernels(torch, card, record, pot, pos):
     pairs_act = n_act * BS.TILE * BS.TILE
     valid = (tiles.meta & BS.VALID) > 0           # the blocks K1-bs writes
     n_in = n_in_cutoff((s3[valid], s5[valid]))
+    live = BS.live_lines(sites[:, :3], n, tiles, pot.pme.box, consts.cutoff)
+    pairs_live = int(live.sum()) * BS.WATER * BS.CLUSTER
     lists = cap * 12 + (n_tiles + 1) * 4
+    rate = transcendental_rate(torch)
     bounds = {
         'fixed_field_and_scf_blocks': bound(np_ * 32 + lists + n * 12 + 2 * pairs_act * 4,
-                                            pairs_act * OPS_TEST + n_in * OPS_K1),
-        'scf_dipole_field_bs': bound(np_ * 32 + np_ * 12 + lists + 2 * pairs_act * 4 + n * 12,
-                                     pairs_act * OPS_K3),
+                                            n_in * (OPS_TEST + OPS_K1),
+                                            n_transcendental=n_in * TRANS_K1,
+                                            transcendental_rate=rate),
+        'scf_dipole_field_bs': bound(np_ * 16 + np_ * 12 + lists + n_in * 8 + n * 12,
+                                     n_in * OPS_K3),
         'direct_energy_force_pot_bs': bound(np_ * 32 + n * 12 + lists + n * 20,
-                                            pairs_act * OPS_TEST + n_in * OPS_K2)}
-    log(f'  {n_in} in-cutoff ordered pairs of {pairs_act} in the active blocks')
+                                            n_in * (OPS_TEST + OPS_K2),
+                                            n_transcendental=n_in * TRANS_K2,
+                                            transcendental_rate=rate)}
+    log(f'  {n_in} in-cutoff ordered pairs of {pairs_act} in the active blocks '
+        f'({n_in / pairs_act:.4%}); live (water, cluster) lines {int(live.sum())} of '
+        f'{int(valid.sum()) * live.shape[1] * live.shape[2]} ({pairs_live / pairs_act:.4%} of '
+        f'the candidates)')
+    log(f'  what the routes touch (bounds nothing): candidates of the active blocks '
+        f'{pairs_act} (the cutoff test on all: {pairs_act * OPS_TEST / FP32_FLOPS * 1e3:.4f} ms '
+        f'of operations), of the live lines {pairs_live} '
+        f'({pairs_live * OPS_TEST / FP32_FLOPS * 1e3:.4f} ms); s3/s5 of the whole blocks '
+        f'{2 * pairs_act * 4 / 1e9:.4f} GB ({2 * pairs_act * 4 / HBM_BPS * 1e3:.4f} ms), of the '
+        f'live lines {2 * pairs_live * 4 / 1e9:.4f} GB ({2 * pairs_live * 4 / HBM_BPS * 1e3:.4f} '
+        f'ms), of the in-cutoff pairs {2 * n_in * 4 / 1e9:.4f} GB')
     timed = (('fixed_field_and_scf_blocks',
               lambda: BS.fixed_field_and_scf_blocks(sites, n, tiles, consts),
               lambda: BS.fixed_field_and_scf_blocks_plain(sites, n, tiles, consts)),
@@ -520,7 +577,9 @@ def phase_block_kernels(torch, card, record, pot, pos):
     for kname, kern, plain in timed:
         ms, plain_ms = time_kernel(torch, card, kname, kern, plain, N_TIMING_TWIN_BS)
         record[kname] = kernel_record(kname, checks[kname][1], ms, plain_ms, bounds[kname])
-        log(f'  {kname:28s} bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})')
+        log(f'  {kname:28s} {ms:.4f} ms (before the culling redesign {BS_MS_BEFORE[kname]} ms), '
+            f'bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}), kernel / bound '
+            f'{ms / bounds[kname][0]:.2f}')
     if failures:
         raise AssertionError(f'block kernel/twin mismatch: {failures}')
 
@@ -653,7 +712,7 @@ def phase_pip_kernels(torch, card, record):
     # the default plain evaluator of the same function on the same variables
     library = {PF.pip_energy_grad: polyeval.pip_energy_and_grad}
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mufu_rate = MUFU_PER_CLOCK_PER_SM * n_sms * max_sm_clock_hz()
+    mufu_rate = transcendental_rate(torch)
     log(f'  transcendental unit: {MUFU_PER_CLOCK_PER_SM} results per clock per SM x {n_sms} SMs '
         f'x {mufu_rate / MUFU_PER_CLOCK_PER_SM / n_sms / 1e6:.0f} MHz (maximum SM clock) = '
         f'{mufu_rate / 1e12:.3f} T results/s')

@@ -65,6 +65,28 @@ __device__ __forceinline__ float min_image(float d, float b) {
   return d - floorf(d / b + 0.5f) * b;
 }
 
+// The minimum image with a multiply by 1/b in place of the division: the
+// same image as min_image except where d / b + 1/2 rounds to another
+// integer, where either image is half a box away. For tests that a loose
+// margin makes safe, never for a value that is summed.
+__device__ __forceinline__ float min_image_fast(float d, float b, float inv_b) {
+  return d - floorf(d * inv_b + 0.5f) * b;
+}
+
+// Pair-independent constants of the chain, computed once per thread (the
+// values the overload below computes in place).
+struct Derived {
+  float f1, f2, f3, g4, ibx, iby, ibz;
+};
+
+__device__ __forceinline__ Derived derive(const Consts& c) {
+  const float alsq2 = 2.0f * c.alpha * c.alpha;
+  const float f1 = alsq2 / (kSqrtPi * c.alpha);
+  const float f2 = f1 * alsq2;
+  return Derived{f1, f2, f2 * alsq2, sqrtf(sqrtf(c.g_cc)), 1.0f / c.bx, 1.0f / c.by,
+                 1.0f / c.bz};
+}
+
 __device__ __forceinline__ float h2_poly(float y) {
   float acc = kH2[16];
 #pragma unroll
@@ -77,7 +99,7 @@ __device__ __forceinline__ float h2_poly(float y) {
 // outside the cutoff; kFull adds the quantities only K2 needs.
 template <bool kFull>
 __device__ __forceinline__ bool pair_chain(const Site& si, const Site& sj, int i, int j,
-                                           const Consts& c, Pair& p) {
+                                           const Consts& c, const Derived& k, Pair& p) {
   if (i == j) return false;
   p.dx = min_image(sj.x - si.x, c.bx);
   p.dy = min_image(sj.y - si.y, c.by);
@@ -90,12 +112,9 @@ __device__ __forceinline__ bool pair_chain(const Site& si, const Site& sj, int i
   // Ewald bn0..bn3 (ewaldScalingReal)
   const float ralpha = c.alpha * r;
   const float ex2 = expf(-ralpha * ralpha);
-  const float alsq2 = 2.0f * c.alpha * c.alpha;
-  const float f1 = alsq2 / (kSqrtPi * c.alpha);
-  const float f2 = f1 * alsq2;
   p.bn0 = erfcf(ralpha) * inv_r;
-  p.bn1 = (p.bn0 + f1 * ex2) * inv_r2;
-  p.bn2 = (3.0f * p.bn1 + f2 * ex2) * inv_r2;
+  p.bn1 = (p.bn0 + k.f1 * ex2) * inv_r2;
+  p.bn2 = (3.0f * p.bn1 + k.f2 * ex2) * inv_r2;
   p.rr1 = inv_r;
   p.rr3 = inv_r * inv_r2;
   p.rr5 = 3.0f * p.rr3 * inv_r2;
@@ -112,18 +131,26 @@ __device__ __forceinline__ bool pair_chain(const Site& si, const Site& sj, int i
   const float ex_cc = expf(-c.g_cc * u4);
   p.s_cc3 = 1.0f - ex_cc;
   if (kFull) {
-    const float f3 = f2 * alsq2;
-    p.bn3 = (5.0f * p.bn2 + f3 * ex2) * inv_r2;
+    p.bn3 = (5.0f * p.bn2 + k.f3 * ex2) * inv_r2;
     p.rr7 = 15.0f * p.rr3 * inv_r2 * inv_r2;
     p.s_dd7 = p.s_dd5 - (4.0f / 15.0f) * gdd * (4.0f * gdd * u4 - 1.0f) * ex_dd * u4;
-    const float g4 = sqrtf(sqrtf(c.g_cc));
-    const float y = fminf(g4 * u, 3.6f);
-    p.s_cc1 = p.s_cc3 + g4 * u * kGamma34 * h2_poly(y) * ex_cc;
+    const float y = fminf(k.g4 * u, 3.6f);
+    p.s_cc1 = p.s_cc3 + k.g4 * u * kGamma34 * h2_poly(y) * ex_cc;
     const float ex_cd = expf(-c.g_cd * u4);
     p.s_cd3 = 1.0f - ex_cd;
     p.s_cd5 = p.s_cd3 - (4.0f / 3.0f) * c.g_cd * ex_cd * u4;
   }
   return true;
+}
+
+// The chain with its constants computed in place, for the dense kernels of
+// elec_direct.cu: with the constants in registers the compiler contracts
+// the Ewald terms otherwise, and their outputs (and the MD runs built on
+// them) would change in the last bits.
+template <bool kFull>
+__device__ __forceinline__ bool pair_chain(const Site& si, const Site& sj, int i, int j,
+                                           const Consts& c, Pair& p) {
+  return pair_chain<kFull>(si, sj, i, j, c, derive(c), p);
 }
 
 // SCF factors of one in-cutoff pair (preFactor1/2): s3, s5.

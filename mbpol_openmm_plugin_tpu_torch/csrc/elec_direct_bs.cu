@@ -22,25 +22,70 @@
 // induced dipoles.
 // All three run the pair chain of elec_common.cuh, as the dense kernels do.
 //
-// Bound on the H100 (water4096: 16,384 sites, 64 row tiles, ~3700 active
-// blocks): K1-bs must store s3 and s5, 2 x n_act x 256 KB ~ 1.9 GB, and
-// K3-bs must read them back on every SCF field evaluation; both are bound by
-// device-memory bytes. K2-bs moves O(N) bytes and is bound by the pair
-// chains it evaluates (erfcf + 4 expf per in-cutoff pair).
+// What bounds them on the H100 (water4096: 16,384 sites, 64 row tiles,
+// ~3700 active blocks; the 256-site tiles are ~1.24 nm cells, so the tile
+// list keeps 3682 of 4096 tile pairs, and only ~2.9% of the pairs of the
+// active blocks lie inside the 0.9 nm cutoff):
+// K1-bs must store s3 and s5, 2 x n_act x 256 KB ~ 1.9 GB, and is bound by
+// those bytes. K3-bs needs only the in-cutoff entries of those blocks
+// (~0.06 GB; the rest are the zeros K1-bs wrote), K2-bs only the chains of
+// the in-cutoff pairs (erfcf, 4 expf, the H2 polynomial): both are bound,
+// as the function goes, by far less than a pass over every candidate.
 //
 // Design: rows, not tile pairs, own blocks. One CUDA block of 256 threads
-// owns kRows consecutive rows of one row tile and loops over that row
-// tile's run of the list; thread t takes column t of each column tile, so
-// the s3/s5 stores (K1-bs) and loads (K3-bs) of neighbouring threads are
-// neighbouring addresses, and each column site is loaded once per block
-// for all kRows rows. Row sums stay in registers and are reduced inside
-// the block in a fixed order: no atomics and no cross-block accumulation,
-// so results are the same bits on every run. 64 row tiles x 64 blocks
-// each = 4096 blocks at water4096. Block offsets are size_t
-// (cap x 65536 passes 2^31 at larger boxes).
+// owns consecutive rows of one row tile (kRows = 4, one water; K2-bs:
+// kRowsEfp) and loops over that row tile's run of the list;
+// for each entry, warp w takes the 32-site cluster w of the column tile.
+// Row sums stay in registers and are reduced inside the block in a fixed
+// order: no atomics and no cross-block accumulation, so results are the
+// same bits on every run. Block offsets are size_t (cap x 65536 passes
+// 2^31 at larger boxes).
+//
+// Culling (K3-bs, K2-bs). A pre-pass (`cluster_boxes_kernel`, one warp per
+// cluster) writes a box per 32-site cluster of the sorted sites: the
+// minimum images of the cluster's real sites relative to its first site,
+// min/max by warp shuffles, so a cluster across the periodic boundary, or
+// sites in unwrapped coordinates, give a box that holds an image of every
+// site. Each block builds the box of each of its row waters the same way.
+// Per chunk of kChunk list entries, the block copies tj into shared memory
+// and tests every (entry, cluster) against its waters at once: a line is
+// dead when the minimum-image gap between the boxes exceeds the cutoff,
+// with each half extent padded by kCullMargin + kCullRel |coordinate|, so
+// the test never drops a pair that the exact per-pair test keeps (on an
+// axis the per-axis minimum image of any pair is at least |dc| - the two
+// half extents when |dc| <= half a box). The tested (water, cluster) lines
+// keep 16.85% of the candidates at water4096. A warp walks only its live
+// entries of the chunk (a ballot over the staged lines, one lane per
+// entry).
+// K3-bs skips the s3/s5 loads of dead lines (K1-bs wrote exact zeros
+// there) and keeps K1-bs's thread-to-column mapping and entry order, so
+// its sums are the bits of the unculled kernel. Its live lines are 128-byte
+// coalesced rows of the blocks, four per array. It is bound by the latency
+// of those loads, not by their bytes, so the registers are held to
+// kMinBlocksScf resident blocks per SM, and a live entry's loads are all
+// issued before its sums, in the guarded batch form (the same loop
+// without the guards read 0.31 ms against 0.23). (Measured slower: the
+// loads of two or four live entries issued before their sums; 16-byte
+// loads, a lane owning four columns of one row, which also sum in another
+// order.)
+// K2-bs rejects candidates of live lines on r^2 against a slightly loosened
+// cutoff^2 (kLoose; no division, no sqrtf) and queues the survivors
+// (row, column) in a per-warp ring in shared memory, in a fixed order
+// (entries, then lanes, then rows). Whenever 32 are queued, each lane runs
+// the exact test and, inside the cutoff, the chain of one of them, so a
+// warp's 32 lanes run 32 useful chains instead of one chain per (row,
+// lane) of every live line. A lane adds its pair into the accumulators of
+// the pair's row: the sums are in another order than the unculled kernel's
+// (held by the twin rows of ops/elec_direct_check.py), fixed by the data
+// alone, so every run gives the same bits. The pair-independent constants
+// (f1, f2, f3, g_cc^(1/4), 1/box) are computed once per thread (Derived).
+// The chains are latency-bound: kRowsEfp = 4 rows a block (64 registers,
+// four blocks per SM) beat 8 and 16 rows, whose accumulators cost
+// resident warps.
 //
 // The C entry points take device pointers, sizes, the physics constants
-// and the stream, allocate nothing and return cudaGetLastError().
+// and the stream, allocate nothing (the wrapper passes the box scratch)
+// and return cudaGetLastError().
 
 #include "elec_common.cuh"
 
@@ -49,16 +94,122 @@ namespace {
 using namespace mbpol;
 
 constexpr int kTile = 256;
-constexpr int kRows = 4;
+constexpr int kRows = 4;                 // K1-bs, K3-bs: one water per block
 constexpr int kSub = kTile / kRows;      // blocks per row tile
 constexpr int kValid = 1;                // meta bit flags (elec_pallas_bs)
 constexpr size_t kBlock = (size_t)kTile * kTile;
+constexpr int kWater = 4;                // sites per water, consecutive in the sort
+constexpr int kCluster = 32;             // column sites per warp and list entry
+constexpr int kClusters = kTile / kCluster;
+constexpr int kChunk = kThreads / kClusters;   // list entries staged at once
+// K3-bs: live entries loaded at once (1 read faster than 2 and 4), and the
+// blocks per SM its registers must allow (latency-bound: more warps)
+constexpr int kBatchScf = 1;
+constexpr int kMinBlocksScf = 4;
+// K2-bs: rows per block, and the per-warp ring of queued (row, column) pairs
+constexpr int kRowsEfp = 4;
+constexpr int kWatersEfp = kRowsEfp / kWater;
+constexpr int kSubEfp = kTile / kRowsEfp;
+constexpr int kQueue = 64 * kRowsEfp;     // a power of two, >= 2 x 32 + 32 x kRowsEfp
+constexpr int kColBits = 24;             // queue entry: row << kColBits | column
+// the culling test's padding of each half extent (nm, and per nm of the
+// coordinate: ~16 float32 ulps), and K2-bs's loosened cutoff^2 factor
+constexpr float kCullMargin = 1e-4f;
+constexpr float kCullRel = 2e-6f;
+constexpr float kLoose = 1.0001f;
+constexpr float kEmpty = -1e30f;         // half extent of a box without sites
 
 static_assert(kThreads == kTile, "one thread per column of a column tile");
+static_assert(kClusters == kWarps, "one warp per cluster of a column tile");
+static_assert(kChunk == 32, "one lane per staged entry in a warp's ballot");
+static_assert(kQueue >= 2 * 32 + 32 * kRowsEfp && (kQueue & (kQueue - 1)) == 0,
+              "the ring holds < 32 pairs plus one entry's 32 x kRowsEfp");
 
 __device__ __forceinline__ int row_tile() { return blockIdx.x / kSub; }
 __device__ __forceinline__ int first_row() {
   return row_tile() * kTile + (blockIdx.x % kSub) * kRows;
+}
+
+// An axis-aligned box that holds an image of each of a group's sites.
+struct Box {
+  float cx, cy, cz, hx, hy, hz;
+};
+
+__device__ __forceinline__ float box_pad(float ref) { return kCullMargin + kCullRel * fabsf(ref); }
+
+// The box from the group's first site `ref` and the extremes lo/hi of its
+// sites' minimum images relative to ref (lo > hi: no real site).
+__device__ __forceinline__ Box make_box(const float* ref, const float* lo, const float* hi) {
+  if (lo[0] > hi[0]) return Box{0.0f, 0.0f, 0.0f, kEmpty, kEmpty, kEmpty};
+  return Box{ref[0] + 0.5f * (lo[0] + hi[0]), ref[1] + 0.5f * (lo[1] + hi[1]),
+             ref[2] + 0.5f * (lo[2] + hi[2]), 0.5f * (hi[0] - lo[0]) + box_pad(ref[0]),
+             0.5f * (hi[1] - lo[1]) + box_pad(ref[1]), 0.5f * (hi[2] - lo[2]) + box_pad(ref[2])};
+}
+
+// Box of the kWater row sites xyz[0..3] (rows at or past n are padding).
+template <int kStride>
+__device__ __forceinline__ Box water_box(const float* xyz, int i0, int n, const Consts& c) {
+  const float b[3] = {c.bx, c.by, c.bz};
+  float lo[3] = {INFINITY, INFINITY, INFINITY}, hi[3] = {-INFINITY, -INFINITY, -INFINITY};
+#pragma unroll
+  for (int r = 0; r < kWater; ++r) {
+    if (i0 + r >= n) continue;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const float d = min_image(xyz[r * kStride + a] - xyz[a], b[a]);
+      lo[a] = fminf(lo[a], d);
+      hi[a] = fmaxf(hi[a], d);
+    }
+  }
+  return make_box(xyz, lo, hi);
+}
+
+__device__ __forceinline__ Box load_box(const float4* __restrict__ boxes, int g) {
+  const float4 a = boxes[2 * g], h = boxes[2 * g + 1];
+  return Box{a.x, a.y, a.z, h.x, h.y, h.z};
+}
+
+// True unless every pair of sites of the two boxes is farther apart than
+// the cutoff (minimum image).
+__device__ __forceinline__ bool boxes_meet(const Box& a, const Box& b, const Consts& c,
+                                           const Derived& k) {
+  const float gx = fmaxf(fabsf(min_image_fast(b.cx - a.cx, c.bx, k.ibx)) - (a.hx + b.hx), 0.0f);
+  const float gy = fmaxf(fabsf(min_image_fast(b.cy - a.cy, c.by, k.iby)) - (a.hy + b.hy), 0.0f);
+  const float gz = fmaxf(fabsf(min_image_fast(b.cz - a.cz, c.bz, k.ibz)) - (a.hz + b.hz), 0.0f);
+  return gx * gx + gy * gy + gz * gz <= c.cutoff2;
+}
+
+// One warp per cluster of kCluster sorted sites: boxes[2g] = center,
+// boxes[2g + 1] = half extents (kEmpty for a cluster of padded sites).
+__global__ void __launch_bounds__(kThreads)
+cluster_boxes_kernel(const float* __restrict__ sites, int n, int n_clusters, Consts c,
+                     float4* __restrict__ boxes) {
+  const int g = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (g >= n_clusters) return;
+  const float4* s4 = reinterpret_cast<const float4*>(sites);
+  const int j = g * kCluster + lane;
+  const float4 r4 = s4[2 * (size_t)g * kCluster];
+  const float4 p = s4[2 * (size_t)j];
+  const float ref[3] = {r4.x, r4.y, r4.z};
+  const float d[3] = {min_image(p.x - r4.x, c.bx), min_image(p.y - r4.y, c.by),
+                      min_image(p.z - r4.z, c.bz)};
+  float lo[3], hi[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    lo[a] = j < n ? d[a] : INFINITY;
+    hi[a] = j < n ? d[a] : -INFINITY;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo[a] = fminf(lo[a], __shfl_xor_sync(0xffffffffu, lo[a], off));
+      hi[a] = fmaxf(hi[a], __shfl_xor_sync(0xffffffffu, hi[a], off));
+    }
+  }
+  if (lane == 0) {
+    const Box bx = make_box(ref, lo, hi);
+    boxes[2 * g] = make_float4(bx.cx, bx.cy, bx.cz, 0.0f);
+    boxes[2 * g + 1] = make_float4(bx.hx, bx.hy, bx.hz, 0.0f);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -72,6 +223,7 @@ fixed_field_bs_kernel(const float* __restrict__ sites, int n, const int* __restr
   const int t = threadIdx.x;
   Site rows[kRows];
   load_rows<kRows>(sites, n, i0, rows, buf);
+  const Derived kd = derive(c);
 
   float acc[kRows * 3];
 #pragma unroll
@@ -90,7 +242,7 @@ fixed_field_bs_kernel(const float* __restrict__ sites, int n, const int* __restr
       const int i = i0 + r;
       Pair pr;
       float v3 = 0.0f, v5 = 0.0f;
-      if (i < n && j < n && pair_chain<false>(rows[r], sj, i, j, c, pr)) {
+      if (i < n && j < n && pair_chain<false>(rows[r], sj, i, j, c, kd, pr)) {
         scf_factors(pr, v3, v5);
         const float kq = fixed_field_kq(pr, sj.q);
         acc[3 * r + 0] += kq * pr.dx;
@@ -105,41 +257,101 @@ fixed_field_bs_kernel(const float* __restrict__ sites, int n, const int* __restr
   if (t < kRows * 3) field[(size_t)i0 * 3 + t] = -acc[0];
 }
 
-__global__ void __launch_bounds__(kThreads)
-scf_field_bs_kernel(const float* __restrict__ sites, const float* __restrict__ mu,
+// Stage the list entries p0 .. p0 + kChunk - 1 of the row tile's run
+// (ending at p_end): their column tiles into s_tj and, per (entry,
+// cluster), the bit mask of the block's waters whose box meets the
+// cluster's into s_live (0 for padded entries). Thread t tests entry
+// t / kClusters against cluster t % kClusters. Ends with __syncthreads.
+template <int kWaters>
+__device__ __forceinline__ void stage_chunk(const int* __restrict__ tj,
+                                            const int* __restrict__ meta,
+                                            const float4* __restrict__ boxes, int p0, int p_end,
+                                            const Box (&waters)[kWaters], const Consts& c,
+                                            const Derived& k, int (&s_tj)[kChunk],
+                                            unsigned char (&s_live)[kChunk][kClusters]) {
+  const int e = threadIdx.x / kClusters, g = threadIdx.x % kClusters, p = p0 + e;
+  unsigned live = 0;
+  int col = 0;
+  if (p < p_end && (meta[p] & kValid)) {
+    col = tj[p];
+    const Box cb = load_box(boxes, col * kClusters + g);
+#pragma unroll
+    for (int w = 0; w < kWaters; ++w) live |= (unsigned)boxes_meet(waters[w], cb, c, k) << w;
+  }
+  s_live[e][g] = (unsigned char)live;
+  if (g == 0) s_tj[e] = col;
+  __syncthreads();
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocksScf)
+scf_field_bs_kernel(const float* __restrict__ sites, const float* __restrict__ mu, int n,
                     const int* __restrict__ tj, const int* __restrict__ meta,
                     const int* __restrict__ row_start, Consts c,
-                    const float* __restrict__ s3, const float* __restrict__ s5,
-                    float* __restrict__ field) {
+                    const float4* __restrict__ boxes, const float* __restrict__ s3,
+                    const float* __restrict__ s5, float* __restrict__ field) {
   __shared__ float pbuf[kRows][3];
   __shared__ float red[kWarps][kRows * 3];
+  __shared__ int s_tj[kChunk];
+  __shared__ unsigned char s_live[kChunk][kClusters];
   const int i0 = first_row();
   const int t = threadIdx.x;
+  const int w = t >> 5, lane = t & 31;
   if (t < kRows * 3) pbuf[t / 3][t % 3] = sites[(size_t)(i0 + t / 3) * kNS + t % 3];
   __syncthreads();
+  const Derived k = derive(c);
+  const Box water[1] = {water_box<3>(&pbuf[0][0], i0, n, c)};
 
   float acc[kRows * 3];
 #pragma unroll
-  for (int k = 0; k < kRows * 3; ++k) acc[k] = 0.0f;
+  for (int q = 0; q < kRows * 3; ++q) acc[q] = 0.0f;
 
   const size_t rloc = (size_t)(i0 % kTile) * kTile + t;
-  const int p_end = row_start[row_tile() + 1];
-  for (int p = row_start[row_tile()]; p < p_end; ++p) {
-    if (!(meta[p] & kValid)) continue;
-    const int j = tj[p] * kTile + t;
-    const float4 pj = reinterpret_cast<const float4*>(sites)[2 * (size_t)j];
-    const float mj[3] = {mu[3 * (size_t)j], mu[3 * (size_t)j + 1], mu[3 * (size_t)j + 2]};
-    const float* __restrict__ s3p = s3 + (size_t)p * kBlock + rloc;
-    const float* __restrict__ s5p = s5 + (size_t)p * kBlock + rloc;
+  const int p_begin = row_start[row_tile()], p_end = row_start[row_tile() + 1];
+  for (int p0 = p_begin; p0 < p_end; p0 += kChunk) {
+    stage_chunk<1>(tj, meta, boxes, p0, p_end, water, c, k, s_tj, s_live);
+    // the warp's live entries of the chunk (lane e: entry e); dead lines
+    // hold the zeros K1-bs wrote: nothing to add
+    unsigned todo = __ballot_sync(0xffffffffu, s_live[lane][w]);
+    while (todo) {
+      // kBatchScf live entries at a time: their loads first, then their
+      // sums in entry order (the order of the unculled kernel)
+      int es[kBatchScf];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float d[3] = {min_image(pj.x - pbuf[r][0], c.bx), min_image(pj.y - pbuf[r][1], c.by),
-                          min_image(pj.z - pbuf[r][2], c.bz)};
-      const float v3 = s3p[r * kTile];
-      const float s5proj = s5p[r * kTile] * (mj[0] * d[0] + mj[1] * d[1] + mj[2] * d[2]);
+      for (int b = 0; b < kBatchScf; ++b) {
+        es[b] = todo ? __ffs(todo) - 1 : -1;
+        todo &= todo - 1;
+      }
+      float4 pj[kBatchScf];
+      float mj[kBatchScf][3], v3[kBatchScf][kRows], v5[kBatchScf][kRows];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) acc[3 * r + k] += v3 * mj[k] + s5proj * d[k];
+      for (int b = 0; b < kBatchScf; ++b) {
+        if (es[b] < 0) continue;
+        const size_t p = (size_t)(p0 + es[b]);
+        const size_t j = (size_t)s_tj[es[b]] * kTile + t;
+        pj[b] = reinterpret_cast<const float4*>(sites)[2 * j];
+#pragma unroll
+        for (int q = 0; q < 3; ++q) mj[b][q] = mu[3 * j + q];
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          v3[b][r] = s3[p * kBlock + rloc + r * kTile];
+          v5[b][r] = s5[p * kBlock + rloc + r * kTile];
+        }
+      }
+#pragma unroll
+      for (int b = 0; b < kBatchScf; ++b) {
+        if (es[b] < 0) continue;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          const float d[3] = {min_image(pj[b].x - pbuf[r][0], c.bx),
+                              min_image(pj[b].y - pbuf[r][1], c.by),
+                              min_image(pj[b].z - pbuf[r][2], c.bz)};
+          const float s5proj = v5[b][r] * (mj[b][0] * d[0] + mj[b][1] * d[1] + mj[b][2] * d[2]);
+#pragma unroll
+          for (int q = 0; q < 3; ++q) acc[3 * r + q] += v3[b][r] * mj[b][q] + s5proj * d[q];
+        }
+      }
     }
+    __syncthreads();                      // before the next chunk's staging
   }
   block_sum<kRows * 3>(acc, red);
   if (t < kRows * 3) field[(size_t)i0 * 3 + t] = acc[0];
@@ -148,44 +360,120 @@ scf_field_bs_kernel(const float* __restrict__ sites, const float* __restrict__ m
 __global__ void __launch_bounds__(kThreads)
 direct_efp_bs_kernel(const float* __restrict__ sites, const float* __restrict__ mu, int n,
                      const int* __restrict__ tj, const int* __restrict__ meta,
-                     const int* __restrict__ row_start, Consts c, float* __restrict__ force,
+                     const int* __restrict__ row_start, Consts c,
+                     const float4* __restrict__ boxes, float* __restrict__ force,
                      float* __restrict__ pot, float* __restrict__ e_row) {
   constexpr int kOut = 5;   // fx, fy, fz, pot, energy
-  __shared__ float buf[kRows][kNS];
-  __shared__ float mbuf[kRows][3];
-  __shared__ float red[kWarps][kRows * kOut];
-  const int i0 = first_row();
+  constexpr unsigned kFull = 0xffffffffu;
+  __shared__ float buf[kRowsEfp][kNS];
+  __shared__ float mbuf[kRowsEfp][3];
+  __shared__ float red[kWarps][kRowsEfp * kOut];
+  __shared__ int s_tj[kChunk];
+  __shared__ unsigned char s_live[kChunk][kClusters];
+  __shared__ unsigned s_queue[kWarps][kQueue];
+  const int tile = blockIdx.x / kSubEfp;
+  const int i0 = tile * kTile + (blockIdx.x % kSubEfp) * kRowsEfp;
   const int t = threadIdx.x;
-  if (t < kRows * 3) mbuf[t / 3][t % 3] = mu[(size_t)i0 * 3 + t];
-  Site rows[kRows];
-  load_rows<kRows>(sites, n, i0, rows, buf);   // includes the __syncthreads for mbuf
-
-  float acc[kRows * kOut];
+  const int w = t >> 5, lane = t & 31;
+  if (t < kRowsEfp * 3) mbuf[t / 3][t % 3] = mu[(size_t)i0 * 3 + t];
+  if (t < kRowsEfp * kNS) {
+    const int r = t / kNS;
+    buf[r][t % kNS] = (i0 + r < n) ? sites[(size_t)(i0 + r) * kNS + t % kNS] : 0.0f;
+  }
+  __syncthreads();
+  const Derived k = derive(c);
+  Box waters[kWatersEfp];
 #pragma unroll
-  for (int k = 0; k < kRows * kOut; ++k) acc[k] = 0.0f;
+  for (int g = 0; g < kWatersEfp; ++g)
+    waters[g] = water_box<kNS>(&buf[g * kWater][0], i0 + g * kWater, n, c);
 
-  const int p_end = row_start[row_tile() + 1];
-  for (int p = row_start[row_tile()]; p < p_end; ++p) {
-    if (!(meta[p] & kValid)) continue;
-    const int j = tj[p] * kTile + t;
-    if (j >= n) continue;
+  float acc[kRowsEfp * kOut];
+#pragma unroll
+  for (int q = 0; q < kRowsEfp * kOut; ++q) acc[q] = 0.0f;
+  unsigned* __restrict__ ring = s_queue[w];
+  unsigned head = 0, tail = 0;            // warp-uniform ring counters
+  const float loose2 = kLoose * c.cutoff2;
+
+  // the exact test and chain of the queued pair `entry` into its row's sums
+  auto run_pair = [&](unsigned entry) {
+    const int r = entry >> kColBits;
+    const int j = entry & ((1u << kColBits) - 1);
     const Site sj = load_site(sites, j);
     const float mj[3] = {mu[3 * (size_t)j], mu[3 * (size_t)j + 1], mu[3 * (size_t)j + 2]};
+    const Site si{buf[r][0], buf[r][1], buf[r][2], buf[r][3], buf[r][4], buf[r][5], buf[r][6]};
+    float a[kOut] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    Pair pr;
+    if (pair_chain<true>(si, sj, i0 + r, j, c, k, pr)) efp_pair(pr, si.q, sj.q, mbuf[r], mj, a);
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      Pair pr;
-      if (i0 + r < n && pair_chain<true>(rows[r], sj, i0 + r, j, c, pr))
-        efp_pair(pr, rows[r].q, sj.q, mbuf[r], mj, acc + kOut * r);
+    for (int rr = 0; rr < kRowsEfp; ++rr)
+      if (rr == r) {
+#pragma unroll
+        for (int q = 0; q < kOut; ++q) acc[kOut * rr + q] += a[q];
+      }
+  };
+
+  const int p_begin = row_start[tile], p_end = row_start[tile + 1];
+  for (int p0 = p_begin; p0 < p_end; p0 += kChunk) {
+    stage_chunk<kWatersEfp>(tj, meta, boxes, p0, p_end, waters, c, k, s_tj, s_live);
+    unsigned todo = __ballot_sync(kFull, s_live[lane][w]);
+    while (todo) {
+      const int e = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const unsigned live = s_live[e][w];
+      const int j = s_tj[e] * kTile + w * kCluster + lane;
+      // rows of the live waters whose pair passes the loosened r^2 test
+      unsigned m = 0;
+      if (j < n) {
+        const float4 pj = reinterpret_cast<const float4*>(sites)[2 * (size_t)j];
+#pragma unroll
+        for (int r = 0; r < kRowsEfp; ++r) {
+          if (!((live >> (r / kWater)) & 1u)) continue;
+          const float dx = min_image_fast(pj.x - buf[r][0], c.bx, k.ibx);
+          const float dy = min_image_fast(pj.y - buf[r][1], c.by, k.iby);
+          const float dz = min_image_fast(pj.z - buf[r][2], c.bz, k.ibz);
+          const bool keep = dx * dx + dy * dy + dz * dz <= loose2 && i0 + r < n && i0 + r != j;
+          m |= (unsigned)keep << r;
+        }
+      }
+      // enqueue in a fixed order: lanes in order, each lane's rows in order
+      const int cnt = __popc(m);
+      int incl = cnt;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const int v = __shfl_up_sync(kFull, incl, off);
+        if (lane >= off) incl += v;
+      }
+      unsigned slot = tail + (unsigned)(incl - cnt);
+      while (m) {
+        const int r = __ffs(m) - 1;
+        m &= m - 1;
+        ring[slot++ & (kQueue - 1)] = ((unsigned)r << kColBits) | (unsigned)j;
+      }
+      tail += (unsigned)__shfl_sync(kFull, incl, 31);
+      __syncwarp();
+      for (; tail - head >= 32; head += 32) run_pair(ring[(head + lane) & (kQueue - 1)]);
+      __syncwarp();
     }
+    __syncthreads();                      // before the next chunk's staging
   }
-  block_sum<kRows * kOut>(acc, red);
-  if (t < kRows * kOut) {
+  if (head + lane < tail) run_pair(ring[(head + lane) & (kQueue - 1)]);
+
+  block_sum<kRowsEfp * kOut>(acc, red);
+  if (t < kRowsEfp * kOut) {
     const size_t i = (size_t)i0 + t / kOut;
-    const int k = t % kOut;
-    if (k < 3) force[i * 3 + k] = acc[0];
-    else if (k == 3) pot[i] = acc[0];
+    const int q = t % kOut;
+    if (q < 3) force[i * 3 + q] = acc[0];
+    else if (q == 3) pot[i] = acc[0];
     else e_row[i] = acc[0];
   }
+}
+
+cudaError_t launch_cluster_boxes(const float* sites, int n, int n_tiles, const Consts& c,
+                                 float* boxes, cudaStream_t stream) {
+  const int n_clusters = n_tiles * kClusters;
+  cluster_boxes_kernel<<<(n_clusters + kWarps - 1) / kWarps, kThreads, 0, stream>>>(
+      sites, n, n_clusters, c, reinterpret_cast<float4*>(boxes));
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -203,28 +491,40 @@ extern "C" int mbpol_fixed_field_scf_bs(const float* sites, int n, int n_tiles, 
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int mbpol_scf_field_bs(const float* sites, const float* mu, int n_tiles,
+// boxes: scratch of n_tiles x kClusters x 8 floats
+extern "C" int mbpol_scf_field_bs(const float* sites, const float* mu, int n, int n_tiles,
                                   const int* tj, const int* meta, const int* row_start,
                                   float alpha, float cutoff2, float g_cc, float g_cd,
                                   float g_dd, float g_ddoh, float g_ddhh, float bx, float by,
-                                  float bz, const float* s3, const float* s5, float* field,
-                                  void* stream) {
+                                  float bz, const float* s3, const float* s5, float* boxes,
+                                  float* field, void* stream) {
   if (n_tiles <= 0) return 0;
   const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
-  scf_field_bs_kernel<<<n_tiles * kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sites, mu, tj, meta, row_start, c, s3, s5, field);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_cluster_boxes(sites, n, n_tiles, c, boxes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  scf_field_bs_kernel<<<n_tiles * kSub, kThreads, 0, st>>>(
+      sites, mu, n, tj, meta, row_start, c, reinterpret_cast<const float4*>(boxes), s3, s5,
+      field);
   return static_cast<int>(cudaGetLastError());
 }
 
+// boxes: scratch of n_tiles x kClusters x 8 floats; n_tiles x 256 < 2^24
 extern "C" int mbpol_direct_efp_bs(const float* sites, const float* mu, int n, int n_tiles,
                                    const int* tj, const int* meta, const int* row_start,
                                    float alpha, float cutoff2, float g_cc, float g_cd,
                                    float g_dd, float g_ddoh, float g_ddhh, float bx, float by,
-                                   float bz, float* force, float* pot, float* e_row,
-                                   void* stream) {
+                                   float bz, float* boxes, float* force, float* pot,
+                                   float* e_row, void* stream) {
   if (n_tiles <= 0) return 0;
+  if ((long long)n_tiles * kTile > (1ll << kColBits))
+    return static_cast<int>(cudaErrorInvalidValue);
   const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
-  direct_efp_bs_kernel<<<n_tiles * kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sites, mu, n, tj, meta, row_start, c, force, pot, e_row);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_cluster_boxes(sites, n, n_tiles, c, boxes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  direct_efp_bs_kernel<<<n_tiles * kSubEfp, kThreads, 0, st>>>(
+      sites, mu, n, tj, meta, row_start, c, reinterpret_cast<const float4*>(boxes), force, pot,
+      e_row);
   return static_cast<int>(cudaGetLastError());
 }

@@ -114,10 +114,12 @@ def load():
     lists = [ptr, ptr, ptr]
     lib.mbpol_fixed_field_scf_bs.argtypes = [ptr, i32, i32, *lists, *consts, ptr, ptr, ptr, ptr]
     lib.mbpol_fixed_field_scf_bs.restype = i32
-    lib.mbpol_scf_field_bs.argtypes = [ptr, ptr, i32, *lists, *consts, ptr, ptr, ptr, ptr]
+    # K3-bs and K2-bs take n, n_tiles and the cluster-box scratch
+    lib.mbpol_scf_field_bs.argtypes = [ptr, ptr, i32, i32, *lists, *consts, ptr, ptr, ptr, ptr,
+                                       ptr]
     lib.mbpol_scf_field_bs.restype = i32
     lib.mbpol_direct_efp_bs.argtypes = [ptr, ptr, i32, i32, *lists, *consts, ptr, ptr, ptr,
-                                        ptr]
+                                        ptr, ptr]
     lib.mbpol_direct_efp_bs.restype = i32
     # fused PIP kernels (csrc/pip_fused.cu): x, p, v, tables..., e, g, stream
     # Et tiles, factors, coefficients, number of tiles

@@ -17,6 +17,11 @@ K3-bs `scf_dipole_field_bs` replaces `_scf_field_bs_kernel`: one SCF
 dipole-field evaluation over the stored blocks.
 K2-bs `direct_energy_force_pot_bs` replaces `_pair_force_bs_kernel`:
 direct-space energy, forces and per-site potential.
+K3-bs and K2-bs cull at warp granularity: a (row water, 32-site column
+cluster) line of an active block is skipped when the minimum-image gap
+between the two groups' boxes exceeds the cutoff (`group_boxes`,
+`live_lines` are the plain twin of that test; the kernels compute the
+boxes on the card).
 
 Dispatch, as in ops/elec_direct.py: CPU tensors go to the plain twins
 (`*_plain`), CUDA float32 tensors to the kernels, anything else raises;
@@ -48,6 +53,14 @@ VALID = 1
 FIRST_IN_ROW = 2
 # list entries per step of the twins: [CHUNK, 256, 256] pair tensors
 CHUNK = 16
+# the kernels' culling test (csrc/elec_direct_bs.cu): row groups of one
+# water, column clusters of one warp, and the padding of each half extent
+# (nm, and per nm of the group's first coordinate)
+WATER = 4
+CLUSTER = 32
+CULL_MARGIN = 1e-4
+CULL_REL = 2e-6
+EMPTY = -1e30
 
 
 def padded(n):
@@ -182,6 +195,48 @@ def pad_rows(x, n_rows):
     return torch.cat([x, x.new_zeros((n_rows - x.shape[0],) + tuple(x.shape[1:]))]).contiguous()
 
 
+def group_boxes(xyz, n_sites, box, size):
+    """Boxes of the groups of `size` consecutive sites of xyz [np_, 3]
+    (sites >= n_sites are padding): (center [G, 3], half [G, 3]), each box
+    holding an image of every real site of its group. The extents are those
+    of the sites' minimum images relative to the group's first site, so a
+    group across the periodic boundary or in unwrapped coordinates keeps a
+    tight box; each half extent is padded by CULL_MARGIN + CULL_REL |first
+    coordinate|. A group without real sites has half = EMPTY."""
+    g = xyz.shape[0] // size
+    b = torch.as_tensor(np.asarray(box, np.float64), dtype=xyz.dtype, device=xyz.device)
+    p = xyz.reshape(g, size, 3)
+    ref = p[:, 0, :]
+    d = p - ref[:, None, :]
+    d = d - torch.floor(d / b + 0.5) * b
+    real = (torch.arange(g * size, device=xyz.device) < n_sites).reshape(g, size, 1)
+    lo = torch.amin(torch.where(real, d, float('inf')), dim=1)
+    hi = torch.amax(torch.where(real, d, float('-inf')), dim=1)
+    some = real.any(dim=1)
+    center = torch.where(some, ref + 0.5 * (lo + hi), 0.0)
+    half = torch.where(some, 0.5 * (hi - lo) + CULL_MARGIN + CULL_REL * ref.abs(), EMPTY)
+    return center, half
+
+
+def live_lines(xyz, n_sites, tiles: TileList, box, cutoff):
+    """The culling test of K3-bs/K2-bs: [cap, 64, 8] bool, True where row
+    water w of entry p's row tile and column cluster g of its column tile
+    may hold a pair within the cutoff (False for padded entries). A line is
+    dead when the per-axis minimum-image gaps between the two boxes, each
+    |dc| - (half_a + half_b) floored at 0, give a distance above the
+    cutoff: on each axis that gap is a lower bound of every pair's
+    minimum-image separation."""
+    b = torch.as_tensor(np.asarray(box, np.float64), dtype=xyz.dtype, device=xyz.device)
+    rc, rh = (x.reshape(-1, TILE // WATER, 3) for x in group_boxes(xyz, n_sites, box, WATER))
+    cc, ch = (x.reshape(-1, TILE // CLUSTER, 3) for x in group_boxes(xyz, n_sites, box, CLUSTER))
+    ti, tj = tiles.ti.long(), tiles.tj.long()
+    dc = cc[tj][:, None, :, :] - rc[ti][:, :, None, :]
+    dc = dc - torch.floor(dc / b + 0.5) * b
+    gap = torch.clamp(dc.abs() - (rh[ti][:, :, None, :] + ch[tj][:, None, :, :]), min=0.0)
+    valid = ((tiles.meta & VALID) > 0)[:, None, None]
+    return (torch.sum(gap * gap, dim=-1) <= cutoff * cutoff) & valid
+
+
 # ----------------------------------------------------------------------
 # Plain PyTorch twins, chunked over list entries
 # ----------------------------------------------------------------------
@@ -274,6 +329,11 @@ def _on_kernel(tiles: TileList, *floats):
     return True
 
 
+def _box_scratch(sites):
+    """The kernels' scratch for the cluster boxes: [np_ / CLUSTER, 8]."""
+    return torch.empty((sites.shape[0] // CLUSTER, 8), dtype=sites.dtype, device=sites.device)
+
+
 def _list_args(tiles: TileList):
     return tiles.tj.data_ptr(), tiles.meta.data_ptr(), tiles.row_start.data_ptr()
 
@@ -314,10 +374,11 @@ def scf_dipole_field_bs(sites, s3, s5, mu_pad, tiles: TileList, n_sites, c: ED.D
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
     field = torch.empty((np_, 3), dtype=sites.dtype, device=sites.device)
+    boxes = _box_scratch(sites)
     ED._check(lib.mbpol_scf_field_bs(
-        sites.data_ptr(), mu_pad.data_ptr(), np_ // TILE, *_list_args(tiles),
-        *c.kernel_args(), s3.data_ptr(), s5.data_ptr(), field.data_ptr(), ED._stream()),
-        'scf_dipole_field_bs')
+        sites.data_ptr(), mu_pad.data_ptr(), n_sites, np_ // TILE, *_list_args(tiles),
+        *c.kernel_args(), s3.data_ptr(), s5.data_ptr(), boxes.data_ptr(), field.data_ptr(),
+        ED._stream()), 'scf_dipole_field_bs')
     scf_dipole_field_bs.launches += 1
     return field[:n_sites]
 
@@ -337,10 +398,11 @@ def direct_energy_force_pot_bs(sites, mu, n_sites, tiles: TileList, c: ED.Direct
     force = torch.empty((np_, 3), dtype=sites.dtype, device=sites.device)
     pot = torch.empty((np_,), dtype=sites.dtype, device=sites.device)
     e_row = torch.empty((np_,), dtype=sites.dtype, device=sites.device)
+    boxes = _box_scratch(sites)
     ED._check(lib.mbpol_direct_efp_bs(
         sites.data_ptr(), mu_pad.data_ptr(), n_sites, np_ // TILE, *_list_args(tiles),
-        *c.kernel_args(), force.data_ptr(), pot.data_ptr(), e_row.data_ptr(), ED._stream()),
-        'direct_energy_force_pot_bs')
+        *c.kernel_args(), boxes.data_ptr(), force.data_ptr(), pot.data_ptr(), e_row.data_ptr(),
+        ED._stream()), 'direct_energy_force_pot_bs')
     direct_energy_force_pot_bs.launches += 1
     return torch.sum(e_row[:n_sites]), force[:n_sites], pot[:n_sites]
 

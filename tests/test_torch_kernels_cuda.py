@@ -132,6 +132,58 @@ def test_block_kernels_match_twins(cuda, water1024_block):
         _assert_rows(rows)
 
 
+def _moved(sites, box, how):
+    """Sorted sites with the positions shifted by box vectors (unwrapped
+    coordinates far from the box) or shifted and wrapped per site into the
+    box (waters and column clusters across the periodic boundary)."""
+    b = torch.as_tensor(box, dtype=sites.dtype, device=sites.device)
+    xyz = sites[:, :3]
+    if how == 'shifted':
+        xyz = xyz + b * torch.tensor([3.0, -2.0, 5.0], dtype=sites.dtype, device=sites.device)
+    else:
+        xyz = xyz + b * torch.tensor([0.5, 0.37, 0.61], dtype=sites.dtype, device=sites.device)
+        xyz = xyz - torch.floor(xyz / b) * b
+    return torch.cat([xyz, sites[:, 3:]], dim=1).contiguous()
+
+
+@pytest.mark.parametrize('how', ['shifted', 'wrapped', 'ragged'])
+def test_culled_block_kernels_match_twins(cuda, water1024_block, how):
+    """K3-bs and K2-bs cull (water, cluster) lines by boxes: on unwrapped
+    positions, on waters and clusters across the boundary, and with a
+    ragged last tile (the last 10 waters taken as padding, their sites
+    left in place), against the twins on the entry sets of
+    ops/elec_direct_check.py."""
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
+    sites, polarity, tiles, n, consts = water1024_block
+    if how == 'ragged':
+        n = n - 40
+        polarity = polarity[:n]
+        tiles = bs.active_tile_pairs(sites[:, :3], n, consts.box, consts.cutoff,
+                                     tiles.capacity)
+    else:
+        sites = _moved(sites, consts.box, how)
+    assert int(tiles.n_act) <= tiles.capacity
+    live = bs.live_lines(sites[:, :3], n, tiles, consts.box, consts.cutoff)
+    assert 0 < int(live.sum()) < live.numel()
+    checks = check.block_kernel_rows(sites, polarity, tiles, n, consts)
+    torch.cuda.synchronize()
+    for name in ('scf_dipole_field_bs', 'direct_energy_force_pot_bs'):
+        _assert_rows(checks[name][0])
+
+
+def test_culled_block_kernels_are_bitwise_reproducible(cuda, water1024_block):
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
+    sites, polarity, tiles, n, consts = water1024_block
+    field, s3, s5 = bs.fixed_field_and_scf_blocks(sites, n, tiles, consts)
+    mu = (polarity[:, None] * field).contiguous()
+    mu_pad = bs.pad_rows(mu, sites.shape[0])
+    k3 = [bs.scf_dipole_field_bs(sites, s3, s5, mu_pad, tiles, n, consts) for _ in range(2)]
+    k2 = [bs.direct_energy_force_pot_bs(sites, mu, n, tiles, consts) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(k3[0], k3[1])
+    assert all(torch.equal(a, b) for a, b in zip(*k2))
+
+
 def test_block_kernels_refuse_float64(cuda, water1024_block):
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
     sites, _, tiles, n, consts = water1024_block
