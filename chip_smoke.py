@@ -25,12 +25,14 @@ Phases (any failure raises and the script exits non-zero):
      see PERF.md), and K1/K2 launched at least once per step;
   6. the block kernels K1-bs/K3-bs/K2-bs against their twins at water4096,
      in the sorted order tune_capacities picks (the padded list holds
-     inactive-pair padding), on the entry sets of ops/elec_direct_check.py;
-     the live share of the (water, cluster) lines K3-bs/K2-bs test, each
-     kernel's bound from the in-cutoff pairs of this run (beside it, what
-     the routes touch: all candidates, live lines, whole blocks), and its
-     device time (cluster-box pre-pass included) beside the time before the
-     culling redesign;
+     inactive-pair padding), on the entry sets of ops/elec_direct_check.py
+     (K1-bs's s3/s5 lines spread into blocks); the live share of the
+     (water, cluster) lines the kernels test, the line capacity, the live
+     lines per slab and the s3/s5 bytes allocated; each kernel's bound from
+     the in-cutoff pairs of this run (beside it, what the routes touch:
+     all candidates, live lines, whole blocks), and its device time
+     (cluster-box pre-pass included) beside the time before the live-line
+     layout;
   7. replication: the water4096 single point (PME grid exactly 2 x 2 x 4
      the water256 one, SCF to 1e-4) against phase 4, energy per water
      within 1e-4 relative, every copy's electrostatics + dispersion forces
@@ -115,14 +117,14 @@ BF16_TENSOR_FLOPS = 989e12
 # per clock per SM.
 OPS_TEST, OPS_K1, OPS_K2, OPS_K3 = 25, 60, 150, 36
 TRANS_K1, TRANS_K2 = 6, 7
-# device ms per launch of the block kernels before the culling redesign
-# (this phase's reading of the earlier design, PERF.md section 6), logged
-# beside this run's
-BS_MS_BEFORE = {'fixed_field_and_scf_blocks': 1.1185, 'scf_dipole_field_bs': 1.2806,
-                'direct_energy_force_pot_bs': 1.4581}
+# device ms per launch of the block kernels before the live-line layout of
+# s3/s5 (this phase's reading of the earlier design, with s3/s5 as whole
+# blocks; PERF.md section 6), logged beside this run's
+BS_MS_BEFORE = {'fixed_field_and_scf_lines': 1.1152, 'scf_dipole_field_bs': 0.2264,
+                'direct_energy_force_pot_bs': 0.2578}
 # kernels a wrapper launches besides its own, whose device time is part of
 # the wrapper's (the cluster boxes of the culling test)
-HELPER_KERNELS = {'scf_dipole_field_bs': ('cluster_boxes_kernel',),
+HELPER_KERNELS = {'fixed_field_and_scf_lines': ('cluster_boxes_kernel',),
                   'direct_energy_force_pot_bs': ('cluster_boxes_kernel',)}
 SOURCE = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct.cu'
 SOURCE_BS = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct_bs.cu'
@@ -132,7 +134,7 @@ KERNELS = {   # wrapper name: (CUDA kernel name, source, the TPU kernel it repla
         'fixed_field_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:315'),
     'direct_energy_force_pot': (
         'direct_efp_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:364'),
-    'fixed_field_and_scf_blocks': (
+    'fixed_field_and_scf_lines': (
         'fixed_field_bs_kernel', SOURCE_BS, 'mbpol_openmm_plugin_tpu/ops/elec_pallas_bs.py:182'),
     'scf_dipole_field_bs': (
         'scf_field_bs_kernel', SOURCE_BS, 'mbpol_openmm_plugin_tpu/ops/elec_pallas_bs.py:209'),
@@ -499,7 +501,8 @@ def water4096_potential(torch, card):
         f'{tuple(round(float(b), 5) for b in system.box)} nm, modes {pot.elec_mode}/'
         f'{pot.disp_mode}, PME grid {pot.pme.grid}; tune_capacities '
         f'{time.perf_counter() - t0:.2f} s: tile-pair capacity '
-        f'{pot._block_info["tile_pair_capacity"]}, pair/triplet/dispersion-pair caps '
+        f'{pot._block_info["tile_pair_capacity"]}, s3/s5 line capacity '
+        f'{pot._block_info["line_capacity"]}, pair/triplet/dispersion-pair caps '
         f'{pot.pair_cap}/{pot.trip_cap}/{pot.disp_pair_cap}')
     return pot, pos
 
@@ -523,7 +526,8 @@ def phase_block_kernels(torch, card, record, pot, pos):
     log(f'  sorted sites {tuple(sites.shape)}; active tile pairs n_act {n_act} of '
         f'{n_tiles * n_tiles}, capacity {cap} ({cap - n_act} padded entries)')
     assert 0 < n_act <= cap
-    checks = check.block_kernel_rows(sites, polarity, tiles, n, consts)
+    n_lines = block['line_capacity']
+    checks = check.block_kernel_rows(sites, polarity, tiles, n, consts, n_lines)
     torch.cuda.synchronize()
     failures = []
     for kname, (rows, _) in checks.items():
@@ -532,22 +536,24 @@ def phase_block_kernels(torch, card, record, pot, pos):
             if not row.ok:
                 failures.append(f'{kname}.{row.output}.{row.entries}.{row.measure}')
 
-    field, s3, s5 = BS.fixed_field_and_scf_blocks(sites, n, tiles, consts)
+    field, lines = BS.fixed_field_and_scf_lines(sites, n, tiles, consts, n_lines)
     mu = (polarity[:, None] * field).contiguous()
     mu_pad = BS.pad_rows(mu, np_)
     torch.cuda.synchronize()
     pairs_act = n_act * BS.TILE * BS.TILE
-    valid = (tiles.meta & BS.VALID) > 0           # the blocks K1-bs writes
-    n_in = n_in_cutoff((s3[valid], s5[valid]))
+    valid = (tiles.meta & BS.VALID) > 0
+    stored = torch.arange(n_lines, device=lines.count.device) < lines.count[..., None]
+    n_in = n_in_cutoff((lines.s3[stored], lines.s5[stored]))
     live = BS.live_lines(sites[:, :3], n, tiles, pot.pme.box, consts.cutoff)
     pairs_live = int(live.sum()) * BS.WATER * BS.CLUSTER
+    n_stored = int(lines.count.sum())
     lists = cap * 12 + (n_tiles + 1) * 4
     rate = transcendental_rate(torch)
     bounds = {
-        'fixed_field_and_scf_blocks': bound(np_ * 32 + lists + n * 12 + 2 * pairs_act * 4,
-                                            n_in * (OPS_TEST + OPS_K1),
-                                            n_transcendental=n_in * TRANS_K1,
-                                            transcendental_rate=rate),
+        'fixed_field_and_scf_lines': bound(np_ * 32 + lists + n * 12 + n_in * 8,
+                                           n_in * (OPS_TEST + OPS_K1),
+                                           n_transcendental=n_in * TRANS_K1,
+                                           transcendental_rate=rate),
         'scf_dipole_field_bs': bound(np_ * 16 + np_ * 12 + lists + n_in * 8 + n * 12,
                                      n_in * OPS_K3),
         'direct_energy_force_pot_bs': bound(np_ * 32 + n * 12 + lists + n * 20,
@@ -557,7 +563,13 @@ def phase_block_kernels(torch, card, record, pot, pos):
     log(f'  {n_in} in-cutoff ordered pairs of {pairs_act} in the active blocks '
         f'({n_in / pairs_act:.4%}); live (water, cluster) lines {int(live.sum())} of '
         f'{int(valid.sum()) * live.shape[1] * live.shape[2]} ({pairs_live / pairs_act:.4%} of '
-        f'the candidates)')
+        f'the candidates) by the twin\'s test, {n_stored} by K1-bs\'s')
+    log(f'  s3/s5 lines: capacity {n_lines} per (row water, cluster) slab (the column tiles: '
+        f'{n_tiles}); live lines per slab max {int(lines.count.max())}, mean '
+        f'{float(lines.count.float().mean()):.2f}; overflow {bool(lines.overflow())}; '
+        f'allocated {lines.nbytes() / 1e9:.4f} GB (whole blocks at this list capacity: '
+        f'{2 * cap * BS.TILE * BS.TILE * 4 / 1e9:.4f} GB)')
+    assert not bool(lines.overflow())
     log(f'  what the routes touch (bounds nothing): candidates of the active blocks '
         f'{pairs_act} (the cutoff test on all: {pairs_act * OPS_TEST / FP32_FLOPS * 1e3:.4f} ms '
         f'of operations), of the live lines {pairs_live} '
@@ -565,19 +577,19 @@ def phase_block_kernels(torch, card, record, pot, pos):
         f'{2 * pairs_act * 4 / 1e9:.4f} GB ({2 * pairs_act * 4 / HBM_BPS * 1e3:.4f} ms), of the '
         f'live lines {2 * pairs_live * 4 / 1e9:.4f} GB ({2 * pairs_live * 4 / HBM_BPS * 1e3:.4f} '
         f'ms), of the in-cutoff pairs {2 * n_in * 4 / 1e9:.4f} GB')
-    timed = (('fixed_field_and_scf_blocks',
-              lambda: BS.fixed_field_and_scf_blocks(sites, n, tiles, consts),
-              lambda: BS.fixed_field_and_scf_blocks_plain(sites, n, tiles, consts)),
+    timed = (('fixed_field_and_scf_lines',
+              lambda: BS.fixed_field_and_scf_lines(sites, n, tiles, consts, n_lines),
+              lambda: BS.fixed_field_and_scf_lines_plain(sites, n, tiles, consts, n_lines)),
              ('scf_dipole_field_bs',
-              lambda: BS.scf_dipole_field_bs(sites, s3, s5, mu_pad, tiles, n, consts),
-              lambda: BS.scf_dipole_field_bs_plain(sites, s3, s5, mu_pad, tiles, n, consts)),
+              lambda: BS.scf_dipole_field_bs(sites, lines, mu_pad, tiles, n, consts),
+              lambda: BS.scf_dipole_field_bs_plain(sites, lines, mu_pad, tiles, n, consts)),
              ('direct_energy_force_pot_bs',
               lambda: BS.direct_energy_force_pot_bs(sites, mu, n, tiles, consts),
               lambda: BS.direct_energy_force_pot_bs_plain(sites, mu, n, tiles, consts)))
     for kname, kern, plain in timed:
         ms, plain_ms = time_kernel(torch, card, kname, kern, plain, N_TIMING_TWIN_BS)
         record[kname] = kernel_record(kname, checks[kname][1], ms, plain_ms, bounds[kname])
-        log(f'  {kname:28s} {ms:.4f} ms (before the culling redesign {BS_MS_BEFORE[kname]} ms), '
+        log(f'  {kname:28s} {ms:.4f} ms (before the live-line layout {BS_MS_BEFORE[kname]} ms), '
             f'bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}), kernel / bound '
             f'{ms / bounds[kname][0]:.2f}')
     if failures:

@@ -27,7 +27,8 @@ def from_jax_arrays(system: System, config: MBPolConfig, *, thole, polarity, dam
     capacities (`pair_cap`, `trip_cap`, `nlist_k_max`, `nlist_kt`,
     `disp_pair_cap`) and block-mode layout (`site_perm`, the JAX
     `_block_info['site_perm']`, and `tile_pair_capacity`); None keeps the
-    port's own value."""
+    port's own value. The s3/s5 line capacity stays the port's (the JAX
+    package keeps whole blocks)."""
     pot = MBPol(system, config, device=device)
     if pot.elec_params is not None:
         n = system.n_atoms
@@ -55,6 +56,6 @@ def from_jax_arrays(system: System, config: MBPolConfig, *, thole, polarity, dam
         info = pot._block_info
         pot._set_block_perm(info['site_perm'] if site_perm is None else site_perm,
                             info['tile_pair_capacity'] if tile_pair_capacity is None
-                            else tile_pair_capacity)
+                            else tile_pair_capacity, info['line_capacity'])
     return pot
 

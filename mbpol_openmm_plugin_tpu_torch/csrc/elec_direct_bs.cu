@@ -11,26 +11,35 @@
 //
 // K1-bs `fixed_field_bs_kernel` replaces _fixed_field_bs_kernel of
 // mbpol_openmm_plugin_tpu/ops/elec_pallas_bs.py: the fixed-field rows
-// [np, 3] and the SCF factor blocks s3/s5 [cap, 256, 256] of the valid
-// entries (the blocks of padded entries are left unwritten: K3-bs and
-// every other reader skip them).
+// [np, 3] and the SCF factors s3/s5. The TPU kernel writes them as whole
+// [256 x 256] blocks of the list; here they are LIVE LINES (below): the
+// blocks' entries outside the lines are exact zeros that no reader needs.
 // K3-bs `scf_field_bs_kernel` replaces _scf_field_bs_kernel: one SCF dipole
 // field evaluation, field_i = sum_j s3_ij mu_j + s5_ij (mu_j . d_ij) d_ij
-// over the active blocks, recomputing only the minimum-image d_ij.
+// over the live lines, recomputing only the minimum-image d_ij.
 // K2-bs `direct_efp_bs_kernel` replaces _pair_force_bs_kernel: per-row
 // force [np, 3], potential [np] and half pair-energy sums [np] given the
 // induced dipoles.
 // All three run the pair chain of elec_common.cuh, as the dense kernels do.
 //
+// Lines. A line is one (row water, 32-site column cluster w) pair of an
+// entry: the water's kRows = 4 sorted rows x the cluster's 32 columns, 4 x
+// 32 floats of s3 and the same of s5, four 128-byte rows. It is live when
+// the culling test below keeps it. Each (row water, cluster) has a slab of
+// n_lines slots: s3/s5 [np / 4, 8, n_lines, 4, 32], line_entry [np / 4, 8,
+// n_lines] (the list entry of each line), line_count [np / 4, 8]; a slab
+// holds its lines in list-entry order. K1-bs writes only live lines, counts
+// every one and writes none past n_lines (count > n_lines is an overflow
+// the wrapper reports); K3-bs walks line_entry[water, w, 0 : count].
+//
 // What bounds them on the H100 (water4096: 16,384 sites, 64 row tiles,
-// ~3700 active blocks; the 256-site tiles are ~1.24 nm cells, so the tile
-// list keeps 3682 of 4096 tile pairs, and only ~2.9% of the pairs of the
-// active blocks lie inside the 0.9 nm cutoff):
-// K1-bs must store s3 and s5, 2 x n_act x 256 KB ~ 1.9 GB, and is bound by
-// those bytes. K3-bs needs only the in-cutoff entries of those blocks
-// (~0.06 GB; the rest are the zeros K1-bs wrote), K2-bs only the chains of
-// the in-cutoff pairs (erfcf, 4 expf, the H2 polynomial): both are bound,
-// as the function goes, by far less than a pass over every candidate.
+// 3682 active blocks; the 256-site tiles are ~1.24 nm cells, and only
+// ~2.9% of the pairs of the active blocks lie inside the 0.9 nm cutoff):
+// as the function goes, each needs only the in-cutoff pairs: K1-bs their
+// chains (sqrtf, 1/r, erfcf, 3 expf) and their s3/s5 (~0.06 GB), K3-bs
+// those bytes again, K2-bs the chains of the same pairs (erfcf, 4 expf,
+// the H2 polynomial), ~0.02 ms each. The live lines hold 16.85% of the
+// candidates and 0.325 GB of s3/s5 (the whole blocks: 1.93 GB).
 //
 // Design: rows, not tile pairs, own blocks. One CUDA block of 256 threads
 // owns consecutive rows of one row tile (kRows = 4, one water; K2-bs:
@@ -38,10 +47,9 @@
 // for each entry, warp w takes the 32-site cluster w of the column tile.
 // Row sums stay in registers and are reduced inside the block in a fixed
 // order: no atomics and no cross-block accumulation, so results are the
-// same bits on every run. Block offsets are size_t (cap x 65536 passes
-// 2^31 at larger boxes).
+// same bits on every run. Line offsets are size_t.
 //
-// Culling (K3-bs, K2-bs). A pre-pass (`cluster_boxes_kernel`, one warp per
+// Culling (K1-bs, K2-bs). A pre-pass (`cluster_boxes_kernel`, one warp per
 // cluster) writes a box per 32-site cluster of the sorted sites: the
 // minimum images of the cluster's real sites relative to its first site,
 // min/max by warp shuffles, so a cluster across the periodic boundary, or
@@ -53,21 +61,28 @@
 // with each half extent padded by kCullMargin + kCullRel |coordinate|, so
 // the test never drops a pair that the exact per-pair test keeps (on an
 // axis the per-axis minimum image of any pair is at least |dc| - the two
-// half extents when |dc| <= half a box). The tested (water, cluster) lines
-// keep 16.85% of the candidates at water4096. A warp walks only its live
+// half extents when |dc| <= half a box). A warp walks only its live
 // entries of the chunk (a ballot over the staged lines, one lane per
 // entry).
-// K3-bs skips the s3/s5 loads of dead lines (K1-bs wrote exact zeros
-// there) and keeps K1-bs's thread-to-column mapping and entry order, so
-// its sums are the bits of the unculled kernel. Its live lines are 128-byte
-// coalesced rows of the blocks, four per array. It is bound by the latency
-// of those loads, not by their bytes, so the registers are held to
-// kMinBlocksScf resident blocks per SM, and a live entry's loads are all
-// issued before its sums, in the guarded batch form (the same loop
-// without the guards read 0.31 ms against 0.23). (Measured slower: the
-// loads of two or four live entries issued before their sums; 16-byte
-// loads, a lane owning four columns of one row, which also sum in another
-// order.)
+// K1-bs: for each live line each lane runs its column's 4 row chains and
+// writes v3/v5 as the line's 128-byte rows into the next slot of its slab.
+// A thread adds its pairs to the field in entry order, as the unculled
+// kernel did, and a dead line holds no pair that passes the chain's cutoff
+// test, so the field and every s3/s5 value are the unculled kernel's bits.
+// Its chains run one (row, lane) pair each, ~17% of them inside the
+// cutoff; registers held to kMinBlocksK1 blocks per SM (80 -> 64, a few
+// bytes spilled) read 0.329 ms against 0.360 at water4096.
+// K3-bs runs no test: warp w walks its slab's lines (the column tiles of
+// 32 lines loaded at once, one lane each, and shuffled out), with K1-bs's
+// thread-to-column mapping and entry order, so its sums are the bits of
+// the unculled kernel too. Its line loads are 128-byte coalesced rows. It
+// is bound by the latency of those loads, not by their bytes, so the
+// registers are held to kMinBlocksScf resident blocks per SM, and the
+// loads of the next line are issued before the sums of this one: 0.193 ms
+// at water4096, against 0.283 with each line's loads just before its own
+// sums (measured slower: two lines' loads before their sums, with spills;
+// 3, 6 or 8 blocks per SM; in the block layout, 16-byte loads, a lane
+// owning four columns of one row, which also sum in another order).
 // K2-bs rejects candidates of live lines on r^2 against a slightly loosened
 // cutoff^2 (kLoose; no division, no sqrtf) and queues the survivors
 // (row, column) in a per-warp ring in shared memory, in a fixed order
@@ -84,8 +99,8 @@
 // resident warps.
 //
 // The C entry points take device pointers, sizes, the physics constants
-// and the stream, allocate nothing (the wrapper passes the box scratch)
-// and return cudaGetLastError().
+// and the stream, allocate nothing (the wrapper passes the outputs and the
+// box scratch) and return cudaGetLastError().
 
 #include "elec_common.cuh"
 
@@ -97,14 +112,14 @@ constexpr int kTile = 256;
 constexpr int kRows = 4;                 // K1-bs, K3-bs: one water per block
 constexpr int kSub = kTile / kRows;      // blocks per row tile
 constexpr int kValid = 1;                // meta bit flags (elec_pallas_bs)
-constexpr size_t kBlock = (size_t)kTile * kTile;
 constexpr int kWater = 4;                // sites per water, consecutive in the sort
 constexpr int kCluster = 32;             // column sites per warp and list entry
 constexpr int kClusters = kTile / kCluster;
+constexpr int kLine = kRows * kCluster;  // floats of s3 (and of s5) per line
 constexpr int kChunk = kThreads / kClusters;   // list entries staged at once
-// K3-bs: live entries loaded at once (1 read faster than 2 and 4), and the
-// blocks per SM its registers must allow (latency-bound: more warps)
-constexpr int kBatchScf = 1;
+// the blocks per SM the registers of K1-bs and K3-bs must allow
+// (latency-bound: more warps; K3-bs read slower at 3, 6 and 8)
+constexpr int kMinBlocksK1 = 4;
 constexpr int kMinBlocksScf = 4;
 // K2-bs: rows per block, and the per-warp ring of queued (row, column) pairs
 constexpr int kRowsEfp = 4;
@@ -122,6 +137,7 @@ constexpr float kEmpty = -1e30f;         // half extent of a box without sites
 static_assert(kThreads == kTile, "one thread per column of a column tile");
 static_assert(kClusters == kWarps, "one warp per cluster of a column tile");
 static_assert(kChunk == 32, "one lane per staged entry in a warp's ballot");
+static_assert(kRows == kWater, "a block's rows are one water: a line's rows");
 static_assert(kQueue >= 2 * 32 + 32 * kRowsEfp && (kQueue & (kQueue - 1)) == 0,
               "the ring holds < 32 pairs plus one entry's 32 x kRowsEfp");
 
@@ -212,51 +228,6 @@ cluster_boxes_kernel(const float* __restrict__ sites, int n, int n_clusters, Con
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-fixed_field_bs_kernel(const float* __restrict__ sites, int n, const int* __restrict__ tj,
-                      const int* __restrict__ meta, const int* __restrict__ row_start,
-                      Consts c, float* __restrict__ field, float* __restrict__ s3,
-                      float* __restrict__ s5) {
-  __shared__ float buf[kRows][kNS];
-  __shared__ float red[kWarps][kRows * 3];
-  const int i0 = first_row();
-  const int t = threadIdx.x;
-  Site rows[kRows];
-  load_rows<kRows>(sites, n, i0, rows, buf);
-  const Derived kd = derive(c);
-
-  float acc[kRows * 3];
-#pragma unroll
-  for (int k = 0; k < kRows * 3; ++k) acc[k] = 0.0f;
-
-  const size_t rloc = (size_t)(i0 % kTile) * kTile + t;
-  const int p_end = row_start[row_tile() + 1];
-  for (int p = row_start[row_tile()]; p < p_end; ++p) {
-    if (!(meta[p] & kValid)) continue;
-    float* __restrict__ s3p = s3 + (size_t)p * kBlock + rloc;
-    float* __restrict__ s5p = s5 + (size_t)p * kBlock + rloc;
-    const int j = tj[p] * kTile + t;
-    const Site sj = load_site(sites, j);
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = i0 + r;
-      Pair pr;
-      float v3 = 0.0f, v5 = 0.0f;
-      if (i < n && j < n && pair_chain<false>(rows[r], sj, i, j, c, kd, pr)) {
-        scf_factors(pr, v3, v5);
-        const float kq = fixed_field_kq(pr, sj.q);
-        acc[3 * r + 0] += kq * pr.dx;
-        acc[3 * r + 1] += kq * pr.dy;
-        acc[3 * r + 2] += kq * pr.dz;
-      }
-      s3p[r * kTile] = v3;
-      s5p[r * kTile] = v5;
-    }
-  }
-  block_sum<kRows * 3>(acc, red);
-  if (t < kRows * 3) field[(size_t)i0 * 3 + t] = -acc[0];
-}
-
 // Stage the list entries p0 .. p0 + kChunk - 1 of the row tile's run
 // (ending at p_end): their column tiles into s_tj and, per (entry,
 // cluster), the bit mask of the block's waters whose box meets the
@@ -283,75 +254,145 @@ __device__ __forceinline__ void stage_chunk(const int* __restrict__ tj,
   __syncthreads();
 }
 
-__global__ void __launch_bounds__(kThreads, kMinBlocksScf)
-scf_field_bs_kernel(const float* __restrict__ sites, const float* __restrict__ mu, int n,
-                    const int* __restrict__ tj, const int* __restrict__ meta,
-                    const int* __restrict__ row_start, Consts c,
-                    const float4* __restrict__ boxes, const float* __restrict__ s3,
-                    const float* __restrict__ s5, float* __restrict__ field) {
-  __shared__ float pbuf[kRows][3];
+// Block b = water b: its slab of cluster w starts at line (b * kClusters +
+// w) * n_lines.
+__device__ __forceinline__ size_t slab() {
+  return (size_t)blockIdx.x * kClusters + (threadIdx.x >> 5);
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocksK1)
+fixed_field_bs_kernel(const float* __restrict__ sites, int n, const int* __restrict__ tj,
+                      const int* __restrict__ meta, const int* __restrict__ row_start,
+                      Consts c, const float4* __restrict__ boxes, int n_lines,
+                      float* __restrict__ field, float* __restrict__ s3,
+                      float* __restrict__ s5, int* __restrict__ line_entry,
+                      int* __restrict__ line_count) {
+  __shared__ float buf[kRows][kNS];
   __shared__ float red[kWarps][kRows * 3];
   __shared__ int s_tj[kChunk];
   __shared__ unsigned char s_live[kChunk][kClusters];
   const int i0 = first_row();
   const int t = threadIdx.x;
   const int w = t >> 5, lane = t & 31;
+  Site rows[kRows];
+  load_rows<kRows>(sites, n, i0, rows, buf);
+  const Derived kd = derive(c);
+  const Box water[1] = {water_box<kNS>(&buf[0][0], i0, n, c)};
+
+  float acc[kRows * 3];
+#pragma unroll
+  for (int k = 0; k < kRows * 3; ++k) acc[k] = 0.0f;
+
+  const size_t line0 = slab() * n_lines;
+  int count = 0;                          // warp-uniform: the slab's lines so far
+  const int p_begin = row_start[row_tile()], p_end = row_start[row_tile() + 1];
+  for (int p0 = p_begin; p0 < p_end; p0 += kChunk) {
+    stage_chunk<1>(tj, meta, boxes, p0, p_end, water, c, kd, s_tj, s_live);
+    unsigned todo = __ballot_sync(0xffffffffu, s_live[lane][w]);
+    while (todo) {
+      const int e = __ffs(todo) - 1;
+      todo &= todo - 1;
+      const int j = s_tj[e] * kTile + t;
+      const Site sj = load_site(sites, j);
+      float v3[kRows], v5[kRows];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        const int i = i0 + r;
+        Pair pr;
+        v3[r] = 0.0f;
+        v5[r] = 0.0f;
+        if (i < n && j < n && pair_chain<false>(rows[r], sj, i, j, c, kd, pr)) {
+          scf_factors(pr, v3[r], v5[r]);
+          const float kq = fixed_field_kq(pr, sj.q);
+          acc[3 * r + 0] += kq * pr.dx;
+          acc[3 * r + 1] += kq * pr.dy;
+          acc[3 * r + 2] += kq * pr.dz;
+        }
+      }
+      if (count < n_lines) {
+        const size_t l = line0 + count;
+        float* __restrict__ o3 = s3 + l * kLine + lane;
+        float* __restrict__ o5 = s5 + l * kLine + lane;
+#pragma unroll
+        for (int r = 0; r < kRows; ++r) {
+          o3[r * kCluster] = v3[r];
+          o5[r * kCluster] = v5[r];
+        }
+        if (lane == 0) line_entry[l] = p0 + e;
+      }
+      ++count;
+    }
+    __syncthreads();                      // before the next chunk's staging
+  }
+  if (lane == 0) line_count[slab()] = count;
+  block_sum<kRows * 3>(acc, red);
+  if (t < kRows * 3) field[(size_t)i0 * 3 + t] = -acc[0];
+}
+
+__global__ void __launch_bounds__(kThreads, kMinBlocksScf)
+scf_field_bs_kernel(const float* __restrict__ sites, const float* __restrict__ mu,
+                    const int* __restrict__ tj, Consts c, int n_lines,
+                    const float* __restrict__ s3, const float* __restrict__ s5,
+                    const int* __restrict__ line_entry, const int* __restrict__ line_count,
+                    float* __restrict__ field) {
+  constexpr unsigned kFull = 0xffffffffu;
+  __shared__ float pbuf[kRows][3];
+  __shared__ float red[kWarps][kRows * 3];
+  const int i0 = first_row();
+  const int t = threadIdx.x;
+  const int lane = t & 31;
   if (t < kRows * 3) pbuf[t / 3][t % 3] = sites[(size_t)(i0 + t / 3) * kNS + t % 3];
   __syncthreads();
-  const Derived k = derive(c);
-  const Box water[1] = {water_box<3>(&pbuf[0][0], i0, n, c)};
 
   float acc[kRows * 3];
 #pragma unroll
   for (int q = 0; q < kRows * 3; ++q) acc[q] = 0.0f;
 
-  const size_t rloc = (size_t)(i0 % kTile) * kTile + t;
-  const int p_begin = row_start[row_tile()], p_end = row_start[row_tile() + 1];
-  for (int p0 = p_begin; p0 < p_end; p0 += kChunk) {
-    stage_chunk<1>(tj, meta, boxes, p0, p_end, water, c, k, s_tj, s_live);
-    // the warp's live entries of the chunk (lane e: entry e); dead lines
-    // hold the zeros K1-bs wrote: nothing to add
-    unsigned todo = __ballot_sync(0xffffffffu, s_live[lane][w]);
-    while (todo) {
-      // kBatchScf live entries at a time: their loads first, then their
-      // sums in entry order (the order of the unculled kernel)
-      int es[kBatchScf];
+  const size_t line0 = slab() * n_lines;
+  const int count = min(line_count[slab()], n_lines);
+  const float* __restrict__ l3 = s3 + line0 * kLine + lane;
+  const float* __restrict__ l5 = s5 + line0 * kLine + lane;
+  for (int l0 = 0; l0 < count; l0 += 32) {
+    // lane k: the column tile of line l0 + k
+    const int col = l0 + lane < count ? tj[line_entry[line0 + l0 + lane]] : 0;
+    const int m = min(32, count - l0);
+    // the loads of line k + 1 are issued before the sums of line k, which
+    // go in line order (the entry order of the unculled kernel)
+    float4 pj;
+    float mj[3], v3[kRows], v5[kRows];
+    auto load = [&](int k) {
+      const size_t j = (size_t)__shfl_sync(kFull, col, k) * kTile + t;
+      const size_t l = (size_t)(l0 + k) * kLine;
+      pj = reinterpret_cast<const float4*>(sites)[2 * j];
 #pragma unroll
-      for (int b = 0; b < kBatchScf; ++b) {
-        es[b] = todo ? __ffs(todo) - 1 : -1;
-        todo &= todo - 1;
+      for (int q = 0; q < 3; ++q) mj[q] = mu[3 * j + q];
+#pragma unroll
+      for (int r = 0; r < kRows; ++r) {
+        v3[r] = l3[l + r * kCluster];
+        v5[r] = l5[l + r * kCluster];
       }
-      float4 pj[kBatchScf];
-      float mj[kBatchScf][3], v3[kBatchScf][kRows], v5[kBatchScf][kRows];
+    };
+    load(0);
+    for (int k = 0; k < m; ++k) {
+      const float4 cp = pj;
+      const float cm[3] = {mj[0], mj[1], mj[2]};
+      float c3[kRows], c5[kRows];
 #pragma unroll
-      for (int b = 0; b < kBatchScf; ++b) {
-        if (es[b] < 0) continue;
-        const size_t p = (size_t)(p0 + es[b]);
-        const size_t j = (size_t)s_tj[es[b]] * kTile + t;
-        pj[b] = reinterpret_cast<const float4*>(sites)[2 * j];
-#pragma unroll
-        for (int q = 0; q < 3; ++q) mj[b][q] = mu[3 * j + q];
-#pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          v3[b][r] = s3[p * kBlock + rloc + r * kTile];
-          v5[b][r] = s5[p * kBlock + rloc + r * kTile];
-        }
+      for (int r = 0; r < kRows; ++r) {
+        c3[r] = v3[r];
+        c5[r] = v5[r];
       }
+      if (k + 1 < m) load(k + 1);
 #pragma unroll
-      for (int b = 0; b < kBatchScf; ++b) {
-        if (es[b] < 0) continue;
+      for (int r = 0; r < kRows; ++r) {
+        const float d[3] = {min_image(cp.x - pbuf[r][0], c.bx),
+                            min_image(cp.y - pbuf[r][1], c.by),
+                            min_image(cp.z - pbuf[r][2], c.bz)};
+        const float s5proj = c5[r] * (cm[0] * d[0] + cm[1] * d[1] + cm[2] * d[2]);
 #pragma unroll
-        for (int r = 0; r < kRows; ++r) {
-          const float d[3] = {min_image(pj[b].x - pbuf[r][0], c.bx),
-                              min_image(pj[b].y - pbuf[r][1], c.by),
-                              min_image(pj[b].z - pbuf[r][2], c.bz)};
-          const float s5proj = v5[b][r] * (mj[b][0] * d[0] + mj[b][1] * d[1] + mj[b][2] * d[2]);
-#pragma unroll
-          for (int q = 0; q < 3; ++q) acc[3 * r + q] += v3[b][r] * mj[b][q] + s5proj * d[q];
-        }
+        for (int q = 0; q < 3; ++q) acc[3 * r + q] += c3[r] * cm[q] + s5proj * d[q];
       }
     }
-    __syncthreads();                      // before the next chunk's staging
   }
   block_sum<kRows * 3>(acc, red);
   if (t < kRows * 3) field[(size_t)i0 * 3 + t] = acc[0];
@@ -478,34 +519,38 @@ cudaError_t launch_cluster_boxes(const float* sites, int n, int n_tiles, const C
 
 }  // namespace
 
+// boxes: scratch of n_tiles x kClusters x 8 floats; s3, s5: [n_tiles x
+// kSub, kClusters, n_lines, kRows, kCluster]; line_entry [n_tiles x kSub,
+// kClusters, n_lines]; line_count [n_tiles x kSub, kClusters]
 extern "C" int mbpol_fixed_field_scf_bs(const float* sites, int n, int n_tiles, const int* tj,
                                         const int* meta, const int* row_start, float alpha,
                                         float cutoff2, float g_cc, float g_cd, float g_dd,
                                         float g_ddoh, float g_ddhh, float bx, float by,
-                                        float bz, float* field, float* s3, float* s5,
+                                        float bz, int n_lines, float* boxes, float* field,
+                                        float* s3, float* s5, int* line_entry, int* line_count,
                                         void* stream) {
-  if (n_tiles <= 0) return 0;
-  const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
-  fixed_field_bs_kernel<<<n_tiles * kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sites, n, tj, meta, row_start, c, field, s3, s5);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// boxes: scratch of n_tiles x kClusters x 8 floats
-extern "C" int mbpol_scf_field_bs(const float* sites, const float* mu, int n, int n_tiles,
-                                  const int* tj, const int* meta, const int* row_start,
-                                  float alpha, float cutoff2, float g_cc, float g_cd,
-                                  float g_dd, float g_ddoh, float g_ddhh, float bx, float by,
-                                  float bz, const float* s3, const float* s5, float* boxes,
-                                  float* field, void* stream) {
   if (n_tiles <= 0) return 0;
   const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = launch_cluster_boxes(sites, n, n_tiles, c, boxes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  scf_field_bs_kernel<<<n_tiles * kSub, kThreads, 0, st>>>(
-      sites, mu, n, tj, meta, row_start, c, reinterpret_cast<const float4*>(boxes), s3, s5,
-      field);
+  fixed_field_bs_kernel<<<n_tiles * kSub, kThreads, 0, st>>>(
+      sites, n, tj, meta, row_start, c, reinterpret_cast<const float4*>(boxes), n_lines, field,
+      s3, s5, line_entry, line_count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the lines K1-bs wrote for these sites (same n_tiles and n_lines)
+extern "C" int mbpol_scf_field_bs(const float* sites, const float* mu, int n_tiles,
+                                  const int* tj, float alpha, float cutoff2, float g_cc,
+                                  float g_cd, float g_dd, float g_ddoh, float g_ddhh, float bx,
+                                  float by, float bz, int n_lines, const float* s3,
+                                  const float* s5, const int* line_entry,
+                                  const int* line_count, float* field, void* stream) {
+  if (n_tiles <= 0) return 0;
+  const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
+  scf_field_bs_kernel<<<n_tiles * kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sites, mu, tj, c, n_lines, s3, s5, line_entry, line_count, field);
   return static_cast<int>(cudaGetLastError());
 }
 

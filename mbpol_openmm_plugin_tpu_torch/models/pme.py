@@ -7,9 +7,10 @@ mbpol_openmm_plugin_tpu/models/pme.py).
   exp(-pi^2 m^2/alpha^2), read-back of the potential and its derivatives;
 - direct-space pair work in ops/elec_direct (dense: [N, N] SCF factor
   matrices) or ops/elec_direct_bs (block: sites sorted by a static
-  permutation, s3/s5 kept only for active 256 x 256 tile pairs, and the
-  SCF dipole field through the block kernel); CUDA kernels on the card,
-  plain twins on the CPU;
+  permutation, s3/s5 kept only for the live (water, 32-site cluster)
+  lines of the active 256 x 256 tile pairs, and the SCF dipole field
+  through the block kernel); CUDA kernels on the card, plain twins on the
+  CPU;
 - induced-dipole SCF with direct + reciprocal + self fields, self energy,
   and charge-derivative forces from the per-site potential.
 
@@ -149,13 +150,18 @@ def _convolve(setup: PmeSetup, grid):
     return torch.real(torch.fft.ifftn(gk) * ntot)
 
 
-def block_info(site_perm, capacity, device):
+def block_info(site_perm, capacity, device, line_capacity=None):
     """The block-mode layout: the static site permutation (numpy and on
-    `device`, with its inverse) and the tile-pair list capacity."""
+    `device`, with its inverse), the tile-pair list capacity and the s3/s5
+    line capacity per (row water, cluster) slab (None: the number of column
+    tiles, which never overflows)."""
     site_perm = np.asarray(site_perm, np.int64)
     inv = np.empty_like(site_perm)
     inv[site_perm] = np.arange(len(site_perm))
+    if line_capacity is None:
+        line_capacity = bs.default_line_capacity(bs.padded(len(site_perm)))
     return dict(site_perm=site_perm, site_perm_inv=inv, tile_pair_capacity=int(capacity),
+                line_capacity=int(line_capacity),
                 perm=torch.as_tensor(site_perm, device=device),
                 inv=torch.as_tensor(inv, device=device))
 
@@ -194,8 +200,8 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     (ASPC) or warm start; block: a `block_info` dict for the block-sparse
     direct space (None: dense); tables: `site_tables` of params on the
     positions' device (built here when None). Block mode never builds an
-    [N, N] tensor and adds elec_tile_pairs / elec_tile_overflow to the
-    diagnostics.
+    [N, N] tensor and adds elec_tile_pairs / elec_tile_overflow /
+    elec_line_overflow to the diagnostics.
     """
     dt, dev = positions.dtype, positions.device
     f_elec = units.ELECTRIC
@@ -226,14 +232,16 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     else:
         perm, inv = block['perm'], block['inv']
         sites, tiles = block_sites(params, setup, positions, charges, block, tables)
+        ef_s, lines = bs.fixed_field_and_scf_lines(sites, n, tiles, consts,
+                                                   block['line_capacity'])
         bs_diag = dict(elec_tile_pairs=tiles.n_act,
-                       elec_tile_overflow=tiles.n_act > tiles.capacity)
-        ef_s, s3_blk, s5_blk = bs.fixed_field_and_scf_blocks(sites, n, tiles, consts)
+                       elec_tile_overflow=tiles.n_act > tiles.capacity,
+                       elec_line_overflow=lines.overflow())
         ef_direct = ef_s[inv]
 
         def direct_field(mu):
             mu_pad = bs.pad_rows(mu[perm], sites.shape[0])
-            return bs.scf_dipole_field_bs(sites, s3_blk, s5_blk, mu_pad, tiles, n, consts)[inv]
+            return bs.scf_dipole_field_bs(sites, lines, mu_pad, tiles, n, consts)[inv]
 
         def direct_efp(mu):
             e, f_s, pot_s = bs.direct_energy_force_pot_bs(sites, mu[perm].contiguous(), n,

@@ -222,8 +222,8 @@ class MBPol:
             self.trip_cap = neighbors.triplet_capacity(
                 system.n_waters, box, config.cutoff_3b + config.nlist_skin, factor=f)
 
-    def _set_block_perm(self, site_perm, cap):
-        self._block_info = pme_mod.block_info(site_perm, cap, self.device)
+    def _set_block_perm(self, site_perm, cap, line_cap=None):
+        self._block_info = pme_mod.block_info(site_perm, cap, self.device, line_cap)
 
     def _site_tables(self):
         """The electrostatics parameters' per-site tables on the device,
@@ -354,7 +354,9 @@ class MBPol:
         fluctuations, as the JAX MBPol.tune_capacities does (the port's own
         torch counts in place of the native voxel hash): pair_cap,
         trip_cap, nlist_k_max, nlist_kt, disp_pair_cap, and in block mode
-        the serpentine site sort and the tile-pair capacity. Overflow later
+        the serpentine site sort, the tile-pair capacity and the s3/s5 line
+        capacity (from the most live lines of one (row water, cluster)
+        slab, at most the number of column tiles). Overflow later
         in a run still shows in diag['*_overflow']. Returns self."""
         if not self.use_neighbor_lists:
             return self
@@ -388,8 +390,15 @@ class MBPol:
             n_tiles = bs.padded(n_sites) // bs.TILE
             pos_s = bs.pad_rows(pos[torch.as_tensor(site_perm, device=pos.device)],
                                 bs.padded(n_sites))
-            n_act = int(bs.active_tile_pairs(pos_s, n_sites, box, cfg.cutoff,
-                                             n_tiles * n_tiles).n_act)
-            self._set_block_perm(site_perm, max(int(margin * n_act) + 8, 16))
+            full = bs.active_tile_pairs(pos_s, n_sites, box, cfg.cutoff, n_tiles * n_tiles)
+            n_act = int(full.n_act)
+            # and the live s3/s5 lines per (row water, cluster) slab, at the
+            # sites' positions with the M sites placed
+            pos_v = bs.pad_rows(compute_virtual_sites(sys_, pos)[
+                torch.as_tensor(site_perm, device=pos.device)], bs.padded(n_sites))
+            _, count = bs.line_slots(bs.live_lines(pos_v, n_sites, full, box, cfg.cutoff), full)
+            max_lines = int(torch.max(count))
+            self._set_block_perm(site_perm, max(int(margin * n_act) + 8, 16),
+                                 min(max(int(margin * max_lines) + 2, 8), n_tiles))
         return self
 

@@ -112,12 +112,17 @@ def load():
     lib.mbpol_direct_efp.restype = i32
     # block-sparse kernels (csrc/elec_direct_bs.cu): list pointers tj, meta, row_start
     lists = [ptr, ptr, ptr]
-    lib.mbpol_fixed_field_scf_bs.argtypes = [ptr, i32, i32, *lists, *consts, ptr, ptr, ptr, ptr]
+    # K1-bs: sites, n, n_tiles, lists, consts, n_lines, box scratch, field,
+    # s3, s5, line_entry, line_count, stream
+    lib.mbpol_fixed_field_scf_bs.argtypes = [ptr, i32, i32, *lists, *consts, i32, ptr, ptr, ptr,
+                                             ptr, ptr, ptr, ptr]
     lib.mbpol_fixed_field_scf_bs.restype = i32
-    # K3-bs and K2-bs take n, n_tiles and the cluster-box scratch
-    lib.mbpol_scf_field_bs.argtypes = [ptr, ptr, i32, i32, *lists, *consts, ptr, ptr, ptr, ptr,
+    # K3-bs: sites, mu, n_tiles, tj, consts, n_lines, s3, s5, line_entry,
+    # line_count, field, stream
+    lib.mbpol_scf_field_bs.argtypes = [ptr, ptr, i32, ptr, *consts, i32, ptr, ptr, ptr, ptr, ptr,
                                        ptr]
     lib.mbpol_scf_field_bs.restype = i32
+    # K2-bs takes n, n_tiles and the cluster-box scratch
     lib.mbpol_direct_efp_bs.argtypes = [ptr, ptr, i32, i32, *lists, *consts, ptr, ptr, ptr,
                                         ptr, ptr]
     lib.mbpol_direct_efp_bs.restype = i32

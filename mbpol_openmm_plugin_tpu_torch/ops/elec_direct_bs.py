@@ -10,27 +10,34 @@ a padded row-major list (ti, tj, meta) of active tile pairs holds both
 (I, J) and (J, I), so each row tile's partners are one consecutive run of
 the list, starting at `row_start[I]`.
 
-K1-bs `fixed_field_and_scf_blocks` replaces the Pallas kernel
-`_fixed_field_bs_kernel`: fixed-field rows and the s3/s5 factor BLOCKS
-[cap, 256, 256] (O(N) memory at fixed density).
-K3-bs `scf_dipole_field_bs` replaces `_scf_field_bs_kernel`: one SCF
-dipole-field evaluation over the stored blocks.
-K2-bs `direct_energy_force_pot_bs` replaces `_pair_force_bs_kernel`:
-direct-space energy, forces and per-site potential.
-K3-bs and K2-bs cull at warp granularity: a (row water, 32-site column
-cluster) line of an active block is skipped when the minimum-image gap
+The kernels cull at warp granularity: a (row water, 32-site column
+cluster) LINE of an active block is skipped when the minimum-image gap
 between the two groups' boxes exceeds the cutoff (`group_boxes`,
 `live_lines` are the plain twin of that test; the kernels compute the
 boxes on the card).
+
+K1-bs `fixed_field_and_scf_lines` replaces the Pallas kernel
+`_fixed_field_bs_kernel`: fixed-field rows and the s3/s5 factors of the
+live lines only (`ScfLines`: per (row water, cluster) a slab of
+`capacity` lines in list-entry order). The Pallas kernel's [cap, 256, 256]
+blocks hold the same values, with zeros outside the live lines;
+`lines_to_blocks` / `blocks_to_lines` convert between the two for the
+tests and the checks.
+K3-bs `scf_dipole_field_bs` replaces `_scf_field_bs_kernel`: one SCF
+dipole-field evaluation over the stored lines.
+K2-bs `direct_energy_force_pot_bs` replaces `_pair_force_bs_kernel`:
+direct-space energy, forces and per-site potential.
 
 Dispatch, as in ops/elec_direct.py: CPU tensors go to the plain twins
 (`*_plain`), CUDA float32 tensors to the kernels, anything else raises;
 there is no fallback. The twins gather [chunk, 256, 8] row and column
 tiles per list entry and run the formulas of ops/elec_direct.k1_terms /
 k2_terms on [chunk, 256, 256], so they also run at water4096 on the card
-(chip_smoke.py and the cuda tests compare the kernels with them). Each
-kernel wrapper counts its launches in its `launches` attribute. What
-bounds the kernels on the H100 and their design: csrc/elec_direct_bs.cu.
+(chip_smoke.py and the cuda tests compare the kernels with them). The
+`*_blocks_plain` twins keep the Pallas kernels' block layout, as the
+reference the line twins are held to. Each kernel wrapper counts its
+launches in its `launches` attribute. What bounds the kernels on the H100
+and their design: csrc/elec_direct_bs.cu.
 
 Not ported yet: the row-sharded `*_sharded` wrappers and their row-slice
 tile lists (multi-GPU, see ROADMAP.md).
@@ -238,6 +245,123 @@ def live_lines(xyz, n_sites, tiles: TileList, box, cutoff):
 
 
 # ----------------------------------------------------------------------
+# s3/s5 as live lines
+# ----------------------------------------------------------------------
+
+@dataclasses.dataclass
+class ScfLines:
+    """K1-bs's s3/s5 as live lines. Slab (water, g) holds the lines of row
+    water `water` (sorted rows 4 water .. 4 water + 3) and column cluster g
+    (columns 32 g .. 32 g + 31 of a column tile), in list-entry order:
+    s3, s5 [np_ / 4, 8, L, 4, 32] (line l: rows x columns), entry
+    [np_ / 4, 8, L] int32 (the list entry of line l), count [np_ / 4, 8]
+    int32 (the slab's live lines; count > L is an overflow, and only the
+    first L are stored). Slots past min(count, L) hold no data."""
+    s3: torch.Tensor
+    s5: torch.Tensor
+    entry: torch.Tensor
+    count: torch.Tensor
+
+    @property
+    def capacity(self):
+        """L, the lines a slab can hold."""
+        return self.entry.shape[-1]
+
+    def overflow(self):
+        """0-d bool tensor on the lines' device: some slab lost lines."""
+        return torch.amax(self.count) > self.capacity
+
+    def nbytes(self):
+        """Bytes allocated for s3 and s5."""
+        return 2 * self.s3.numel() * self.s3.element_size()
+
+
+def default_line_capacity(n_pad):
+    """The line capacity that never overflows for n_pad padded sites: the
+    number of column tiles (no row tile's run of the list is longer)."""
+    return n_pad // TILE
+
+
+def _new_lines(n_pad, n_lines, dtype, device, fill):
+    """ScfLines of capacity n_lines for n_pad padded sites, allocated by
+    `fill` (torch.empty for the kernel, torch.zeros for the twins)."""
+    shape = (n_pad // WATER, TILE // CLUSTER, n_lines, WATER, CLUSTER)
+    return ScfLines(s3=fill(shape, dtype=dtype, device=device),
+                    s5=fill(shape, dtype=dtype, device=device),
+                    entry=fill(shape[:3], dtype=torch.int32, device=device),
+                    count=fill(shape[:2], dtype=torch.int32, device=device))
+
+
+def line_slots(live, tiles: TileList):
+    """(slot [cap, 64, 8], count [n_tiles * 64, 8]) of the live lines
+    `live` [cap, 64, 8]: a line's slot is its place in its slab (row water,
+    cluster), the number of live lines of that slab at earlier entries of
+    the row tile's run; count is each slab's number of live lines."""
+    cs = torch.cumsum(live.to(torch.int32), dim=0, dtype=torch.int32)
+    cs = torch.cat([torch.zeros_like(cs[:1]), cs])                 # [cap + 1, 64, 8]
+    start = cs[tiles.row_start.long()]                              # [n_tiles + 1, 64, 8]
+    slot = cs[:-1] - start[tiles.ti.long()]
+    return slot, (start[1:] - start[:-1]).reshape(-1, live.shape[2])
+
+
+_BLOCK_AS_LINES = (-1, TILE // WATER, WATER, TILE // CLUSTER, CLUSTER)
+
+
+def _put_lines(lines: ScfLines, b3, b5, live, slot, tiles: TileList, sl):
+    """Store the live lines of the blocks b3/b5 [c, 256, 256] of the list
+    entries `sl` into their slots (lines past the capacity are dropped)."""
+    put = live[sl] & (slot[sl] < lines.capacity)
+    e, wl, g = torch.nonzero(put, as_tuple=True)
+    water = tiles.ti[sl].long()[e] * (TILE // WATER) + wl
+    s = slot[sl][e, wl, g].long()
+    lines.s3[water, g, s] = b3.reshape(_BLOCK_AS_LINES)[e, wl, :, g, :]
+    lines.s5[water, g, s] = b5.reshape(_BLOCK_AS_LINES)[e, wl, :, g, :]
+    lines.entry[water, g, s] = (e + sl.start).to(torch.int32)
+
+
+def _line_index(lines: ScfLines):
+    """(entry, water, cluster, slot) of the stored lines, sorted by entry."""
+    stored = (torch.arange(lines.capacity, device=lines.count.device)
+              < lines.count[..., None])
+    water, g, s = torch.nonzero(stored, as_tuple=True)
+    p = lines.entry[water, g, s].long()
+    order = torch.argsort(p, stable=True)
+    return p[order], water[order], g[order], s[order]
+
+
+def _expand(lines: ScfLines, index, sl):
+    """s3/s5 blocks [c, 256, 256] of the list entries `sl`: the stored
+    lines of those entries (`index` from _line_index), zeros elsewhere."""
+    p, water, g, s = index
+    lo, hi = (int(x) for x in torch.searchsorted(
+        p, torch.tensor([sl.start, sl.stop], device=p.device)))
+    p, water, g, s = p[lo:hi] - sl.start, water[lo:hi], g[lo:hi], s[lo:hi]
+    shape = (sl.stop - sl.start,) + _BLOCK_AS_LINES[1:]
+    out = []
+    for x in (lines.s3, lines.s5):
+        b = x.new_zeros(shape)
+        b[p, water % (TILE // WATER), :, g, :] = x[water, g, s]
+        out.append(b.reshape(-1, TILE, TILE))
+    return tuple(out)
+
+
+def lines_to_blocks(lines: ScfLines, tiles: TileList):
+    """(s3, s5) [cap, 256, 256], the Pallas kernel's layout: each stored
+    line in its block, zeros elsewhere (tests and checks only)."""
+    return _expand(lines, _line_index(lines), slice(0, tiles.capacity))
+
+
+def blocks_to_lines(s3, s5, tiles: TileList, live, n_lines):
+    """ScfLines of capacity n_lines holding the lines `live` [cap, 64, 8]
+    of the blocks s3/s5 [cap, 256, 256] (tests and checks only)."""
+    n_pad = (tiles.row_start.shape[0] - 1) * TILE
+    lines = _new_lines(n_pad, n_lines, s3.dtype, s3.device, torch.zeros)
+    slot, lines.count = line_slots(live, tiles)
+    _put_lines(lines, s3, s5, live, slot, tiles, slice(0, tiles.capacity))
+    return lines
+
+
+# ----------------------------------------------------------------------
 # Plain PyTorch twins, chunked over list entries
 # ----------------------------------------------------------------------
 
@@ -260,25 +384,52 @@ def _entry_tiles(sites, tiles: TileList, sl, n_sites):
     return st[ti], st[tj], mask, ti, tj
 
 
-def fixed_field_and_scf_blocks_plain(sites, n_sites, tiles: TileList, c: ED.DirectConsts,
-                                     chunk=CHUNK):
-    """Plain twin of K1-bs: (field [n,3], s3 [cap,256,256], s5 [cap,256,256]);
-    the blocks of padded list entries come out zero."""
+def _k1_plain(sites, n_sites, tiles: TileList, c: ED.DirectConsts, chunk, store):
+    """The fixed field [n, 3] of K1-bs's formulas; store(sl, s3, s5) takes
+    each chunk's blocks [c, 256, 256] (zero for padded entries)."""
     n_tiles = sites.shape[0] // TILE
     field = sites.new_zeros((n_tiles, TILE, 3))
-    s3 = sites.new_empty((tiles.capacity, TILE, TILE))
-    s5 = torch.empty_like(s3)
     for sl in _chunks(tiles, chunk):
         srow, scol, mask, ti, _ = _entry_tiles(sites, tiles, sl, n_sites)
-        f, s3[sl], s5[sl] = ED.k1_terms(srow, scol, mask, c)
+        f, b3, b5 = ED.k1_terms(srow, scol, mask, c)
         field.index_add_(0, ti, f)
-    return field.reshape(-1, 3)[:n_sites], s3, s5
+        store(sl, b3, b5)
+    return field.reshape(-1, 3)[:n_sites]
 
 
-def scf_dipole_field_bs_plain(sites, s3, s5, mu_pad, tiles: TileList, n_sites,
-                              c: ED.DirectConsts, chunk=CHUNK):
-    """Plain twin of K3-bs: dipole field [n,3] from the blocks; mu_pad
-    [padded(n), 3] with zero padded rows."""
+def fixed_field_and_scf_blocks_plain(sites, n_sites, tiles: TileList, c: ED.DirectConsts,
+                                     chunk=CHUNK):
+    """K1-bs's function in the Pallas kernel's layout: (field [n,3], s3
+    [cap,256,256], s5 [cap,256,256]); the blocks of padded list entries
+    come out zero. The reference of the line twin (tests, checks)."""
+    s3 = sites.new_empty((tiles.capacity, TILE, TILE))
+    s5 = torch.empty_like(s3)
+
+    def store(sl, b3, b5):
+        s3[sl], s5[sl] = b3, b5
+
+    return _k1_plain(sites, n_sites, tiles, c, chunk, store), s3, s5
+
+
+def fixed_field_and_scf_lines_plain(sites, n_sites, tiles: TileList, c: ED.DirectConsts,
+                                    n_lines=None, chunk=CHUNK):
+    """Plain twin of K1-bs: (field [n,3], ScfLines of capacity n_lines)
+    holding the lines `live_lines` keeps, each chunk's blocks computed as
+    in fixed_field_and_scf_blocks_plain (so lines_to_blocks of the result
+    is that twin's blocks) and their live lines stored."""
+    if n_lines is None:
+        n_lines = default_line_capacity(sites.shape[0])
+    live = live_lines(sites[:, :3], n_sites, tiles, c.box, c.cutoff)
+    lines = _new_lines(sites.shape[0], n_lines, sites.dtype, sites.device, torch.zeros)
+    slot, lines.count = line_slots(live, tiles)
+    field = _k1_plain(sites, n_sites, tiles, c, chunk,
+                      lambda sl, b3, b5: _put_lines(lines, b3, b5, live, slot, tiles, sl))
+    return field, lines
+
+
+def _k3_plain(sites, mu_pad, tiles: TileList, n_sites, c: ED.DirectConsts, chunk, blocks):
+    """The dipole field [n,3] of K3-bs's formula; blocks(sl) gives the
+    s3/s5 blocks [c, 256, 256] of the list entries sl."""
     n_tiles = sites.shape[0] // TILE
     st = sites.reshape(n_tiles, TILE, ED.NS)
     mt = mu_pad.reshape(n_tiles, TILE, 3)
@@ -287,11 +438,29 @@ def scf_dipole_field_bs_plain(sites, s3, s5, mu_pad, tiles: TileList, n_sites,
         ti, tj = tiles.ti[sl].long(), tiles.tj[sl].long()
         valid = ((tiles.meta[sl] & VALID) > 0)[:, None, None]
         delta = ED._delta(st[ti, :, :3], st[tj, :, :3], c.box)
-        # the blocks of padded entries are unwritten by K1-bs: select, do
-        # not multiply by zero
-        field.index_add_(0, ti, torch.where(valid, dipole_field(mt[tj], s3[sl], s5[sl], delta),
-                                            0.0))
+        s3, s5 = blocks(sl)
+        # the blocks of padded entries are unwritten in the Pallas layout:
+        # select, do not multiply by zero
+        field.index_add_(0, ti, torch.where(valid, dipole_field(mt[tj], s3, s5, delta), 0.0))
     return field.reshape(-1, 3)[:n_sites]
+
+
+def scf_dipole_field_blocks_plain(sites, s3, s5, mu_pad, tiles: TileList, n_sites,
+                                  c: ED.DirectConsts, chunk=CHUNK):
+    """K3-bs's function on s3/s5 in the Pallas kernel's layout [cap, 256,
+    256]: dipole field [n,3]; mu_pad [padded(n), 3] with zero padded rows.
+    The reference of the line twin (tests)."""
+    return _k3_plain(sites, mu_pad, tiles, n_sites, c, chunk, lambda sl: (s3[sl], s5[sl]))
+
+
+def scf_dipole_field_bs_plain(sites, lines: ScfLines, mu_pad, tiles: TileList, n_sites,
+                              c: ED.DirectConsts, chunk=CHUNK):
+    """Plain twin of K3-bs: the dipole field [n,3] from the stored lines,
+    each chunk's lines spread into its blocks (zeros elsewhere), so that it
+    is bitwise scf_dipole_field_blocks_plain on lines_to_blocks(lines)."""
+    index = _line_index(lines)
+    return _k3_plain(sites, mu_pad, tiles, n_sites, c, chunk,
+                     lambda sl: _expand(lines, index, sl))
 
 
 def direct_energy_force_pot_bs_plain(sites, mu, n_sites, tiles: TileList,
@@ -317,16 +486,21 @@ def _check_sites(sites):
         raise ValueError(f'packed sites must be [k*{TILE}, {ED.NS}], got {tuple(sites.shape)}')
 
 
-def _on_kernel(tiles: TileList, *floats):
+def _on_kernel(ints, *floats):
     """True when the call goes to the CUDA kernel (float tensors checked as
-    in ops/elec_direct; list tensors int32, contiguous, on the same
-    device)."""
+    in ops/elec_direct; the index tensors `ints` int32, contiguous, on the
+    same device)."""
     if not ED._on_kernel(*floats):
         return False
-    for t in (tiles.ti, tiles.tj, tiles.meta, tiles.row_start):
+    for t in ints:
         if t.device != floats[0].device or t.dtype != torch.int32 or not t.is_contiguous():
-            raise ValueError('tile lists must be contiguous int32 tensors on the sites\' device')
+            raise ValueError('tile lists and line indices must be contiguous int32 tensors on '
+                             'the sites\' device')
     return True
+
+
+def _list_tensors(tiles: TileList):
+    return tiles.ti, tiles.tj, tiles.meta, tiles.row_start
 
 
 def _box_scratch(sites):
@@ -338,47 +512,55 @@ def _list_args(tiles: TileList):
     return tiles.tj.data_ptr(), tiles.meta.data_ptr(), tiles.row_start.data_ptr()
 
 
-def fixed_field_and_scf_blocks(sites, n_sites, tiles: TileList, c: ED.DirectConsts):
-    """K1-bs: (field [n,3], s3 [cap,256,256], s5 [cap,256,256]) from padded
-    packed sites [padded(n), 8] and an active tile-pair list. The blocks of
-    padded list entries (VALID clear) are left unwritten; their readers
-    skip them."""
+def fixed_field_and_scf_lines(sites, n_sites, tiles: TileList, c: ED.DirectConsts,
+                              n_lines=None):
+    """K1-bs: (field [n,3], ScfLines of capacity n_lines, by default
+    default_line_capacity) from padded packed sites [padded(n), 8] and an
+    active tile-pair list. Only the live lines are written; lines.overflow()
+    says whether a slab held more than n_lines."""
     _check_sites(sites)
-    if not _on_kernel(tiles, sites):
-        return fixed_field_and_scf_blocks_plain(sites, n_sites, tiles, c)
-    from mbpol_openmm_plugin_tpu_torch.ops import _build
-    lib = _build.load()
-    np_, cap = sites.shape[0], tiles.capacity
-    field = torch.empty((np_, 3), dtype=sites.dtype, device=sites.device)
-    s3 = torch.empty((cap, TILE, TILE), dtype=sites.dtype, device=sites.device)
-    s5 = torch.empty_like(s3)
-    ED._check(lib.mbpol_fixed_field_scf_bs(
-        sites.data_ptr(), n_sites, np_ // TILE, *_list_args(tiles), *c.kernel_args(),
-        field.data_ptr(), s3.data_ptr(), s5.data_ptr(), ED._stream()),
-        'fixed_field_and_scf_blocks')
-    fixed_field_and_scf_blocks.launches += 1
-    return field[:n_sites], s3, s5
-
-
-def scf_dipole_field_bs(sites, s3, s5, mu_pad, tiles: TileList, n_sites, c: ED.DirectConsts):
-    """K3-bs: the dipole field [n,3] at the (sorted) sites from the stored
-    s3/s5 blocks and mu_pad [padded(n), 3] (padded rows zero)."""
-    _check_sites(sites)
-    np_, cap = sites.shape[0], tiles.capacity
-    if tuple(mu_pad.shape) != (np_, 3) or tuple(s3.shape) != (cap, TILE, TILE) \
-            or s5.shape != s3.shape:
-        raise ValueError(f'expected mu [{np_}, 3] and blocks [{cap}, {TILE}, {TILE}], got '
-                         f'{tuple(mu_pad.shape)}, {tuple(s3.shape)}, {tuple(s5.shape)}')
-    if not _on_kernel(tiles, sites, s3, s5, mu_pad):
-        return scf_dipole_field_bs_plain(sites, s3, s5, mu_pad, tiles, n_sites, c)
+    np_ = sites.shape[0]
+    if n_lines is None:
+        n_lines = default_line_capacity(np_)
+    if not _on_kernel(_list_tensors(tiles), sites):
+        return fixed_field_and_scf_lines_plain(sites, n_sites, tiles, c, n_lines)
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
     field = torch.empty((np_, 3), dtype=sites.dtype, device=sites.device)
+    lines = _new_lines(np_, n_lines, sites.dtype, sites.device, torch.empty)
     boxes = _box_scratch(sites)
+    ED._check(lib.mbpol_fixed_field_scf_bs(
+        sites.data_ptr(), n_sites, np_ // TILE, *_list_args(tiles), *c.kernel_args(), n_lines,
+        boxes.data_ptr(), field.data_ptr(), lines.s3.data_ptr(), lines.s5.data_ptr(),
+        lines.entry.data_ptr(), lines.count.data_ptr(), ED._stream()),
+        'fixed_field_and_scf_lines')
+    fixed_field_and_scf_lines.launches += 1
+    return field[:n_sites], lines
+
+
+def scf_dipole_field_bs(sites, lines: ScfLines, mu_pad, tiles: TileList, n_sites,
+                        c: ED.DirectConsts):
+    """K3-bs: the dipole field [n,3] at the (sorted) sites from the lines
+    K1-bs stored for them and mu_pad [padded(n), 3] (padded rows zero)."""
+    _check_sites(sites)
+    np_ = sites.shape[0]
+    shape = (np_ // WATER, TILE // CLUSTER, lines.capacity, WATER, CLUSTER)
+    if (tuple(mu_pad.shape) != (np_, 3) or tuple(lines.s3.shape) != shape
+            or lines.s5.shape != lines.s3.shape or tuple(lines.entry.shape) != shape[:3]
+            or tuple(lines.count.shape) != shape[:2]):
+        raise ValueError(f'expected mu [{np_}, 3] and lines {shape}, got {tuple(mu_pad.shape)}, '
+                         f'{tuple(lines.s3.shape)}, {tuple(lines.s5.shape)}, '
+                         f'{tuple(lines.entry.shape)}, {tuple(lines.count.shape)}')
+    if not _on_kernel(_list_tensors(tiles) + (lines.entry, lines.count), sites, lines.s3,
+                      lines.s5, mu_pad):
+        return scf_dipole_field_bs_plain(sites, lines, mu_pad, tiles, n_sites, c)
+    from mbpol_openmm_plugin_tpu_torch.ops import _build
+    lib = _build.load()
+    field = torch.empty((np_, 3), dtype=sites.dtype, device=sites.device)
     ED._check(lib.mbpol_scf_field_bs(
-        sites.data_ptr(), mu_pad.data_ptr(), n_sites, np_ // TILE, *_list_args(tiles),
-        *c.kernel_args(), s3.data_ptr(), s5.data_ptr(), boxes.data_ptr(), field.data_ptr(),
-        ED._stream()), 'scf_dipole_field_bs')
+        sites.data_ptr(), mu_pad.data_ptr(), np_ // TILE, tiles.tj.data_ptr(), *c.kernel_args(),
+        lines.capacity, lines.s3.data_ptr(), lines.s5.data_ptr(), lines.entry.data_ptr(),
+        lines.count.data_ptr(), field.data_ptr(), ED._stream()), 'scf_dipole_field_bs')
     scf_dipole_field_bs.launches += 1
     return field[:n_sites]
 
@@ -389,7 +571,7 @@ def direct_energy_force_pot_bs(sites, mu, n_sites, tiles: TileList, c: ED.Direct
     _check_sites(sites)
     if tuple(mu.shape) != (n_sites, 3):
         raise ValueError(f'expected mu [{n_sites}, 3], got {tuple(mu.shape)}')
-    if not _on_kernel(tiles, sites, mu):
+    if not _on_kernel(_list_tensors(tiles), sites, mu):
         return direct_energy_force_pot_bs_plain(sites, mu, n_sites, tiles, c)
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
@@ -407,11 +589,11 @@ def direct_energy_force_pot_bs(sites, mu, n_sites, tiles: TileList, c: ED.Direct
     return torch.sum(e_row[:n_sites]), force[:n_sites], pot[:n_sites]
 
 
-fixed_field_and_scf_blocks.launches = 0
+fixed_field_and_scf_lines.launches = 0
 scf_dipole_field_bs.launches = 0
 direct_energy_force_pot_bs.launches = 0
 
-KERNELS = (fixed_field_and_scf_blocks, scf_dipole_field_bs, direct_energy_force_pot_bs)
+KERNELS = (fixed_field_and_scf_lines, scf_dipole_field_bs, direct_energy_force_pot_bs)
 
 
 def reset_launch_counts():

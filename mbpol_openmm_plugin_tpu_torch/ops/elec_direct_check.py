@@ -30,11 +30,13 @@ from float64. Held at REL_O = 5e-5 and ACC.
 
 K2 e_direct at REL, force and pot at 1e-4 of their max.
 
-The block-sparse kernels are held to the same sets: K1-bs's s3/s5 blocks
-on the pairs of valid list entries between real, distinct sites (split
-into polarizable pairs and pairs with an M site as above) and its field
-rows; K2-bs as K2. K3-bs (one SCF dipole field from given s3/s5 blocks)
-is compared on the same blocks as the twin, so only the summation order
+The block-sparse kernels are held to the same sets: K1-bs's s3/s5, its
+live lines and the twin's each spread into the [cap, 256, 256] blocks of
+the Pallas layout (`lines_to_blocks`, zeros outside the lines), on the
+pairs of valid list entries between real, distinct sites (split into
+polarizable pairs and pairs with an M site as above), and its field rows;
+K2-bs as K2. K3-bs (one SCF dipole field from given s3/s5 lines) is
+compared on the same lines as the twin, so only the summation order
 differs: field rows of polarizable sites and of M sites each at REL.
 """
 from __future__ import annotations
@@ -138,7 +140,7 @@ def k1_bs_rows(sites, polarity, tiles, n_sites, kern, twin, twin64):
     """Rows of the K1-bs check. sites [padded(n), 8] sorted packed sites,
     polarity [n] in the same order, tiles the active tile-pair list;
     kern/twin/twin64 = (field [n,3], s3, s5 [cap,256,256]) of the kernel
-    and the float32 and float64 twins."""
+    and the float32 and float64 twins, their lines spread into blocks."""
     pp, with_m = _block_sets(polarity, tiles, n_sites, sites.shape[0])
     return _k1_rows(pp, with_m, sites[:n_sites, _ISO] > 0.5, kern, twin, twin64, ELEM_BS)
 
@@ -171,32 +173,36 @@ def k2_rows(kern, twin):
     return rows
 
 
-def block_kernel_rows(sites, polarity, tiles, n_sites, c):
+def block_kernel_rows(sites, polarity, tiles, n_sites, c, n_lines=None):
     """Run K1-bs, K3-bs and K2-bs and their plain twins on the same inputs
     (K3-bs and K2-bs on dipoles of realistic size: polarity times the
-    direct fixed field) and check them. sites [padded(n), 8] sorted packed
-    sites, polarity [n] in the same order. Returns {wrapper name: (rows,
-    max |kernel - twin| over the outputs)}."""
+    direct fixed field; K1-bs and its twins with line capacity n_lines)
+    and check them. sites [padded(n), 8] sorted packed sites, polarity [n]
+    in the same order. Returns {wrapper name: (rows, max |kernel - twin|
+    over the outputs)}."""
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
-    k1 = bs.fixed_field_and_scf_blocks(sites, n_sites, tiles, c)
-    t1 = bs.fixed_field_and_scf_blocks_plain(sites, n_sites, tiles, c)
-    t1_64 = bs.fixed_field_and_scf_blocks_plain(sites.double(), n_sites, tiles, c)
+
+    def k1_blocks(k1):
+        return (k1[0],) + bs.lines_to_blocks(k1[1], tiles)
+
+    k1_lines = bs.fixed_field_and_scf_lines(sites, n_sites, tiles, c, n_lines)
+    k1 = k1_blocks(k1_lines)
+    t1 = k1_blocks(bs.fixed_field_and_scf_lines_plain(sites, n_sites, tiles, c, n_lines))
+    t1_64 = k1_blocks(bs.fixed_field_and_scf_lines_plain(sites.double(), n_sites, tiles, c,
+                                                         n_lines))
     mu = (polarity.to(sites)[:, None] * t1[0]).contiguous()
     mu_pad = bs.pad_rows(mu, sites.shape[0])
-    k3 = bs.scf_dipole_field_bs(sites, k1[1], k1[2], mu_pad, tiles, n_sites, c)
-    t3 = bs.scf_dipole_field_bs_plain(sites, k1[1], k1[2], mu_pad, tiles, n_sites, c)
+    k3 = bs.scf_dipole_field_bs(sites, k1_lines[1], mu_pad, tiles, n_sites, c)
+    t3 = bs.scf_dipole_field_bs_plain(sites, k1_lines[1], mu_pad, tiles, n_sites, c)
     k2 = bs.direct_energy_force_pot_bs(sites, mu, n_sites, tiles, c)
     t2 = bs.direct_energy_force_pot_bs_plain(sites, mu, n_sites, tiles, c)
 
     def max_abs(kern, twin):
         return max(float((k - t).abs().max()) for k, t in zip(kern, twin))
 
-    # K1-bs leaves the blocks of padded list entries unwritten
-    valid = (tiles.meta & bs.VALID) > 0
     return {
-        'fixed_field_and_scf_blocks': (
-            k1_bs_rows(sites, polarity, tiles, n_sites, k1, t1, t1_64),
-            max_abs((k1[0], k1[1][valid], k1[2][valid]), (t1[0], t1[1][valid], t1[2][valid]))),
+        'fixed_field_and_scf_lines': (k1_bs_rows(sites, polarity, tiles, n_sites, k1, t1, t1_64),
+                                      max_abs(k1, t1)),
         'scf_dipole_field_bs': (k3_bs_rows(polarity, k3, t3), max_abs((k3,), (t3,))),
         'direct_energy_force_pot_bs': (k2_rows(k2, t2), max_abs(k2, t2)),
     }

@@ -132,13 +132,15 @@ def pieces(pot, pos, reps):
         sites, tiles = pme_mod.block_sites(params, pot.pme, pos_v, charges, pot._block_info)
         n = pos_v.shape[0]
         mu_s = mu0[pot._block_info['perm']].contiguous()
-        _, s3, s5 = BS.fixed_field_and_scf_blocks(sites, n, tiles, consts)
+        n_lines = pot._block_info['line_capacity']
+        _, lines = BS.fixed_field_and_scf_lines(sites, n, tiles, consts, n_lines)
         mu_pad = BS.pad_rows(mu_s, sites.shape[0])
         table.update({
             'tile-pair list build': lambda: pme_mod.block_sites(params, pot.pme, pos_v, charges,
                                                                 pot._block_info),
-            'K1-bs wrapper call': lambda: BS.fixed_field_and_scf_blocks(sites, n, tiles, consts),
-            'K3-bs wrapper call': lambda: BS.scf_dipole_field_bs(sites, s3, s5, mu_pad, tiles, n,
+            'K1-bs wrapper call': lambda: BS.fixed_field_and_scf_lines(sites, n, tiles, consts,
+                                                                       n_lines),
+            'K3-bs wrapper call': lambda: BS.scf_dipole_field_bs(sites, lines, mu_pad, tiles, n,
                                                                  consts),
             'K2-bs wrapper call': lambda: BS.direct_energy_force_pot_bs(sites, mu_s, n, tiles,
                                                                         consts)})

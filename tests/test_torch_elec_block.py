@@ -11,8 +11,10 @@ the block branch of models/pme) against the JAX package, CPU float64.
 (b) Each block twin against the JAX block kernel in interpret mode at
     water50 (one row tile; a capacity of 4 adds three padded entries),
     atol 2e-3 (the bound of test_torch_elec_direct.py for the kernels'
-    erfc/H2 fits); and pme_electrostatics in block mode against JAX's with
-    MBPOL_ELEC_PALLAS=interpret, atol 2e-3 and equal SCF iterations.
+    erfc/H2 fits), the port's s3/s5 lines spread into the JAX blocks'
+    layout (lines_to_blocks) or the JAX blocks cut into lines
+    (blocks_to_lines); and pme_electrostatics in block mode against JAX's
+    with MBPOL_ELEC_PALLAS=interpret, atol 2e-3 and equal SCF iterations.
 (c) The port's block-mode pme_electrostatics against the JAX XLA dense
     path at water256, cutoff 0.45: |dE| <= 1e-6 kJ/mol, max |dF| <= 1e-6
     kJ/mol/nm, equal SCF iterations.
@@ -20,6 +22,8 @@ the block branch of models/pme) against the JAX package, CPU float64.
     2 x 1 x 1 with the PME grid doubled along x gives the same energy per
     water to 1e-9 relative and the same forces on every copy to 1e-9 of
     max |F| (every cutoff is below half the water50 box).
+(e) A line capacity below the live lines of a slab sets
+    elec_line_overflow, and Simulation stops on it.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -142,7 +146,9 @@ def test_k1_bs_twin_vs_pallas_interpret(water50):
     jp, n = w['jpot'], w['n']
     ef_j, s3_j, s5_j = JBS.fixed_field_and_scf_blocks(jp.pme, jp.elec_params.thole, w['srow'],
                                                       n, *w['jtiles'], interpret=True)
-    ef_t, s3_t, s5_t = BS.fixed_field_and_scf_blocks(w['sites'], n, w['tiles'], w['consts'])
+    ef_t, lines = BS.fixed_field_and_scf_lines(w['sites'], n, w['tiles'], w['consts'])
+    assert lines.capacity == 1 and not bool(lines.overflow())
+    s3_t, s5_t = BS.lines_to_blocks(lines, w['tiles'])
     assert s3_t.shape == (4, BS.TILE, BS.TILE)
     np.testing.assert_allclose(ef_t.numpy(), np.asarray(ef_j), **PALLAS_TOL)
     np.testing.assert_allclose(s3_t.numpy(), np.asarray(s3_j), **PALLAS_TOL)
@@ -151,9 +157,10 @@ def test_k1_bs_twin_vs_pallas_interpret(water50):
 
 
 def test_k3_bs_twin_vs_pallas_interpret(water50):
-    """The same s3/s5 blocks (the JAX kernel's) into both; on the port's
-    side the blocks of the padded entries hold NaN, as K1-bs leaves them
-    unwritten, and must not reach the field."""
+    """The same s3/s5 (the JAX kernel's blocks) into both, cut into lines on
+    the port's side; there the blocks of the padded entries hold NaN, and
+    so do the slots past each slab's lines, as K1-bs leaves them
+    unwritten: neither must reach the field."""
     w = water50
     jp, n = w['jpot'], w['n']
     _, s3_j, s5_j = JBS.fixed_field_and_scf_blocks(jp.pme, jp.elec_params.thole, w['srow'], n,
@@ -168,9 +175,15 @@ def test_k3_bs_twin_vs_pallas_interpret(water50):
     assert int(padded_entries.sum()) == 3
     s3_t[padded_entries] = float('nan')
     s5_t[padded_entries] = float('nan')
-    f_t = BS.scf_dipole_field_bs(w['sites'], s3_t, s5_t,
-                                 BS.pad_rows(torch.as_tensor(mu_s), npad), w['tiles'], n,
-                                 w['consts'])
+    sites, tiles = w['sites'], w['tiles']
+    live = BS.live_lines(sites[:, :3], n, tiles, w['consts'].box, w['consts'].cutoff)
+    lines = BS.blocks_to_lines(s3_t, s5_t, tiles, live, 1)
+    unused = torch.arange(lines.capacity) >= lines.count[..., None]
+    assert bool(unused.any())                      # the padded waters' slabs
+    lines.s3[unused] = float('nan')
+    lines.s5[unused] = float('nan')
+    f_t = BS.scf_dipole_field_bs(sites, lines, BS.pad_rows(torch.as_tensor(mu_s), npad), tiles,
+                                 n, w['consts'])
     np.testing.assert_allclose(f_t.numpy(), np.asarray(f_j), **PALLAS_TOL)
 
 
@@ -265,3 +278,29 @@ def test_block_mode_replication_identity():
     for copy in range(2):
         df = (f2[copy * n_atoms:(copy + 1) * n_atoms] - f1).abs().max()
         assert float(df) <= REPLICA_REL * fmax
+
+
+def test_line_overflow_stops_the_simulation():
+    """(e): water50 x (2, 1, 1), block + pairs modes under for_dynamics:
+    two row tiles, so a water near the tiles' boundary holds live lines of
+    both column tiles; a capacity of one line sets elec_line_overflow and
+    Simulation raises at the end of the chunk."""
+    box = [1.8] * 3
+    cfg = MBPolConfig.for_dynamics(cutoff=0.85, electrostatics_mode='block',
+                                   dispersion_mode='pairs')
+    sys1 = _tsys('water50', box)
+    d = fixtures.load('water50')
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu_torch.system import make_molecules_whole as whole
+    sys2, pos2 = replicate(sys1, whole(sys1, torch.as_tensor(np.array(d['positions']))),
+                           (2, 1, 1))
+    pot = MBPol(sys2, cfg, device='cpu')
+    info = pot._block_info
+    assert info['line_capacity'] == 2                  # the column tiles: no overflow
+    assert not bool(pot.energy_forces(pos2)[3]['elec_line_overflow'])
+    pot._set_block_perm(info['site_perm'], info['tile_pair_capacity'], 1)
+    assert bool(pot.energy_forces(pos2)[3]['elec_line_overflow'])
+    sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    sim.set_positions(pos2)
+    with pytest.raises(RuntimeError, match='overflow'):
+        sim.step(1)

@@ -148,10 +148,10 @@ def _moved(sites, box, how):
 
 @pytest.mark.parametrize('how', ['shifted', 'wrapped', 'ragged'])
 def test_culled_block_kernels_match_twins(cuda, water1024_block, how):
-    """K3-bs and K2-bs cull (water, cluster) lines by boxes: on unwrapped
-    positions, on waters and clusters across the boundary, and with a
-    ragged last tile (the last 10 waters taken as padding, their sites
-    left in place), against the twins on the entry sets of
+    """K1-bs, K3-bs and K2-bs cull (water, cluster) lines by boxes: on
+    unwrapped positions, on waters and clusters across the boundary, and
+    with a ragged last tile (the last 10 waters taken as padding, their
+    sites left in place), against the twins on the entry sets of
     ops/elec_direct_check.py."""
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
     sites, polarity, tiles, n, consts = water1024_block
@@ -167,28 +167,59 @@ def test_culled_block_kernels_match_twins(cuda, water1024_block, how):
     assert 0 < int(live.sum()) < live.numel()
     checks = check.block_kernel_rows(sites, polarity, tiles, n, consts)
     torch.cuda.synchronize()
-    for name in ('scf_dipole_field_bs', 'direct_energy_force_pot_bs'):
-        _assert_rows(checks[name][0])
+    for rows, _ in checks.values():
+        _assert_rows(rows)
+
+
+def _stored(lines):
+    """(count, entry, s3, s5) of the lines K1-bs stored: the slots past a
+    slab's count are unwritten."""
+    stored = (torch.arange(lines.capacity, device=lines.count.device)
+              < lines.count[..., None])
+    return lines.count, lines.entry[stored], lines.s3[stored], lines.s5[stored]
 
 
 def test_culled_block_kernels_are_bitwise_reproducible(cuda, water1024_block):
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
     sites, polarity, tiles, n, consts = water1024_block
-    field, s3, s5 = bs.fixed_field_and_scf_blocks(sites, n, tiles, consts)
+    k1 = [bs.fixed_field_and_scf_lines(sites, n, tiles, consts) for _ in range(2)]
+    field, lines = k1[0]
     mu = (polarity[:, None] * field).contiguous()
     mu_pad = bs.pad_rows(mu, sites.shape[0])
-    k3 = [bs.scf_dipole_field_bs(sites, s3, s5, mu_pad, tiles, n, consts) for _ in range(2)]
+    k3 = [bs.scf_dipole_field_bs(sites, lines, mu_pad, tiles, n, consts) for _ in range(2)]
     k2 = [bs.direct_energy_force_pot_bs(sites, mu, n, tiles, consts) for _ in range(2)]
     torch.cuda.synchronize()
+    assert torch.equal(k1[0][0], k1[1][0])
+    assert all(torch.equal(a, b) for a, b in zip(_stored(k1[0][1]), _stored(k1[1][1])))
     assert torch.equal(k3[0], k3[1])
     assert all(torch.equal(a, b) for a, b in zip(*k2))
+
+
+def test_k1_bs_lines_hold_the_block_twins_live_lines(cuda, water1024_block):
+    """K1-bs's lines spread into blocks against the block twin (the Pallas
+    kernel's layout) on the entry sets of ops/elec_direct_check.py, and
+    every pair with a nonzero s3 or s5 in the twin's blocks lies in one of
+    the kernel's lines (its culling is conservative)."""
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
+    sites, polarity, tiles, n, consts = water1024_block
+    field, lines = bs.fixed_field_and_scf_lines(sites, n, tiles, consts)
+    assert not bool(lines.overflow())
+    kern = (field,) + bs.lines_to_blocks(lines, tiles)
+    twin = bs.fixed_field_and_scf_blocks_plain(sites, n, tiles, consts)
+    _assert_rows(check.k1_bs_rows(sites, polarity, tiles, n, kern, twin,
+                                  bs.fixed_field_and_scf_blocks_plain(sites.double(), n, tiles,
+                                                                      consts)))
+    ones = bs.ScfLines(torch.ones_like(lines.s3), torch.ones_like(lines.s5), lines.entry,
+                       lines.count)
+    in_line = bs.lines_to_blocks(ones, tiles)[0] > 0
+    assert not bool((((twin[1] != 0) | (twin[2] != 0)) & ~in_line).any())
 
 
 def test_block_kernels_refuse_float64(cuda, water1024_block):
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
     sites, _, tiles, n, consts = water1024_block
     with pytest.raises(TypeError):
-        bs.fixed_field_and_scf_blocks(sites.double(), n, tiles, consts)
+        bs.fixed_field_and_scf_lines(sites.double(), n, tiles, consts)
 
 
 @pytest.mark.parametrize('masked', [False, True])
