@@ -15,9 +15,15 @@ Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit), TF32 off;
   2. kernel build (one nvcc per source, in parallel; timed, with the
      compiler's resource report and warnings);
-  3. the dense kernels K1/K2 against their twins on the water256 fixture,
-     on the entry sets and bounds of ops/elec_direct_check.py; device time
-     (torch.profiler) and the twin's time per call;
+  3. the dense kernels K1/K2 (triangular form, tile sum included) against
+     their twins, full and triangular (float32 and float64), on the entry
+     sets and bounds of ops/elec_direct_check.py, on the water256 fixture
+     and on water2048 (the fixture repeated 2 x 2 x 2, 8,192 sites, dense);
+     s3/s5 exactly symmetric; each kernel's bound from the unordered
+     in-cutoff pairs (beside it, what the route touches: the pairs it tests
+     and its partials scratch), its device time (torch.profiler) beside the
+     time before the triangular form and the device time of an empty
+     kernel launch, and the twin's time per call;
   4. water256 single point vs the golden -2270.8889 +/- 20 kcal/mol;
   5. water256 MD, 200 steps under for_dynamics(): finite energies, no list
      overflow, healthy SCF, energy conservation after the ASPC start-up
@@ -70,12 +76,17 @@ Usage: python3 chip_smoke.py     (needs one CUDA card; no arguments)
 """
 import json
 import os
-import subprocess
 import sys
 import time
 
 import numpy as np
 
+from mbpol_openmm_plugin_tpu_torch.tools.dense_probe import (OPS_K1, OPS_K2, OPS_TEST, TRANS_K1,
+                                                           TRANS_K2, dense_bounds)
+from mbpol_openmm_plugin_tpu_torch.tools.timing import (BF16_TENSOR_FLOPS, FP32_FLOPS, HBM_BPS,
+                                                        MUFU_PER_CLOCK_PER_SM, bound, card_line,
+                                                        kernel_device_ms, loop_ms, median_ms,
+                                                        transcendental_rate)
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'water256_integration_test.npz')
 BOX = 19.3996888399961804 / 10.0
@@ -100,40 +111,36 @@ REPLICA_F_REL = 1e-3
 REPLICA_F_WHOLE = 6e-3
 N_TIMING = 20
 N_TIMING_TWIN_BS = 3              # the block twins take ~0.1-1 s per call
-# H100 SXM peaks: HBM bytes/s, fp32 FLOP/s on the CUDA cores, dense bf16
-# FLOP/s on the tensor cores
-HBM_BPS = 3.35e12
-FP32_FLOPS = 67e12
-BF16_TENSOR_FLOPS = 989e12
-# operations per site pair, each arithmetic operation or transcendental
-# counted once: the cutoff test (3 differences, minimum image, r^2, sqrt,
-# compare), the rest of the chain (K1, K2), and K3's per-pair work (minimum
-# image, projection, 2 x 3 multiply-adds). A bound charges them to the pairs
-# the function needs on this run's inputs, the in-cutoff ones, whatever the
-# route visits (candidates of the active blocks or of the live lines, which
-# phases 3 and 6 log beside it). The transcendentals of the chain per
-# in-cutoff pair (sqrtf, 1/r, erfcf, and the chain's expf calls: 3 in K1's,
-# 4 in K2's) go to the transcendental unit, at MUFU_PER_CLOCK_PER_SM results
-# per clock per SM.
-OPS_TEST, OPS_K1, OPS_K2, OPS_K3 = 25, 60, 150, 36
-TRANS_K1, TRANS_K2 = 6, 7
+# the peaks, the operations per pair of the chain (OPS_TEST, OPS_K1,
+# OPS_K2, TRANS_K1, TRANS_K2) and the dense kernels' bounds are those of
+# tools/timing.py and tools/dense_probe.py; K3's per-pair work (minimum
+# image, projection, 2 x 3 multiply-adds), charged like theirs to the
+# in-cutoff pairs of this run:
+OPS_K3 = 36
+# device ms per launch of the dense kernels at water256 before the
+# triangular form (PERF.md section 6, rows 1-2), logged beside this run's
+DENSE_MS_BEFORE = {'fixed_field_and_scf_factors': 0.0132, 'direct_energy_force_pot': 0.0180}
+DENSE_REPS = {'water256': (1, 1, 1), 'water2048': (2, 2, 2)}
 # device ms per launch of the block kernels before the live-line layout of
 # s3/s5 (this phase's reading of the earlier design, with s3/s5 as whole
 # blocks; PERF.md section 6), logged beside this run's
 BS_MS_BEFORE = {'fixed_field_and_scf_lines': 1.1152, 'scf_dipole_field_bs': 0.2264,
                 'direct_energy_force_pot_bs': 0.2578}
 # kernels a wrapper launches besides its own, whose device time is part of
-# the wrapper's (the cluster boxes of the culling test)
-HELPER_KERNELS = {'fixed_field_and_scf_lines': ('cluster_boxes_kernel',),
+# the wrapper's (the dense kernels' tile sum, the cluster boxes of the
+# culling test)
+HELPER_KERNELS = {'fixed_field_and_scf_factors': ('tile_sum_kernel',),
+                  'direct_energy_force_pot': ('tile_sum_kernel',),
+                  'fixed_field_and_scf_lines': ('cluster_boxes_kernel',),
                   'direct_energy_force_pot_bs': ('cluster_boxes_kernel',)}
 SOURCE = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct.cu'
 SOURCE_BS = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct_bs.cu'
 SOURCE_PIP = 'mbpol_openmm_plugin_tpu_torch/csrc/pip_fused.cu'
 KERNELS = {   # wrapper name: (CUDA kernel name, source, the TPU kernel it replaces)
     'fixed_field_and_scf_factors': (
-        'fixed_field_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:315'),
+        'fixed_field_tri_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:315'),
     'direct_energy_force_pot': (
-        'direct_efp_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:364'),
+        'direct_efp_tri_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:364'),
     'fixed_field_and_scf_lines': (
         'fixed_field_bs_kernel', SOURCE_BS, 'mbpol_openmm_plugin_tpu/ops/elec_pallas_bs.py:182'),
     'scf_dipole_field_bs': (
@@ -168,7 +175,6 @@ MONO_SLOTS = 4
 OPS_MONO = 3 + 1 + 1 + MONO_SLOTS
 OPS_MONO_SPLIT = 7
 MONO_TILE, MONO_PASSES = 16, 3
-MUFU_PER_CLOCK_PER_SM = 16
 # the tensor-core quadratic forms: bf16 passes of the W product (2 P B^2
 # operations each), and CUDA-core operations per (row, basis element): the
 # basis value (a multiply; exp/log: an add and an exp), the 3-way bf16 split
@@ -185,78 +191,6 @@ def log(*a):
     print(*a, flush=True)
 
 
-def card_line():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def median_ms(torch, fn):
-    """Median of N_TIMING calls, each between two CUDA events and followed
-    by a synchronize: the wrapper call, host work included."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(N_TIMING):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end))
-    return float(np.median(times))
-
-
-def loop_ms(torch, fn, n=N_TIMING):
-    """Mean time per call of n back-to-back calls between two CUDA events
-    (one synchronize at the end): device time once the device, not the
-    host, is the slower of the two."""
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def bound(n_bytes, n_ops, n_tensor_ops=0, tensor_scheme=None, n_transcendental=0,
-          transcendental_rate=None):
-    """(least time in ms the card could take, what bounds it): the largest
-    of bytes over HBM_BPS ('bytes'); the CUDA-core operations over
-    FP32_FLOPS ('operations'); for a tensor-core kernel, the bf16 operations
-    of its passes over BF16_TENSOR_FLOPS ('operations (<scheme>)'); and,
-    where given, the transcendentals over the transcendental unit's results
-    per second ('operations (transcendentals)'). The units run side by side,
-    so their times are not added."""
-    times = {'bytes': n_bytes / HBM_BPS, 'operations': n_ops / FP32_FLOPS}
-    if n_tensor_ops:
-        times[f'operations ({tensor_scheme})'] = n_tensor_ops / BF16_TENSOR_FLOPS
-    if n_transcendental:
-        times['operations (transcendentals)'] = n_transcendental / transcendental_rate
-    by = max(times, key=times.get)
-    return times[by] * 1e3, by
-
-
-def max_sm_clock_hz():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
-                          '--format=csv,noheader,nounits'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return float(out.stdout.strip().splitlines()[0]) * 1e6
-
-
-def transcendental_rate(torch):
-    """Results per second of the transcendental unit: MUFU_PER_CLOCK_PER_SM
-    per clock per SM at the card's maximum SM clock."""
-    n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    return MUFU_PER_CLOCK_PER_SM * n_sms * max_sm_clock_hz()
-
-
 def kernel_record(name, max_abs, ms, plain_ms, bound_ms_by, library_ms=None):
     cuda_name, source, replaces = KERNELS[name]
     assert ms >= bound_ms_by[0], (name, ms, bound_ms_by)    # faster than the bound: a wrong count
@@ -269,41 +203,21 @@ def time_kernel(torch, card, name, kern, plain, n_plain=N_TIMING):
     """(device ms per launch from torch.profiler, or the back-to-back call
     time when the trace has none; the twin's ms per call), logged."""
     cuda_name = KERNELS[name][0]
-    dev_ms = kernel_device_ms(torch, kern, cuda_name, HELPER_KERNELS.get(name, ()))
-    kern_loop = loop_ms(torch, kern)
-    plain_loop = loop_ms(torch, plain, n_plain)
-    call_ms = median_ms(torch, kern)
+    helpers = HELPER_KERNELS.get(name, ())
+    dev = kernel_device_ms(kern, cuda_name, N_TIMING, helpers)
+    dev_ms = dev.ms
+    if helpers and dev_ms is not None:
+        log(f'    {cuda_name}: {dev.kernel_ms:.4f} ms, {"/".join(helpers)}: '
+            f'{dev.helper_ms:.4f} ms per launch ({dev.launches} launches traced)')
+    kern_loop = loop_ms(kern, N_TIMING)
+    plain_loop = loop_ms(plain, n_plain)
+    call_ms = median_ms(kern, N_TIMING)
     log(f'  {name:28s} kernel device time '
         f'{"not in the profiler trace" if dev_ms is None else f"{dev_ms:.4f} ms"}; '
         f'back-to-back per call: kernel {kern_loop:.4f} ms, twin {plain_loop:.4f} ms '
         f'({n_plain} calls); synchronized wrapper call (median): kernel {call_ms:.4f} ms '
         f'({card})')
     return (dev_ms if dev_ms is not None else kern_loop), plain_loop
-
-
-def kernel_device_ms(torch, fn, kernel, helpers=()):
-    """Mean device time of one launch of the CUDA kernel whose name
-    contains `kernel`, plus that of the `helpers` kernels fn launches with
-    it, over N_TIMING calls of fn, read from torch.profiler's device trace.
-    None when the trace holds no device time for it."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(N_TIMING):
-            fn()
-        torch.cuda.synchronize()
-    total_us, helper_us, count = 0.0, 0.0, 0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total_us += ev.device_time_total
-            count += ev.count
-        elif any(h in ev.key for h in helpers):
-            helper_us += ev.device_time_total
-    if helpers and count:
-        log(f'    {kernel}: {total_us / count / 1e3:.4f} ms, {"/".join(helpers)}: '
-            f'{helper_us / count / 1e3:.4f} ms per launch')
-    return (total_us + helper_us) / count / 1e3 if count and total_us > 0 else None
 
 
 def load_water256(torch, device, dtype):
@@ -330,75 +244,98 @@ def n_in_cutoff(*blocks):
     return int(sum(((b3 != 0) | (b5 != 0)).sum() for b3, b5 in blocks))
 
 
+def empty_launch_ms(torch):
+    """Device time of one empty kernel launch (the card's floor per launch)."""
+    from mbpol_openmm_plugin_tpu_torch.ops import _build
+    lib = _build.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    return kernel_device_ms(lambda: lib.mbpol_empty_launch(stream), 'empty_kernel', N_TIMING).ms
+
+
 def phase_kernels(torch, card, record):
-    """Phase 3: each kernel against its twin on the water256 fixture."""
-    from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
-    from mbpol_openmm_plugin_tpu_torch.models.pme import PmeSetup
-    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPolConfig
+    """Phase 3: K1/K2 against their twins at water256 and water2048."""
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_check as check
+    from mbpol_openmm_plugin_tpu_torch.tools.dense_probe import dense_inputs
 
-    dev = torch.device('cuda')
-    system, pos = load_water256(torch, dev, torch.float32)
-    params = elec.ElecParams.for_system(system)
-    setup = PmeSetup.from_config(system, MBPolConfig(nonbonded_method='PME', cutoff=0.9))
-    consts = ED.DirectConsts.from_setup(setup, params.thole)
-    charges, _ = elec.assemble_charges(params, pos)
-    d16 = torch.as_tensor(np.asarray(params.damping) ** (-1.0 / 6.0), dtype=pos.dtype,
-                          device=dev)
-    sites = ED.pack_sites(pos, charges, d16, torch.as_tensor(params.mol_index, device=dev),
-                          torch.as_tensor(params.atom_type == 0, device=dev))
-    polarity = torch.as_tensor(params.polarity, dtype=pos.dtype, device=dev)
-    log(f'sites {tuple(sites.shape)} {sites.dtype}, cutoff {consts.cutoff} nm, '
-        f'alpha {consts.alpha:.6f} 1/nm')
-
-    k1 = ED.fixed_field_and_scf_factors(sites, consts)
-    torch.cuda.synchronize()
-    t1 = ED.fixed_field_and_scf_factors_plain(sites, consts)
-    torch.cuda.synchronize()
-    t1_64 = ED.fixed_field_and_scf_factors_plain(sites.double(), consts)
-    # induced dipoles of realistic size: polarity times the direct field
-    mu = (polarity[:, None] * t1[0]).contiguous()
-    k2 = ED.direct_energy_force_pot(sites, mu, consts)
-    torch.cuda.synchronize()
-    t2 = ED.direct_energy_force_pot_plain(sites, mu, consts)
-    torch.cuda.synchronize()
-
+    floor = empty_launch_ms(torch)
+    rate = transcendental_rate()
+    tile = ED.TILE
+    log(f'  empty kernel launch: {floor:.4f} ms device time (the card\'s floor per launch, '
+        f'bounds nothing); tile {tile} sites')
     failures = []
-    max_abs = {}
-    for kname, rows, kout, tout in (
-            ('fixed_field_and_scf_factors', check.k1_rows(sites, polarity, k1, t1, t1_64), k1, t1),
-            ('direct_energy_force_pot', check.k2_rows(k2, t2), k2, t2)):
-        for row in rows:
-            log(f'  {kname:28s} {row}')
-            if not row.ok:
-                failures.append(f'{kname}.{row.output}.{row.entries}.{row.measure}')
-        max_abs[kname] = max(float((k - t).abs().max()) for k, t in zip(kout, tout))
+    for size, reps in DENSE_REPS.items():
+        sites, polarity, consts = dense_inputs(reps)
+        n = sites.shape[0]
+        log(f'  {size}: sites {tuple(sites.shape)} {sites.dtype}, cutoff {consts.cutoff} nm, '
+            f'alpha {consts.alpha:.6f} 1/nm, box {consts.box[0]:.5f} nm')
+        k1 = ED.fixed_field_and_scf_factors(sites, consts)
+        torch.cuda.synchronize()
+        tri1 = ED.fixed_field_and_scf_factors_tri_plain(sites, consts)
+        tri1_64 = ED.fixed_field_and_scf_factors_tri_plain(sites.double(), consts)
+        # induced dipoles of realistic size: polarity times the direct field
+        mu = (polarity[:, None] * tri1[0]).contiguous()
+        k2 = ED.direct_energy_force_pot(sites, mu, consts)
+        torch.cuda.synchronize()
+        tri2 = ED.direct_energy_force_pot_tri_plain(sites, mu, consts)
+        sym = all(bool(torch.equal(m, m.T)) and not bool(m.diagonal().any()) for m in k1[1:])
+        log(f'  {size}: s3, s5 exactly symmetric with a zero diagonal: {sym}')
+        if not sym:
+            failures.append(f'{size}.symmetric')
+        checks = [('triangular', 'fixed_field_and_scf_factors',
+                   check.k1_rows(sites, polarity, k1, tri1, tri1_64), k1, tri1),
+                  ('triangular', 'direct_energy_force_pot', check.k2_rows(k2, tri2), k2, tri2)]
+        if size == 'water256':
+            full1 = ED.fixed_field_and_scf_factors_plain(sites, consts)
+            full1_64 = ED.fixed_field_and_scf_factors_plain(sites.double(), consts)
+            full2 = ED.direct_energy_force_pot_plain(sites, mu, consts)
+            checks += [('full', 'fixed_field_and_scf_factors',
+                        check.k1_rows(sites, polarity, k1, full1, full1_64), k1, full1),
+                       ('full', 'direct_energy_force_pot', check.k2_rows(k2, full2), k2, full2)]
+        max_abs = {}
+        for twin, kname, rows, kout, tout in checks:
+            for row in rows:
+                log(f'  {size} {kname:28s} vs {twin:10s} {row}')
+                if not row.ok:
+                    failures.append(f'{size}.{kname}.{twin}.{row.output}.{row.entries}.'
+                                    f'{row.measure}')
+            err = max(float((k - t).abs().max()) for k, t in zip(kout, tout))
+            max_abs[kname] = max(max_abs.get(kname, 0.0), err)
 
-    n = sites.shape[0]
-    n_pairs, n_in = n * (n - 1), n_in_cutoff((k1[1], k1[2]))
-    rate = transcendental_rate(torch)
-    bounds = {
-        'fixed_field_and_scf_factors': bound(n * 32 + n * 12 + 2 * n * n * 4,
-                                             n_in * (OPS_TEST + OPS_K1),
-                                             n_transcendental=n_in * TRANS_K1,
-                                             transcendental_rate=rate),
-        'direct_energy_force_pot': bound(n * 32 + n * 12 + n * 20, n_in * (OPS_TEST + OPS_K2),
-                                         n_transcendental=n_in * TRANS_K2,
-                                         transcendental_rate=rate)}
-    log(f'  N={n}: {n_in} in-cutoff ordered pairs of {n_pairs} (the kernels test all '
-        f'{n_pairs}: {n_pairs * OPS_TEST / FP32_FLOPS * 1e3:.4f} ms of operations, outside '
-        f'the bound)')
-    timed = (('fixed_field_and_scf_factors',
-              lambda: ED.fixed_field_and_scf_factors(sites, consts),
-              lambda: ED.fixed_field_and_scf_factors_plain(sites, consts)),
-             ('direct_energy_force_pot',
-              lambda: ED.direct_energy_force_pot(sites, mu, consts),
-              lambda: ED.direct_energy_force_pot_plain(sites, mu, consts)))
-    for kname, kern, plain in timed:
-        ms, plain_ms = time_kernel(torch, card, kname, kern, plain)
-        record[kname] = kernel_record(kname, max_abs[kname], ms, plain_ms, bounds[kname])
-        log(f'  {kname:28s} bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]})')
+        # bounds: the test and chain of each unordered in-cutoff pair once
+        n_in = n_in_cutoff((k1[1], k1[2])) // 2
+        nt = -(-n // tile)
+        bounds = dense_bounds(n, n_in, rate)
+        n_tested = n * (n - 1) // 2
+        log(f'  {size}: {n_in} unordered in-cutoff pairs of {n_tested} ({n_in / n_tested:.4%}); '
+            f'what the route touches (bounds nothing): it tests all {n_tested} unordered pairs '
+            f'({n_tested * OPS_TEST / FP32_FLOPS * 1e3:.4f} ms of operations) in '
+            f'{nt * (nt + 1) // 2} tile pairs, and writes and reads partials of '
+            f'{nt * 3 * n * 4 / 1e6:.3f} MB (K1) and {nt * 5 * n * 4 / 1e6:.3f} MB (K2) '
+            f'({2 * nt * 8 * n * 4 / HBM_BPS * 1e3:.4f} ms at the HBM rate)')
+        timed = (('fixed_field_and_scf_factors',
+                  lambda: ED.fixed_field_and_scf_factors(sites, consts),
+                  lambda: ED.fixed_field_and_scf_factors_plain(sites, consts)
+                  if size == 'water256' else ED.fixed_field_and_scf_factors_tri_plain(sites,
+                                                                                      consts)),
+                 ('direct_energy_force_pot',
+                  lambda: ED.direct_energy_force_pot(sites, mu, consts),
+                  lambda: ED.direct_energy_force_pot_plain(sites, mu, consts)
+                  if size == 'water256' else ED.direct_energy_force_pot_tri_plain(sites, mu,
+                                                                                  consts)))
+        for kname, kern, plain in timed:
+            ms, plain_ms = time_kernel(torch, card, kname, kern, plain,
+                                       N_TIMING if size == 'water256' else N_TIMING_TWIN_BS)
+            rec = kernel_record(kname, max_abs[kname], ms, plain_ms, bounds[kname])
+            if size == 'water256':
+                record[kname] = rec
+            log(f'  {size} {kname:28s} {ms:.4f} ms'
+                + (f' (before the triangular form {DENSE_MS_BEFORE[kname]} ms)'
+                   if size == 'water256' else '')
+                + f', bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}), kernel / bound '
+                f'{ms / bounds[kname][0]:.2f}, empty launch {floor:.4f} ms ({card})')
+        del k1, tri1, tri1_64, k2, tri2, checks
+        torch.cuda.empty_cache()
     if failures:
         raise AssertionError(f'kernel/twin mismatch: {failures}')
 
@@ -548,7 +485,7 @@ def phase_block_kernels(torch, card, record, pot, pos):
     pairs_live = int(live.sum()) * BS.WATER * BS.CLUSTER
     n_stored = int(lines.count.sum())
     lists = cap * 12 + (n_tiles + 1) * 4
-    rate = transcendental_rate(torch)
+    rate = transcendental_rate()
     bounds = {
         'fixed_field_and_scf_lines': bound(np_ * 32 + lists + n * 12 + n_in * 8,
                                            n_in * (OPS_TEST + OPS_K1),
@@ -724,7 +661,7 @@ def phase_pip_kernels(torch, card, record):
     # the default plain evaluator of the same function on the same variables
     library = {PF.pip_energy_grad: polyeval.pip_energy_and_grad}
     n_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mufu_rate = transcendental_rate(torch)
+    mufu_rate = transcendental_rate()
     log(f'  transcendental unit: {MUFU_PER_CLOCK_PER_SM} results per clock per SM x {n_sms} SMs '
         f'x {mufu_rate / MUFU_PER_CLOCK_PER_SM / n_sms / 1e6:.0f} MHz (maximum SM clock) = '
         f'{mufu_rate / 1e12:.3f} T results/s')
@@ -757,7 +694,7 @@ def phase_pip_kernels(torch, card, record):
             lib = library.get(wrapper, polyeval.pip_quad_energy_and_grad)
             ms, plain_ms = time_kernel(torch, card, kname, lambda: wrapper(poly, x),
                                        lambda: PF.PLAIN[wrapper](poly, x), N_TIMING_TWIN_BS)
-            lib_ms = loop_ms(torch, lambda: lib(x, poly))
+            lib_ms = loop_ms(lambda: lib(x, poly), N_TIMING)
             log(f'  {kname:28s} {poly} [{p}, {v}]: bound {bounds[kname][0]:.4f} ms '
                 f'({bounds[kname][1]}); {lib.__name__} on the same variables '
                 f'{lib_ms:.4f} ms per call ({card})')
@@ -881,7 +818,7 @@ def main():
             log('  ' + line.strip())
 
     record = {}
-    log('== phase 3: kernels vs twins (water256, float32)')
+    log('== phase 3: dense kernels vs twins (water256 and water2048, float32)')
     phase_kernels(torch, card, record)
     log('== phase 4: single point (water256 PME, float32)')
     pot256, e256, f256, parts256 = phase_single_point(torch, card)

@@ -22,6 +22,9 @@ constexpr int kWarps = kThreads / 32;
 constexpr int kNS = 8;
 constexpr float kSqrtPi = 1.7724538509055159f;
 constexpr float kGamma34 = 1.2254167024651776f;
+// the loosened cutoff^2 factor of the kernels' r^2 pre-test (no division,
+// no sqrtf), which the exact test of pair_chain then decides
+constexpr float kLoose = 1.0001f;
 
 // H2(y) = Q(3/4, y^4) exp(y^4) on y in [0, 3.6] (elec_pallas._H2_COEF);
 // static: each translation unit holds its own copy
@@ -66,15 +69,17 @@ __device__ __forceinline__ float min_image(float d, float b) {
 }
 
 // The minimum image with a multiply by 1/b in place of the division: the
-// same image as min_image except where d / b + 1/2 rounds to another
-// integer, where either image is half a box away. For tests that a loose
-// margin makes safe, never for a value that is summed.
+// same image as min_image, so the same bits, except where d / b + 1/2
+// rounds to another integer, and there either image is about half a box
+// away. So it serves the r^2 pre-tests (a loose margin makes them safe),
+// and the values summed over the pairs inside a cutoff shorter than half
+// the box (the minimum-image convention): no such pair sits half a box
+// away, so each gets min_image's bits.
 __device__ __forceinline__ float min_image_fast(float d, float b, float inv_b) {
   return d - floorf(d * inv_b + 0.5f) * b;
 }
 
-// Pair-independent constants of the chain, computed once per thread (the
-// values the overload below computes in place).
+// Pair-independent constants of the chain, computed once per thread.
 struct Derived {
   float f1, f2, f3, g4, ibx, iby, ibz;
 };
@@ -96,14 +101,23 @@ __device__ __forceinline__ float h2_poly(float y) {
 
 // The pair chain for row site i and column site j (global indices; the
 // caller masks padded sites). Returns false for i == j and for pairs
-// outside the cutoff; kFull adds the quantities only K2 needs.
-template <bool kFull>
+// outside the cutoff; kFull adds the quantities only K2 needs. kFastImage
+// takes the minimum image by 1/box (min_image_fast): the image differs from
+// min_image's only where an axis component is half a box long, beyond the
+// cutoff, so every pair inside it gets the same bits.
+template <bool kFull, bool kFastImage = false>
 __device__ __forceinline__ bool pair_chain(const Site& si, const Site& sj, int i, int j,
                                            const Consts& c, const Derived& k, Pair& p) {
   if (i == j) return false;
-  p.dx = min_image(sj.x - si.x, c.bx);
-  p.dy = min_image(sj.y - si.y, c.by);
-  p.dz = min_image(sj.z - si.z, c.bz);
+  if (kFastImage) {
+    p.dx = min_image_fast(sj.x - si.x, c.bx, k.ibx);
+    p.dy = min_image_fast(sj.y - si.y, c.by, k.iby);
+    p.dz = min_image_fast(sj.z - si.z, c.bz, k.ibz);
+  } else {
+    p.dx = min_image(sj.x - si.x, c.bx);
+    p.dy = min_image(sj.y - si.y, c.by);
+    p.dz = min_image(sj.z - si.z, c.bz);
+  }
   const float r = sqrtf(p.dx * p.dx + p.dy * p.dy + p.dz * p.dz);
   if (!(r * r <= c.cutoff2)) return false;
   const float inv_r = 1.0f / r;
@@ -141,16 +155,6 @@ __device__ __forceinline__ bool pair_chain(const Site& si, const Site& sj, int i
     p.s_cd5 = p.s_cd3 - (4.0f / 3.0f) * c.g_cd * ex_cd * u4;
   }
   return true;
-}
-
-// The chain with its constants computed in place, for the dense kernels of
-// elec_direct.cu: with the constants in registers the compiler contracts
-// the Ewald terms otherwise, and their outputs (and the MD runs built on
-// them) would change in the last bits.
-template <bool kFull>
-__device__ __forceinline__ bool pair_chain(const Site& si, const Site& sj, int i, int j,
-                                           const Consts& c, Pair& p) {
-  return pair_chain<kFull>(si, sj, i, j, c, derive(c), p);
 }
 
 // SCF factors of one in-cutoff pair (preFactor1/2): s3, s5.
@@ -195,6 +199,18 @@ __device__ __forceinline__ void efp_pair(const Pair& p, float qi, float qj, cons
             - mi[k] * (w3 * qj);
   a[3] += k1 * qj - w3 * dot_j;
   a[4] += 0.5f * (k1 * qq + 0.5f * w3 * gli1);
+}
+
+// The column side of K2's potential for one in-cutoff pair: site j's
+// potential from q_i and mu_i (mi), the i<->j swap of efp_pair's a[3]
+// (d -> -d), with efp_pair's k1 and w3.
+__device__ __forceinline__ float efp_pot_col(const Pair& p, float qi, const float* mi) {
+  const float dot_i = mi[0] * p.dx + mi[1] * p.dy + mi[2] * p.dz;   // mu_i . (r_j - r_i)
+  const float s1cc = p.same_mol ? 0.0f : p.s_cc1;
+  const float s3cd = p.same_mol ? 0.0f : p.s_cd3;
+  const float k1 = p.bn0 - p.rr1 * (1.0f - s1cc);
+  const float w3 = p.bn1 - p.rr3 * (1.0f - s3cd);
+  return k1 * qi + w3 * dot_i;
 }
 
 // Sum acc[k] over the block's threads; thread k < K gets the total in

@@ -128,10 +128,9 @@ constexpr int kSubEfp = kTile / kRowsEfp;
 constexpr int kQueue = 64 * kRowsEfp;     // a power of two, >= 2 x 32 + 32 x kRowsEfp
 constexpr int kColBits = 24;             // queue entry: row << kColBits | column
 // the culling test's padding of each half extent (nm, and per nm of the
-// coordinate: ~16 float32 ulps), and K2-bs's loosened cutoff^2 factor
+// coordinate: ~16 float32 ulps)
 constexpr float kCullMargin = 1e-4f;
 constexpr float kCullRel = 2e-6f;
-constexpr float kLoose = 1.0001f;
 constexpr float kEmpty = -1e30f;         // half extent of a box without sites
 
 static_assert(kThreads == kTile, "one thread per column of a column tile");

@@ -106,10 +106,14 @@ def load():
     lib = ctypes.CDLL(build())
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     consts = [f32] * 10     # alpha, cutoff^2, 5 Thole gammas, box
-    lib.mbpol_fixed_field_scf.argtypes = [ptr, i32, *consts, ptr, ptr, ptr, ptr]
+    # dense kernels (csrc/elec_direct.cu): sites, [mu,] n, consts, tile,
+    # partials scratch, outputs, stream
+    lib.mbpol_fixed_field_scf.argtypes = [ptr, i32, *consts, i32, ptr, ptr, ptr, ptr, ptr]
     lib.mbpol_fixed_field_scf.restype = i32
-    lib.mbpol_direct_efp.argtypes = [ptr, ptr, i32, *consts, ptr, ptr, ptr, ptr]
+    lib.mbpol_direct_efp.argtypes = [ptr, ptr, i32, *consts, i32, ptr, ptr, ptr, ptr, ptr]
     lib.mbpol_direct_efp.restype = i32
+    lib.mbpol_empty_launch.argtypes = [ptr]
+    lib.mbpol_empty_launch.restype = i32
     # block-sparse kernels (csrc/elec_direct_bs.cu): list pointers tj, meta, row_start
     lists = [ptr, ptr, ptr]
     # K1-bs: sites, n, n_tiles, lists, consts, n_lines, box scratch, field,

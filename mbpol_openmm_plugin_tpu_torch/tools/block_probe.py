@@ -28,11 +28,12 @@ import argparse
 import hashlib
 import json
 import os
-import subprocess
 import sys
 
 import numpy as np
 import torch
+
+from mbpol_openmm_plugin_tpu_torch.tools.timing import card_line, kernel_device_ms, loop_ms
 
 BOX = 19.3996888399961804 / 10.0
 REPS = (2, 2, 4)
@@ -41,48 +42,6 @@ KERNEL_NAMES = {'fixed_field_and_scf_lines': 'fixed_field_bs_kernel',
                 'direct_energy_force_pot_bs': 'direct_efp_bs_kernel'}
 FIXTURE = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), 'tests', 'fixtures', 'water256_integration_test.npz')
-
-
-def card_line():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
-                          '--format=csv,noheader'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
-
-
-def loop_ms(fn, n):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def device_ms(fn, kernel, n):
-    """Mean device time per call of fn over n calls (torch.profiler) of the
-    kernel named `kernel` and of the cluster-box pre-pass if fn launches
-    it; None when the trace has none."""
-    from torch.profiler import ProfilerActivity, profile
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    total, count, helper = 0.0, 0, 0.0
-    for ev in prof.key_averages():
-        if kernel in ev.key:
-            total += ev.device_time_total
-            count += ev.count
-        elif 'cluster_boxes_kernel' in ev.key:
-            helper += ev.device_time_total
-    if not (count and total > 0):
-        return None, None
-    return total / count / 1e3, helper / count / 1e3
 
 
 def digest(tensors):
@@ -211,7 +170,9 @@ def main(argv=None):
             failures += [f'{label}.{name}.{r}' for r in bad]
 
     for name, call in calls.items():
-        ms, boxes_ms = device_ms(lambda: call(sites), KERNEL_NAMES[name], args.reps)
+        dev = kernel_device_ms(lambda: call(sites), KERNEL_NAMES[name], args.reps,
+                               ('cluster_boxes_kernel',))
+        ms, boxes_ms = dev.kernel_ms, dev.helper_ms
         loop = loop_ms(lambda: call(sites), args.reps)
         print(f'  {name:28s} device {ms} ms per launch, cluster boxes {boxes_ms} ms; back to '
               f'back {loop:.4f} ms per call ({card})', flush=True)

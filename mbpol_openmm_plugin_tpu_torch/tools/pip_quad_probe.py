@@ -30,35 +30,17 @@ from __future__ import annotations
 
 import argparse
 import json
-import subprocess
 import sys
 
 import numpy as np
 import torch
 
+from mbpol_openmm_plugin_tpu_torch.tools.timing import (MUFU_PER_CLOCK_PER_SM, card_line, loop_ms,
+                                                        max_sm_clock_hz)
+
 RAGGED = (1, 63, 64, 65, 129, 33801)
 KERNEL_NAMES = {'pallas': 'pip_monomial_kernel', 'quad_pallas': 'pip_quad_explog_kernel',
                 'quad_bf16': 'pip_quad_product_kernel', 'vech_pallas': 'pip_quad_vech_kernel'}
-MUFU_PER_CLOCK_PER_SM = 16       # transcendental results per clock per SM (H100)
-
-
-def loop_ms(fn, n):
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(n):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
-
-
-def max_sm_clock_hz():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
-                          '--format=csv,noheader,nounits'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return float(out.stdout.strip().splitlines()[0]) * 1e6
 
 
 def resource_lines(build_log, kernels):
@@ -83,7 +65,6 @@ def main(argv=None):
     import mbpol_openmm_plugin_tpu_torch  # noqa: F401  (precision switches)
     from mbpol_openmm_plugin_tpu_torch.ops import _build, pip_fused, pip_fused_check, polyeval
     from mbpol_openmm_plugin_tpu_torch.tools.pip_split_accuracy import water256_variables
-    from mbpol_openmm_plugin_tpu_torch.tools.step_breakdown import card_line
 
     card = card_line()
     _build.build()

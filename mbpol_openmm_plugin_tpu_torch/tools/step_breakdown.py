@@ -31,21 +31,16 @@ from __future__ import annotations
 import argparse
 import json
 import os
-import subprocess
 import time
 
 import numpy as np
 import torch
 
+from mbpol_openmm_plugin_tpu_torch.tools.timing import card_line
+
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'water256_integration_test.npz')
 BOX = 19.3996888399961804 / 10.0
-
-
-def card_line():
-    out = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit', '--format=csv,noheader'],
-                         capture_output=True, text=True, check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def median_ms(fn, reps):

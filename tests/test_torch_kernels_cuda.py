@@ -1,7 +1,9 @@
 """The hand-written CUDA kernels of ops/elec_direct against their plain
-PyTorch twins on a CUDA card, float32, at water50 and water256; the
-block-sparse kernels of ops/elec_direct_bs against theirs at water1024
-(the water256 fixture repeated 2 x 2 x 1, 16 row tiles, sorted as
+PyTorch twins (full and triangular) on a CUDA card, float32, at water50
+and water256, with s3/s5 exactly symmetric, the outputs the same bits on
+a repeat and every entry written; the block-sparse kernels of
+ops/elec_direct_bs against theirs at water1024 (the water256 fixture
+repeated 2 x 2 x 1, 16 row tiles, sorted as
 tune_capacities sorts it); the fused PIP kernels of ops/pip_fused against
 theirs on seeded variables and on the water256 lists' variables; and the
 card's row gather (ops/gather.py).
@@ -86,6 +88,65 @@ def test_k2_matches_twin(cuda, name):
     torch.cuda.synchronize()
     assert ED.direct_energy_force_pot.launches == before + 1
     _assert_rows(check.k2_rows(kern, ED.direct_energy_force_pot_plain(sites, mu, consts)))
+
+
+def _dense_calls(name, cuda):
+    """K1 and K2 as calls on the named system (K2 on polarity times K1's
+    field), and the shapes of each wrapper's outputs and partials scratch
+    in its allocation order."""
+    sites, consts, alpha = _sites(name, cuda)
+    n = sites.shape[0]
+    nt = -(-n // ED.TILE)
+    mu = (alpha[:, None] * ED.fixed_field_and_scf_factors(sites, consts)[0]).contiguous()
+    return ((lambda: ED.fixed_field_and_scf_factors(sites, consts),
+             [(n, 3), (n, n), (n, n), (nt, 3, n)]),
+            (lambda: ED.direct_energy_force_pot(sites, mu, consts),
+             [(n, 3), (n,), (n,), (nt, 5, n)]))
+
+
+@pytest.mark.parametrize('name', sorted(SYSTEMS))
+def test_k1_k2_match_triangular_twins(cuda, name):
+    """The kernels against the twins of their own decomposition, on the entry
+    sets and bounds of ops/elec_direct_check.py."""
+    sites, consts, alpha = _sites(name, cuda)
+    kern = ED.fixed_field_and_scf_factors(sites, consts)
+    _assert_rows(check.k1_rows(sites, alpha, kern,
+                               ED.fixed_field_and_scf_factors_tri_plain(sites, consts),
+                               ED.fixed_field_and_scf_factors_tri_plain(sites.double(), consts)))
+    mu = (alpha[:, None] * kern[0]).contiguous()
+    _assert_rows(check.k2_rows(ED.direct_energy_force_pot(sites, mu, consts),
+                               ED.direct_energy_force_pot_tri_plain(sites, mu, consts)))
+
+
+@pytest.mark.parametrize('name', sorted(SYSTEMS))
+def test_k1_scf_factors_exactly_symmetric(cuda, name):
+    sites, consts, _ = _sites(name, cuda)
+    _, s3, s5 = ED.fixed_field_and_scf_factors(sites, consts)
+    for s in (s3, s5):
+        assert torch.equal(s, s.T)
+        assert not bool(s.diagonal().any())
+
+
+@pytest.mark.parametrize('name', sorted(SYSTEMS))
+def test_dense_kernels_bitwise_reproducible(cuda, name):
+    for call, _ in _dense_calls(name, cuda):
+        a, b = call(), call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize('name', sorted(SYSTEMS))
+def test_dense_kernels_write_every_entry(cuda, name):
+    """Each wrapper right after NaN-filled tensors of its outputs' and
+    scratch's sizes are freed (the caching allocator hands the memory back):
+    every output is finite."""
+    for call, shapes in _dense_calls(name, cuda):
+        torch.cuda.synchronize()
+        junk = [torch.full(s, float('nan'), device=cuda) for s in shapes]
+        del junk
+        out = call()
+        torch.cuda.synchronize()
+        assert all(bool(torch.isfinite(t).all()) for t in out)
 
 
 def test_float64_cuda_tensor_is_refused(cuda):
