@@ -69,6 +69,31 @@ Phases (any failure raises and the script exits non-zero):
      'quad_bf16' with phase 5's checks and conservation gate, 20 steps
      under each of the other three (finite, no overflow, healthy SCF); the
      impl's kernel launched at least twice per step; steps/s.
+ 12. dynamic box: K1/K2 at 1.01 and 0.99 times the water256 box (each
+     water's centroid scaled) against their twins at that box, on the entry
+     sets of ops/elec_direct_check.py; the water256 single point at 1.01 x
+     the box against an MBPol built in that box with the same PME grid,
+     alpha and list capacities (energy and forces within IDENTITY_REL); the
+     wrappers and an evaluation refuse a box under twice the cutoff;
+ 13. NVT: water256 under for_dynamics(), Langevin at 300 K, friction
+     100/ps, cm_motion_interval=1, 400 steps in reports of 10 from
+     set_velocities_to_temperature(300): finite energies, healthy SCF, no
+     overflow, K1/K2 launched every step, the mean kinetic temperature over
+     steps 201..400 within 300 +/- NVT_T_TOL_K (beside it, the JAX
+     reference reading of tools/md_ensemble_reference.py); Andersen at
+     1000/ps, 100 steps, the same checks over steps 51..100; steps/s;
+ 14. NPT: water256, Langevin 300 K at 1/ps, 1 bar, barostat_interval=25,
+     500 steps: 20 moves attempted, at least one accepted, |dV/V| < 5%,
+     after each accepted move the state's energy equal to a fresh converged
+     evaluation at its positions and box (NPT_E_REL); a 100-step run equal
+     bit for bit to 50 steps, a checkpoint file, a new Simulation and 50
+     more; L-BFGS minimize_energy, 50 iterations: the energy never rises,
+     the RMS force falls; steps/s;
+ 15. water4096 NPT: block + pairs after tune_capacities, Langevin 300 K at
+     1/ps, 1 bar, barostat_interval=10, 50 steps: finite energies, healthy
+     SCF, no list, tile, line or pair overflow, K1-bs/K3-bs/K2-bs launched
+     every step, 5 moves attempted, the accepted moves' energies as in
+     phase 14; the acceptance count and steps/s.
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 
@@ -185,6 +210,25 @@ QUAD_PASSES, QUAD_GRAD_PASSES = 6, 3
 OPS_QUAD_ELEM = {'pip_quad_energy_grad': 2 + 7 + 3 + 7,
                  'pip_quad_product_energy_grad': 1 + 7 + 3 + 7,
                  'pip_vech_energy_grad': 1 + 7 + 3 + 7}
+# phases 12-15: the box scales of the dynamic-box checks; an evaluation at
+# box b against an MBPol built in box b (same grid, alpha and capacities:
+# the same padded lists and float32 sums); the NVT gate and the JAX
+# reference reading beside it (tools/md_ensemble_reference.py: mean kinetic
+# temperature over the second half of 400 steps, three seeds, JAX f32 on
+# the CPU; PERF.md); the accepted moves' energy against a fresh evaluation
+BOX_SCALES = (1.01, 0.99)
+IDENTITY_REL = 1e-6
+NVT_T_K = 300.0
+NVT_T_TOL_K = 30.0
+NVT_STEPS, NVT_REPORT = 400, 10
+ANDERSEN_STEPS = 100
+NVT_REFERENCE = 'seeds 0 / 1 / 2: 300.721 / 302.472 / 295.970 K, mean 299.721 K'
+NPT_STEPS, NPT_INTERVAL = 500, 25
+NPT_DV_MAX = 0.05
+NPT_E_REL = 1e-5
+CHECKPOINT_STEPS = 100
+MINIMIZE_ITERATIONS = 50
+NPT4096_STEPS, NPT4096_INTERVAL = 50, 10
 
 
 def log(*a):
@@ -790,6 +834,248 @@ def phase_pip_md(torch, card, record, quad_steps_per_s):
         record[wrapper.__name__]['launches'] = launches[wrapper.__name__]
 
 
+def same_capacities(src, dst):
+    """dst takes src's list capacities, triplet-build shape and block layout
+    (the analytic ones follow the construction box)."""
+    from mbpol_openmm_plugin_tpu_torch.ops import neighbors
+    cfg = src.config
+    dst.pair_cap, dst.trip_cap = src.pair_cap, src.trip_cap
+    dst.nlist_k_max = src.nlist_k_max or neighbors.max_neighbors(
+        src.system.n_waters, src.system.box, cfg.cutoff_3b + cfg.nlist_skin)
+    dst.nlist_kt = src.nlist_kt
+    dst.disp_pair_cap = src.disp_pair_cap
+    dst._block_info = src._block_info
+
+
+def refuses_short_box(fn):
+    """True when fn raises the wrappers' short-box ValueError."""
+    try:
+        fn()
+    except ValueError as e:
+        return 'twice the direct-space cutoff' in str(e)
+    return False
+
+
+def phase_dynamic_box(torch, card):
+    """Phase 12: K1/K2 and the water256 evaluation at other boxes."""
+    import dataclasses
+
+    from mbpol_openmm_plugin_tpu_torch.md import integrators as I
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_check as check
+    from mbpol_openmm_plugin_tpu_torch.tools.dense_probe import dense_inputs
+
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    sites, polarity, consts = dense_inputs((1, 1, 1))
+    failures = []
+    for scale in BOX_SCALES:
+        sites_s = sites.clone()
+        sites_s[:, :3] += I.molecule_centroid_shift(system, pos, scale)
+        c = dataclasses.replace(consts, box=tuple(b * scale for b in consts.box))
+        k1 = ED.fixed_field_and_scf_factors(sites_s, c)
+        torch.cuda.synchronize()
+        tri1 = ED.fixed_field_and_scf_factors_tri_plain(sites_s, c)
+        tri1_64 = ED.fixed_field_and_scf_factors_tri_plain(sites_s.double(), c)
+        mu = (polarity[:, None] * tri1[0]).contiguous()
+        k2 = ED.direct_energy_force_pot(sites_s, mu, c)
+        torch.cuda.synchronize()
+        tri2 = ED.direct_energy_force_pot_tri_plain(sites_s, mu, c)
+        for kname, rows in (('fixed_field_and_scf_factors',
+                             check.k1_rows(sites_s, polarity, k1, tri1, tri1_64)),
+                            ('direct_energy_force_pot', check.k2_rows(k2, tri2))):
+            for row in rows:
+                log(f'  box x {scale} ({c.box[0]:.5f} nm) {kname:28s} vs triangular {row}')
+                if not row.ok:
+                    failures.append(f'{scale}.{kname}.{row.output}.{row.entries}.{row.measure}')
+
+    scale = BOX_SCALES[0]
+    box = np.asarray(system.box) * scale
+    pos_b = pos + I.molecule_centroid_shift(system, pos, scale)
+    pot = MBPol(system, MBPolConfig(**SINGLE_POINT))
+    fresh = MBPol(system.with_box(box), MBPolConfig(pme_grid=pot.pme.grid,
+                                                    ewald_alpha=pot.pme.alpha, **SINGLE_POINT))
+    same_capacities(pot, fresh)
+    e_a, f_a, _, d_a = pot.energy_forces(pos_b, box=box)
+    e_b, f_b, _, d_b = fresh.energy_forces(pos_b)
+    e_rel = abs(float(e_a) - float(e_b)) / abs(float(e_b))
+    f_rel = float((f_a - f_b).abs().max() / f_b.abs().max())
+    log(f'  water256 at box x {scale}: E {float(e_a):.4f} kJ/mol, an MBPol built in that box '
+        f'{float(e_b):.4f}: relative {e_rel:.3e}, forces max |dF| / max |F| {f_rel:.3e} (bound '
+        f'{IDENTITY_REL}); SCF iterations {int(d_a["iterations"])} / {int(d_b["iterations"])}')
+    assert bool(d_a['converged']) and bool(d_b['converged'])
+    assert e_rel <= IDENTITY_REL and f_rel <= IDENTITY_REL, (e_rel, f_rel)
+
+    short = dataclasses.replace(consts, box=(2.0 * consts.cutoff - 0.01,) * 3)
+    refused = {
+        'fixed_field_and_scf_factors': refuses_short_box(
+            lambda: ED.fixed_field_and_scf_factors(sites, short)),
+        'direct_energy_force_pot': refuses_short_box(
+            lambda: ED.direct_energy_force_pot(sites, mu, short)),
+        'MBPol.energy_forces': refuses_short_box(
+            lambda: pot.energy_forces(pos, box=np.full(3, short.box[0])))}
+    log(f'  a box of {short.box[0]:.2f} nm (cutoff {consts.cutoff} nm) refused by: {refused}')
+    assert all(refused.values()), refused
+    if failures:
+        raise AssertionError(f'kernel/twin mismatch at a scaled box: {failures}')
+
+
+def md_config(**kw):
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import SimulationConfig
+    return SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto', **kw)
+
+
+def phase_nvt(torch, card):
+    """Phase 13: water256 NVT, Langevin and Andersen."""
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    pot = MBPol(system, MBPolConfig.for_dynamics())
+    runs = (('langevin, friction 100/ps', dict(thermostat='langevin', friction=100.0),
+             NVT_STEPS),
+            ('andersen, 1000/ps', dict(thermostat='andersen', collision_frequency=1000.0),
+             ANDERSEN_STEPS))
+    rate = None
+    for name, thermostat, steps in runs:
+        sim = Simulation(pot, md_config(temperature=NVT_T_K, cm_motion_interval=1,
+                                        **thermostat), seed=1)
+        sim.set_positions(pos)
+        sim.set_velocities_to_temperature(NVT_T_K)
+        torch.cuda.synchronize()
+        ED.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sim.step(steps, report_interval=NVT_REPORT)   # raises on NaN, overflow, bad SCF
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k.__name__: k.launches for k in ED.KERNELS}
+        t = out['step_temperature']
+        mean_t = float(np.mean(t[steps // 2:]))
+        log(f'  {name}: {steps} steps in reports of {NVT_REPORT}, {wall:.3f} s = '
+            f'{steps / wall:.2f} steps/s ({card}); T after step 1 {t[0]:.2f} K, mean T over '
+            f'steps {steps // 2 + 1}..{steps} {mean_t:.3f} K (gate {NVT_T_K} +/- {NVT_T_TOL_K}), T_end {t[-1]:.2f} K; '
+            f'launches {launches}')
+        if NVT_REFERENCE is not None and steps == NVT_STEPS:
+            log(f'  the JAX reference (tools/md_ensemble_reference.py, f32, CPU, reports of '
+                f'{NVT_REPORT}): {NVT_REFERENCE}')
+        assert np.all(np.isfinite(out['step_total_energy'])), out
+        assert all(n >= steps for n in launches.values()), launches
+        assert abs(mean_t - NVT_T_K) <= NVT_T_TOL_K, mean_t
+        rate = rate or steps / wall
+    return rate
+
+
+def npt_simulation(pot, pos, interval, seed):
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation
+    sim = Simulation(pot, md_config(temperature=NVT_T_K, thermostat='langevin', friction=1.0,
+                                    barostat_pressure=1.0, barostat_interval=interval),
+                     seed=seed)
+    sim.set_positions(pos)
+    sim.set_velocities_to_temperature(NVT_T_K)
+    return sim
+
+
+def run_npt(torch, card, sim, steps, interval, kernels):
+    """steps NPT steps as reports of one barostat group each; after each
+    accepted move the state's energy against a fresh converged evaluation.
+    Returns (attempted, accepted, relative volume change, steps/s, the
+    largest energy difference, launches)."""
+    v0 = float(np.prod(sim.state.box))
+    for k in kernels:
+        k.launches = 0
+    attempted = accepted = 0
+    wall = 0.0
+    e_rel = []
+    for _ in range(steps // interval):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.step(interval)       # raises on NaN, overflow (a trial's too), bad SCF
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        assert np.all(np.isfinite(out['step_total_energy'])), out
+        attempted += out['barostat_attempted']
+        accepted += out['barostat_accepted']
+        if out['barostat_accepted']:
+            fresh = float(sim.potential.energy_forces(sim.state.positions,
+                                                      box=sim.state.box)[0])
+            e_rel.append(abs(float(sim.state.potential_energy) - fresh) / abs(fresh))
+    launches = {k.__name__: k.launches for k in kernels}
+    dv = float(np.prod(sim.state.box)) / v0 - 1.0
+    log(f'  {steps} steps in {wall:.3f} s = {steps / wall:.3f} steps/s, the moves and the '
+        f'health checks included ({card}); moves attempted {attempted}, accepted {accepted}; '
+        f'box {sim.state.box[0]:.5f} nm, dV/V {dv:+.4%}; move scale '
+        f'{sim._baro[0]:.5f} nm^3; accepted moves\' energy vs a fresh evaluation: max relative '
+        f'{max(e_rel, default=0.0):.3e} (bound {NPT_E_REL}); launches {launches}')
+    assert attempted == steps // interval, attempted
+    assert all(r <= NPT_E_REL for r in e_rel), e_rel
+    assert all(n >= steps for n in launches.values()), launches
+    return attempted, accepted, dv, steps / wall
+
+
+def phase_npt(torch, card):
+    """Phase 14: water256 NPT, a checkpointed resume, L-BFGS."""
+    import tempfile
+
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    pot = MBPol(system, MBPolConfig.for_dynamics())
+    sim = npt_simulation(pot, pos, NPT_INTERVAL, seed=2)
+    attempted, accepted, dv, rate = run_npt(torch, card, sim, NPT_STEPS, NPT_INTERVAL,
+                                            ED.KERNELS)
+    assert accepted >= 1, accepted
+    assert abs(dv) < NPT_DV_MAX, dv
+
+    half = CHECKPOINT_STEPS // 2
+    a = npt_simulation(pot, pos, NPT_INTERVAL, seed=3)
+    a.step(CHECKPOINT_STEPS, report_interval=half)
+    b = npt_simulation(pot, pos, NPT_INTERVAL, seed=3)
+    b.step(half)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'npt.npz')
+        b.save_checkpoint(path)
+        c = Simulation(pot, b.config, seed=0)
+        c.load_checkpoint_file(path)
+    c.step(half)
+    same = {name: bool(torch.equal(getattr(a.state, name), getattr(c.state, name)))
+            for name in ('positions', 'velocities', 'forces', 'potential_energy')}
+    same['box'] = bool(np.array_equal(a.state.box, c.state.box))
+    same['barostat'] = a._baro == c._baro
+    same['generator'] = bool(torch.equal(a.generator.get_state(), c.generator.get_state()))
+    log(f'  {CHECKPOINT_STEPS} steps against {half} + checkpoint file + new Simulation + {half}: '
+        f'bit-identical {same}; box {a.state.box[0]:.6f} / {c.state.box[0]:.6f} nm')
+    assert all(same.values()), same
+
+    sim = Simulation(MBPol(system, MBPolConfig(**SINGLE_POINT)), SimulationConfig())
+    sim.set_positions(pos)
+    rms0 = float(torch.sqrt(torch.sum(sim.state.forces ** 2) / system.n_atoms))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    diag = sim.minimize_energy(max_iterations=MINIMIZE_ITERATIONS, tolerance=1.0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rms1 = float(torch.sqrt(torch.sum(sim.state.forces ** 2) / system.n_atoms))
+    energies = diag['energies']
+    rises = sum(b > a for a, b in zip(energies, energies[1:]))
+    log(f'  L-BFGS: {diag["iterations"]} iterations in {wall:.2f} s ({card}); E '
+        f'{energies[0]:.4f} -> {energies[-1]:.4f} kJ/mol, rises {rises}; RMS force '
+        f'{rms0:.3f} -> {rms1:.3f} kJ/mol/nm')
+    assert diag['iterations'] == MINIMIZE_ITERATIONS and rises == 0, diag
+    assert rms1 < rms0, (rms0, rms1)
+    return rate, attempted, accepted
+
+
+def phase_npt4096(torch, card):
+    """Phase 15: water4096 NPT in block + pairs mode."""
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as BS
+    pot, pos = water4096_potential(torch, card)
+    sim = npt_simulation(pot, pos, NPT4096_INTERVAL, seed=5)
+    return run_npt(torch, card, sim, NPT4096_STEPS, NPT4096_INTERVAL, BS.KERNELS)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -842,6 +1128,19 @@ def main():
     log(f'== phase 11: MD under each fused pip_impl (water256, for_dynamics; {MD_STEPS} Verlet '
         f"steps under 'quad_bf16', {PIP_MD_STEPS_SHORT} under the others)")
     phase_pip_md(torch, card, record, quad_steps_per_s)
+    log('== phase 12: dynamic box (K1/K2 and water256 at 1.01 and 0.99 x the box)')
+    phase_dynamic_box(torch, card)
+    log(f'== phase 13: NVT (water256, for_dynamics; Langevin {NVT_STEPS} steps, Andersen '
+        f'{ANDERSEN_STEPS})')
+    nvt_rate = phase_nvt(torch, card)
+    log(f'== phase 14: NPT (water256, for_dynamics, Langevin, 1 bar, {NPT_STEPS} steps, '
+        f'barostat_interval {NPT_INTERVAL}); checkpoint; L-BFGS')
+    npt_rate, _, _ = phase_npt(torch, card)
+    log(f'== phase 15: NPT (water4096, block/pairs, {NPT4096_STEPS} steps, barostat_interval '
+        f'{NPT4096_INTERVAL})')
+    phase_npt4096(torch, card)
+    log(f'  water256 steps/s: NVE {quad_steps_per_s:.2f} (phase 5), NVT {nvt_rate:.2f}, '
+        f'NPT {npt_rate:.2f} ({card})')
 
     log(card)
     log(json.dumps({'kernels': [record[k] for k in KERNELS]}))

@@ -1,16 +1,28 @@
-"""Simulation loop, velocity-Verlet NVE path
-(port of mbpol_openmm_plugin_tpu/md/simulation.py).
+"""Simulation driver (port of mbpol_openmm_plugin_tpu/md/simulation.py).
 
-Each step is one full potential evaluation. The loop carries the last
-k+2 corrected dipole sets of the ASPC closure and feeds the B_j-weighted
-predictor into the potential. With
-nlist_rebuild_interval='auto' the lists are rebuilt when twice the max O
-displacement since the last build exceeds half the skin; the trigger is
-read on the host once per step (CUDA graphs are later work).
+Velocity Verlet (NVE), BAOAB Langevin or velocity Verlet with the Andersen
+thermostat (NVT), either under OpenMM's adaptive Monte Carlo barostat
+(NPT); centre-of-mass motion removal, minimization and checkpoints.
 
-Thermostats, barostats, RESPA, minimization, checkpoints and per-step
-SOR dynamics (the JAX package's scf='keep') are not ported yet (see
-ROADMAP.md).
+A chunk (one report interval) runs in groups, as in the JAX package: a
+group is the fixed list interval k when k > 1, else barostat_interval under
+a barostat, else the whole chunk. With k > 1 the lists are built at each
+group's start; with 'auto' a group builds them at its start and rebuilds
+when twice the max O displacement since the last build exceeds half the
+skin; with 1 every evaluation builds its own. A barostat move follows every
+group, a short last one included. The ASPC dipole history is seeded from a
+converged evaluation at the chunk's start and carried across groups and
+volume moves; with scf='keep' each step's SOR loop starts from the last
+step's dipoles (scf_warm_start).
+
+The box is a host float64 triple in the state, an argument of every
+evaluation. Host reads: the displacement trigger once per step ('auto'),
+the SOR loop's stop test once per iteration (scf='keep' and every
+converged evaluation), and per barostat move its two uniforms and the two
+energies. Random numbers come from one torch.Generator on the potential's
+device, seeded by `seed`; a checkpoint carries its state.
+
+RESPA (respa_inner or respa_mid > 1) is not ported yet (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -22,8 +34,9 @@ import torch
 
 from mbpol_openmm_plugin_tpu_torch import ROADMAP_HINT
 from mbpol_openmm_plugin_tpu_torch.md import integrators as I
+from mbpol_openmm_plugin_tpu_torch.md.minimize import lbfgs_minimize
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
-from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol
+from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, with_scf_method
 from mbpol_openmm_plugin_tpu_torch.utils import units
 
 
@@ -41,41 +54,91 @@ def health_flag(diag):
 
 @dataclasses.dataclass
 class SimulationConfig:
+    """The JAX package's SimulationConfig fields that the port runs, with
+    the same defaults."""
     dt: float = 0.0002                   # ps
-    temperature: Optional[float] = None  # only None (NVE) is ported
-    # 1: lists rebuilt inside every evaluation; 'auto': displacement-
-    # triggered rebuild (needs nlist_skin > 0)
+    temperature: Optional[float] = None  # K; None = NVE
+    thermostat: str = 'andersen'         # 'andersen' | 'langevin' | 'none'
+    collision_frequency: float = 50.0    # 1/ps (Andersen)
+    friction: float = 1.0                # 1/ps (Langevin)
+    barostat_pressure: Optional[float] = None   # bar; None = no barostat (needs temperature)
+    barostat_interval: int = 25
+    # seed each step's dipoles from the last step's (the ASPC history or
+    # the SOR loop's start); False makes every evaluation a cold one
+    scf_warm_start: bool = True
+    # 'auto': a SOR potential runs its trajectory under the ASPC closure
+    # (with_scf_method), single points stay converged; 'keep': the
+    # potential's own closure along the trajectory
+    scf: str = 'auto'
+    # k >= 1: lists built every k steps (1: inside every evaluation; k > 1
+    # needs a skin covering k steps of drift); 'auto': displacement
+    # trigger (needs nlist_skin > 0)
     nlist_rebuild_interval: object = 1
+    # remove the centre-of-mass velocity every k steps (0: never)
+    cm_motion_interval: int = 0
+    # r-RESPA: only 1 (single time step) is ported
+    respa_inner: int = 1
+    respa_mid: int = 1
 
 
 class Simulation:
-    """Minimal NVE MD loop over an MBPol potential."""
+    """MD driver over an MBPol potential."""
 
-    def __init__(self, potential: MBPol, config: Optional[SimulationConfig] = None):
+    def __init__(self, potential: MBPol, config: Optional[SimulationConfig] = None, seed=0):
         self.config = config if config is not None else SimulationConfig()
         cfg = self.config
-        if cfg.temperature is not None:
-            raise NotImplementedError(f'thermostatted (NVT) dynamics: {ROADMAP_HINT}')
-        if cfg.nlist_rebuild_interval not in (1, 'auto'):
-            raise NotImplementedError(
-                f'nlist_rebuild_interval={cfg.nlist_rebuild_interval!r}: {ROADMAP_HINT}')
-        if potential.elec_params is not None and potential.config.scf_method != 'aspc':
-            raise NotImplementedError(
-                f'dynamics with scf_method={potential.config.scf_method!r} (only the ASPC '
-                f'closure of MBPolConfig.for_dynamics() is ported): {ROADMAP_HINT}')
+        if cfg.scf not in ('auto', 'keep'):
+            raise ValueError(f"SimulationConfig.scf must be 'auto' or 'keep', got {cfg.scf!r}")
+        if cfg.thermostat not in ('andersen', 'langevin', 'none'):
+            raise ValueError(f'unknown thermostat {cfg.thermostat!r}')
+        if int(cfg.respa_inner) > 1 or int(cfg.respa_mid) > 1:
+            raise NotImplementedError(f'r-RESPA (respa_inner / respa_mid > 1): {ROADMAP_HINT}')
+        if (cfg.scf == 'auto' and potential.elec_params is not None
+                and potential.config.scf_method == 'sor'):
+            potential = with_scf_method(potential, 'aspc')
         self.potential = potential
         self.system = potential.system
+        self.generator = torch.Generator(device=potential.device)
+        self.generator.manual_seed(int(seed))
         self.state: Optional[I.MDState] = None
+        # adaptive barostat move size (scale nm^3, attempted, accepted),
+        # carried across chunks, set from the first box
+        self._baro = None
 
-    def set_positions(self, positions):
+    # ------------------------------------------------------------------
+    def _normal(self, shape):
+        p = self.state.positions
+        return torch.randn(shape, generator=self.generator, dtype=p.dtype, device=p.device)
+
+    def _uniform(self, shape):
+        p = self.state.positions
+        return torch.rand(shape, generator=self.generator, dtype=p.dtype, device=p.device)
+
+    @property
+    def _barostat(self):
+        cfg = self.config
+        return (cfg.barostat_pressure is not None and cfg.temperature is not None
+                and self.system.periodic)
+
+    def set_positions(self, positions, box=None):
         """Start from `positions` (numpy or tensor; moved to the potential's
-        device) at rest, with a converged evaluation."""
+        device) at rest in `box` (default the system's), with a converged
+        evaluation."""
         positions = self.potential.as_positions(positions)
-        e, f, _, _ = self.potential.energy_forces(positions)
+        box = self.system.box if box is None else box
+        box = None if box is None else np.array(box, np.float64)
+        e, f, _, _ = self.potential.energy_forces(positions, box=box)
         self.state = I.MDState(positions=positions, velocities=torch.zeros_like(positions),
-                               forces=f, potential_energy=e, step=0)
+                               forces=f, potential_energy=e, box=box, step=0)
 
-    def _auto_rebuild(self, nl_carry, p):
+    def set_velocities_to_temperature(self, temperature_k):
+        """Maxwell-Boltzmann velocities at temperature_k from the generator."""
+        normals = self._normal(tuple(self.state.positions.shape))
+        v = I.maxwell_boltzmann_velocities(self.system, temperature_k, normals)
+        self.state = dataclasses.replace(self.state, velocities=v)
+
+    # ------------------------------------------------------------------
+    def _auto_rebuild(self, nl_carry, p, box):
         """Rebuild the lists at p when 2 * max O displacement since the last
         build exceeds skin / 2. nl_carry = (lists, build positions,
         overflow flag); a rebuild's overflow ORs into the flag."""
@@ -85,90 +148,155 @@ class Simulation:
         o_b = pb[:4 * n].reshape(n, 4, 3)[:, 0]
         disp = torch.max(torch.linalg.norm(o_p - o_b, dim=-1))
         if float(2.0 * disp) > 0.5 * self.potential.config.nlist_skin:
-            (pl, tl), d = self.potential.build_neighbor_lists(p)
+            (pl, tl), d = self.potential.build_neighbor_lists(p, box)
             return (pl, tl), p, ovf | d['pair_overflow'] | d['triplet_overflow']
         return nl_carry
 
+    def _one_step(self, state, mu0, nlists, run):
+        """One integrator step (+ thermostat, + CM removal). run: the
+        chunk's mutable carry, {'nl': auto-rebuild carry or None, 'ovf':
+        overflow flag}. Returns (state, the evaluation's induced dipoles)."""
+        cfg, pot = self.config, self.potential
+        box = state.box
+        out = {}
+
+        def ef(p):
+            nl = nlists
+            if run['nl'] is not None:
+                run['nl'] = self._auto_rebuild(run['nl'], p, box)
+                nl = run['nl'][0]
+            e, f, _, diag = pot._energy_forces_impl(p, mu0, nlists=nl, box=box)
+            out['mu'] = diag.get('induced_dipoles')
+            for k, v in diag.items():
+                if k.endswith('_overflow'):
+                    run['ovf'] = run['ovf'] | v
+            return e, f
+
+        shape = tuple(state.positions.shape)
+        thermostat = cfg.thermostat if cfg.temperature is not None else 'none'
+        if thermostat == 'langevin':
+            state = I.langevin_step(self.system, ef, state, cfg.dt, cfg.temperature,
+                                    cfg.friction, self._normal(shape))
+        else:
+            state = I.velocity_verlet_step(self.system, ef, state, cfg.dt)
+            if thermostat == 'andersen':
+                state = I.andersen_thermostat(self.system, state, cfg.dt, cfg.temperature,
+                                              cfg.collision_frequency,
+                                              self._uniform(shape[:1]), self._normal(shape))
+        k = int(cfg.cm_motion_interval)
+        if k and state.step % k == 0:
+            state = dataclasses.replace(
+                state, velocities=I.remove_cm_motion(self.system, state.velocities))
+        return state, out['mu']
+
+    def _energy_at(self, run):
+        """The barostat's converged evaluation (positions, box) -> (E, F);
+        its overflow flags join the chunk's."""
+        def energy_at(p, box):
+            e, f, _, diag = self.potential._energy_forces_impl(p, box=box)
+            for k, v in diag.items():
+                if k.endswith('_overflow'):
+                    run['ovf'] = run['ovf'] | v
+            return e, f
+        return energy_at
+
     def _chunk(self, state, n_steps):
-        """n_steps Verlet steps. Returns (state, per-step PE [n], per-step
-        KE [n], overflow)."""
-        pot = self.potential
-        cfg = self.config
-        auto_nl = pot.use_neighbor_lists and cfg.nlist_rebuild_interval == 'auto'
+        """n_steps steps in groups, a barostat move after each. Returns
+        (state, per-step PE [n], per-step KE [n], overflow flag, (moves
+        attempted, accepted))."""
+        pot, cfg = self.potential, self.config
+        use_nl = pot.use_neighbor_lists
+        auto_nl = use_nl and cfg.nlist_rebuild_interval == 'auto'
         if auto_nl and not pot.config.nlist_skin > 0:
             raise ValueError("nlist_rebuild_interval='auto' requires nlist_skin > 0")
-        aspc = pot.elec_params is not None
-        mu = B = None
-        if aspc:
-            B = torch.as_tensor(elec.aspc_predictor_coefficients(pot.config.aspc_k),
-                                dtype=state.positions.dtype, device=state.positions.device)
-            # seed the history from a converged evaluation at the chunk's start
-            mu = pot._energy_forces_impl(state.positions)[3]['induced_dipoles']
-            mu = mu[None].repeat(len(B), 1, 1)
-
-        nl_carry = None
-        ovf = torch.zeros((), dtype=torch.bool, device=state.positions.device)
-        if auto_nl:
-            (pl, tl), d = pot.build_neighbor_lists(state.positions)
-            ovf = d['pair_overflow'] | d['triplet_overflow']
-            nl_carry = ((pl, tl), state.positions, ovf)
-
-        pes, kes = [], []
-        step_ovf = torch.zeros_like(ovf)
-        for _ in range(n_steps):
-            mu0 = torch.einsum('h,hnd->nd', B, mu) if aspc else None
-            out = {}
-
-            def ef(p):
-                nonlocal nl_carry, step_ovf
-                nl = None
-                if nl_carry is not None:
-                    nl_carry = self._auto_rebuild(nl_carry, p)
-                    nl = nl_carry[0]
-                e, f, _, diag = pot._energy_forces_impl(p, mu0, nlists=nl)
-                out['mu'] = diag.get('induced_dipoles')
-                # lists built inside the evaluation (dispersion pairs, tiles)
-                for k, v in diag.items():
-                    if k.endswith('_overflow'):
-                        step_ovf = step_ovf | v
-                return e, f
-
-            state = I.velocity_verlet_step(self.system, ef, state, cfg.dt)
+        reuse = (1 if cfg.nlist_rebuild_interval == 'auto'
+                 else max(int(cfg.nlist_rebuild_interval), 1))
+        warm = cfg.scf_warm_start and pot.elec_params is not None
+        aspc = warm and pot.config.scf_method == 'aspc'
+        dev = state.positions.device
+        B = (torch.as_tensor(elec.aspc_predictor_coefficients(pot.config.aspc_k),
+                             dtype=state.positions.dtype, device=dev) if aspc else None)
+        mu = None
+        if warm:
+            # seed the dipoles from a converged evaluation at the chunk's start
+            mu = pot._energy_forces_impl(state.positions, box=state.box)[3]['induced_dipoles']
             if aspc:
-                mu = torch.cat([out['mu'][None], mu[:-1]], dim=0)
-            pes.append(state.potential_energy)
-            kes.append(I.kinetic_energy(self.system, state.velocities))
-        if nl_carry is not None:
-            ovf = nl_carry[2]
-        return state, torch.stack(pes), torch.stack(kes), ovf | step_ovf
+                mu = mu[None].repeat(len(B), 1, 1)
+
+        baro = self._barostat
+        group = reuse if reuse > 1 else (cfg.barostat_interval if baro else n_steps)
+        if baro:
+            group = min(group, cfg.barostat_interval)
+        run = dict(nl=None, ovf=torch.zeros((), dtype=torch.bool, device=dev))
+        pes, kes = [], []
+        moves = [0, 0]
+        done = 0
+        while done < n_steps:
+            n = min(group, n_steps - done)
+            nlists = None
+            if use_nl and (auto_nl or reuse > 1):
+                (pl, tl), d = pot.build_neighbor_lists(state.positions, state.box)
+                run['ovf'] = run['ovf'] | d['pair_overflow'] | d['triplet_overflow']
+                if auto_nl:
+                    run['nl'] = ((pl, tl), state.positions, run['ovf'])
+                else:
+                    nlists = (pl, tl)
+            for _ in range(n):
+                mu0 = torch.einsum('h,hnd->nd', B, mu) if aspc else mu
+                state, mu_new = self._one_step(state, mu0, nlists, run)
+                if aspc:
+                    mu = torch.cat([mu_new[None], mu[:-1]], dim=0)
+                elif warm:
+                    mu = mu_new
+                pes.append(state.potential_energy)
+                kes.append(I.kinetic_energy(self.system, state.velocities))
+            if run['nl'] is not None:
+                run['ovf'] = run['ovf'] | run['nl'][2]
+                run['nl'] = None
+            if baro:
+                state, self._baro, accepted = I.monte_carlo_barostat_move_adaptive(
+                    self.system, self._energy_at(run), state, cfg.temperature,
+                    cfg.barostat_pressure, self._baro, self._uniform((2,)))
+                moves[0] += 1
+                moves[1] += int(accepted)
+            done += n
+        return state, torch.stack(pes), torch.stack(kes), run['ovf'], tuple(moves)
 
     def step(self, n_steps, report_interval=None, check_health=True):
         """Advance n_steps. Returns per-report-interval metrics (potential,
-        kinetic and total energy in kJ/mol, temperature in K), and
-        `step_total_energy` [n_steps + 1], the total energy before the first
-        step and after each step (kJ/mol).
+        kinetic and total energy in kJ/mol, temperature in K), per-step
+        `step_total_energy` [n_steps + 1] (before the first step and after
+        each) and `step_temperature` [n_steps] (after each), and the
+        barostat moves attempted and accepted in this call.
 
         With check_health=True, raises RuntimeError at a report boundary if
-        the energy went NaN, a list or tile-pair list overflowed during the
-        chunk, or a converged
-        diagnostic evaluation of the current positions fails its SCF or
-        overflows."""
+        the energy went NaN, a list, tile-pair, line or pair list overflowed
+        during the chunk (a barostat trial included), or a converged
+        diagnostic evaluation of the current positions and box fails its SCF
+        or overflows."""
         report_interval = report_interval or n_steps
+        if self._barostat and self._baro is None:
+            self._baro = I.barostat_scale_init(self.state.box)
         pes, kes, steps = [], [], []
         e_steps = [float(self.state.potential_energy)
                    + float(I.kinetic_energy(self.system, self.state.velocities))]
+        ke_steps = []
+        moves = np.zeros(2, np.int64)
         remaining = n_steps
         while remaining > 0:
             chunk = min(report_interval, remaining)
-            self.state, pe, ke, nl_ovf = self._chunk(self.state, chunk)
-            pe_host = pe.cpu().numpy()
-            e_steps.extend(pe_host + ke.cpu().numpy())
+            self.state, pe, ke, ovf, chunk_moves = self._chunk(self.state, chunk)
+            moves += chunk_moves
+            pe_host, ke_host = pe.cpu().numpy(), ke.cpu().numpy()
+            e_steps.extend(pe_host + ke_host)
+            ke_steps.extend(ke_host)
             if check_health:
-                if bool(nl_ovf):
+                if bool(ovf):
                     raise RuntimeError(
                         f'list or tile-pair overflow during the chunk ending at step '
                         f'{self.state.step}: raise the capacities (tune_capacities)')
-                diag = self.potential._energy_forces_impl(self.state.positions)[3]
+                diag = self.potential._energy_forces_impl(self.state.positions,
+                                                          box=self.state.box)[3]
                 nan = np.isnan(pe_host)
                 if nan.any() or not bool(health_flag(diag)):
                     at = (self.state.step - chunk + int(np.argmax(nan))
@@ -183,8 +311,96 @@ class Simulation:
             steps.append(self.state.step)
             remaining -= chunk
         ndof = 3 * int(np.sum(np.asarray(self.system.masses) > 0))
+        to_t = 2.0 / (ndof * units.BOLTZMANN_KJ_MOL_K)
         pes = np.asarray(pes)
         kes = np.asarray(kes)
         return dict(step=np.asarray(steps), potential_energy=pes, kinetic_energy=kes,
-                    total_energy=pes + kes, step_total_energy=np.asarray(e_steps),
-                    temperature=2.0 * kes / (ndof * units.BOLTZMANN_KJ_MOL_K))
+                    total_energy=pes + kes, temperature=to_t * kes,
+                    step_total_energy=np.asarray(e_steps),
+                    step_temperature=to_t * np.asarray(ke_steps),
+                    barostat_attempted=int(moves[0]), barostat_accepted=int(moves[1]))
+
+    # ------------------------------------------------------------------
+    def minimize_energy(self, max_iterations=200, tolerance=10.0, method='lbfgs'):
+        """Local energy minimization in the state's box (OpenMM
+        LocalEnergyMinimizer: L-BFGS, tolerance = RMS force in kJ/mol/nm,
+        md/minimize.py); method='descent' is the JAX package's backtracking
+        steepest descent. Every evaluation is a converged one. Returns the
+        minimizer's diagnostics (iterations; for L-BFGS also grad_rms,
+        converged and the energy after each iteration)."""
+        if self.state is None:
+            raise RuntimeError('call set_positions first')
+        pot, box = self.potential, self.state.box
+
+        def ef(p):
+            e, f, _, _ = pot._energy_forces_impl(p, box=box)
+            return e, f
+
+        def energy_grad(p):
+            e, f = ef(p)
+            return e, -f
+
+        pos = self.state.positions
+        if method == 'lbfgs':
+            pos, _, diag = lbfgs_minimize(energy_grad, pos, max_iterations=max_iterations,
+                                          tolerance=tolerance)
+        elif method == 'descent':
+            step_size, it = 0.01, 0
+            while it < max_iterations and step_size > 1e-10:
+                e0, f = ef(pos)
+                trial = pos + step_size / (float(torch.max(torch.abs(f))) + 1e-30) * f
+                e1, _ = ef(trial)
+                if float(e1) < float(e0):
+                    pos, step_size = trial, step_size * 1.2
+                else:
+                    step_size *= 0.5
+                it += 1
+            diag = dict(iterations=it)
+        else:
+            raise ValueError(f"method must be 'lbfgs' or 'descent', got {method!r}")
+        e, f, _, _ = pot.energy_forces(pos, box=box)
+        self.state = dataclasses.replace(self.state, positions=pos, forces=f,
+                                         potential_energy=e)
+        return diag
+
+    # ------------------------------------------------------------------
+    def checkpoint(self):
+        """The dynamic state as numpy arrays: positions, velocities, forces,
+        energy, box, step, the generator's state and the adaptive barostat's
+        (scale, attempted, accepted), so that a resumed run is bit-identical
+        to an uninterrupted one with the same report boundaries."""
+        s = self.state
+        ck = dict(positions=s.positions.cpu().numpy(), velocities=s.velocities.cpu().numpy(),
+                  forces=s.forces.cpu().numpy(),
+                  potential_energy=s.potential_energy.cpu().numpy(),
+                  step=np.asarray(s.step), rng=self.generator.get_state().numpy())
+        if s.box is not None:
+            ck['box'] = np.asarray(s.box, np.float64)
+        if self._baro is not None:
+            ck['baro_scale'] = np.asarray(self._baro[0], np.float64)
+            ck['baro_attempted'] = np.asarray(self._baro[1])
+            ck['baro_accepted'] = np.asarray(self._baro[2])
+        return ck
+
+    def load_checkpoint(self, ck):
+        pot = self.potential
+
+        def tensor(a):
+            return torch.as_tensor(np.asarray(a), dtype=pot.dtype, device=pot.device)
+
+        self.state = I.MDState(
+            positions=tensor(ck['positions']), velocities=tensor(ck['velocities']),
+            forces=tensor(ck['forces']), potential_energy=tensor(ck['potential_energy']),
+            box=np.array(ck['box'], np.float64) if 'box' in ck else None,
+            step=int(ck['step']))
+        self.generator.set_state(torch.as_tensor(np.asarray(ck['rng']), dtype=torch.uint8))
+        if 'baro_scale' in ck:
+            self._baro = (float(ck['baro_scale']), int(ck['baro_attempted']),
+                          int(ck['baro_accepted']))
+
+    def save_checkpoint(self, path):
+        np.savez(path, **self.checkpoint())
+
+    def load_checkpoint_file(self, path):
+        with np.load(path) as z:
+            self.load_checkpoint({k: z[k] for k in z.files})

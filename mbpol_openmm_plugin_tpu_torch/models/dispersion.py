@@ -38,9 +38,10 @@ def switch_factor(r2, cutoff, width):
     return 1.0 - x * x * x * (10.0 + x * (-15.0 + 6.0 * x))
 
 
-def dispersion_energy(system: System, positions, cutoff=None, switch_width=0.0):
+def dispersion_energy(system: System, positions, cutoff=None, box=None, switch_width=0.0):
     """Total dispersion energy in kJ/mol over the dense [N, N] site grid.
-    positions: [natoms, 3] nm with M sites placed."""
+    positions: [natoms, 3] nm with M sites placed; box: the periodic box
+    (default the system's)."""
     ff = _data.load('forcefield')
     dt, dev = positions.dtype, positions.device
     cls = torch.as_tensor(np.asarray(system.atom_class, np.int64), device=dev)
@@ -49,7 +50,7 @@ def dispersion_energy(system: System, positions, cutoff=None, switch_width=0.0):
     mol = torch.as_tensor(np.asarray(system.mol_index, np.int64), device=dev)
 
     delta = minimum_image(positions[None, :, :] - positions[:, None, :],
-                          system.box if system.periodic else None)
+                          (system.box if box is None else box) if system.periodic else None)
     r2 = torch.sum(delta * delta, dim=-1)
 
     mask = mol[:, None] != mol[None, :]
@@ -64,7 +65,7 @@ def dispersion_energy(system: System, positions, cutoff=None, switch_width=0.0):
     return 0.5 * torch.sum(torch.where(mask, e_pair, 0.0))
 
 
-def dispersion_energy_pairs(system: System, positions, mol_pairs, pair_mask, cutoff,
+def dispersion_energy_pairs(system: System, positions, mol_pairs, pair_mask, cutoff, box=None,
                             switch_width=0.0):
     """Dispersion energy in kJ/mol over a padded water-pair list
     (water-only): the same physics as `dispersion_energy`, per listed water
@@ -85,7 +86,8 @@ def dispersion_energy_pairs(system: System, positions, mol_pairs, pair_mask, cut
     wflat = water_positions(system, positions).reshape(system.n_waters, 9)
     pa = gather_rows(wflat, mol_pairs[:, 0], pair_mask).reshape(-1, 3, 3)
     pb = gather_rows(wflat, mol_pairs[:, 1], pair_mask).reshape(-1, 3, 3)
-    delta = minimum_image(pb[:, None, :, :] - pa[:, :, None, :], system.box)   # [P, 3, 3, 3]
+    delta = minimum_image(pb[:, None, :, :] - pa[:, :, None, :],
+                          system.box if box is None else box)                # [P, 3, 3, 3]
     r2 = torch.sum(delta * delta, dim=-1)
 
     mask = pair_mask[:, None, None] & (r2 < cutoff * cutoff)

@@ -14,8 +14,14 @@ mbpol_openmm_plugin_tpu/models/pme.py).
 - induced-dipole SCF with direct + reciprocal + self fields, self energy,
   and charge-derivative forces from the per-site potential.
 
+The box is an input of every evaluation (`box`, a host float64 triple;
+default the setup's): the spline fractions, the reciprocal kernel, the
+grid scale, the minimum images and the tile-pair list follow it, and the
+direct-space kernels take it by value, so a barostat's volume move needs no
+rebuild. The grid dimensions and alpha stay at their construction values.
+
 Not ported yet: the site-chunked grid pieces for very large N, the sparse
-direct-space mode, traced (barostat) boxes and meshes (see ROADMAP.md).
+direct-space mode and meshes (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -60,14 +66,21 @@ class PmeSetup:
                    cutoff=float(cutoff), box=box)
 
 
-def _spline_matrices(setup: PmeSetup, positions):
+def box_tuple(setup: PmeSetup, box=None):
+    """The evaluation's box as a tuple of three floats (default the
+    setup's)."""
+    return setup.box if box is None else tuple(float(b) for b in box)
+
+
+def _spline_matrices(setup: PmeSetup, positions, box):
     """Separable one-hot spline matrices (Sx [N, nx, 3], Sy [N, ny, 3],
-    Sz [N, nz, 3]): S[n, g, d] = d-th derivative coefficient of site n's
-    B-spline at grid line g (zero outside its 5-point support)."""
+    Sz [N, nz, 3]) in the box `box` (a tuple): S[n, g, d] = d-th derivative
+    coefficient of site n's B-spline at grid line g (zero outside its
+    5-point support)."""
     dt, dev = positions.dtype, positions.device
     dims_i = torch.as_tensor(setup.grid, device=dev)
     dims = dims_i.to(dt)
-    box = torch.as_tensor(setup.box, dtype=dt, device=dev)
+    box = torch.as_tensor(box, dtype=dt, device=dev)
     pos = positions - torch.floor(positions / box + 0.5) * box
     fr = dims * (pos / box + 0.5)
     ifr = torch.floor(fr)
@@ -127,12 +140,14 @@ def _eterm_static(setup: PmeSetup):
     return tuple(mvec(n) for n in setup.grid) + (1.0 / b,)
 
 
-@functools.lru_cache(maxsize=None)
-def _eterm(setup: PmeSetup, dtype, device):
-    """Reciprocal convolution kernel on the grid (float64 host math, then
-    cast), for the static box."""
+@functools.lru_cache(maxsize=16)
+def _eterm(setup: PmeSetup, box, dtype, device):
+    """Reciprocal convolution kernel on the grid for the box `box` (a
+    tuple; float64 host math, then cast). Cached per box: under a barostat
+    the box changes only on an accepted move, and a move evaluates the old
+    and the trial box."""
     mx, my, mz, binv = _eterm_static(setup)
-    box = np.asarray(setup.box)
+    box = np.asarray(box)
     m2 = ((mx / box[0])[:, None, None] ** 2 + (my / box[1])[None, :, None] ** 2
           + (mz / box[2])[None, None, :] ** 2)
     expfac = np.pi * np.pi / (setup.alpha * setup.alpha)
@@ -142,11 +157,11 @@ def _eterm(setup: PmeSetup, dtype, device):
     return torch.as_tensor(et, dtype=dtype, device=device)
 
 
-def _convolve(setup: PmeSetup, grid):
+def _convolve(setup: PmeSetup, grid, box):
     """Forward FFT, eterm multiply, unnormalized backward FFT (ifftn * Ntot,
     the reference fftpack convention)."""
     ntot = grid.numel()
-    gk = torch.fft.fftn(grid) * _eterm(setup, grid.dtype, grid.device)
+    gk = torch.fft.fftn(grid) * _eterm(setup, box, grid.dtype, grid.device)
     return torch.real(torch.fft.ifftn(gk) * ntot)
 
 
@@ -179,35 +194,38 @@ def site_tables(params: elec.ElecParams, dtype, device):
 
 
 def block_sites(params: elec.ElecParams, setup: PmeSetup, positions, charges, block,
-                tables=None):
+                tables=None, box=None):
     """Block mode's direct-space inputs: the packed sites in the static
-    sorted order, padded to whole tiles, and their active tile-pair list."""
+    sorted order, padded to whole tiles, and their active tile-pair list in
+    `box` (default the setup's)."""
     if tables is None:
         tables = site_tables(params, positions.dtype, positions.device)
     d16_inv, mol, is_o = tables['d16_inv'], tables['mol'], tables['is_o']
     perm = block['perm']
     sites = bs.pack_sites(positions[perm], charges[perm], d16_inv[perm], mol[perm], is_o[perm])
-    tiles = bs.active_tile_pairs(sites[:, :3], positions.shape[0], setup.box, setup.cutoff,
-                                 block['tile_pair_capacity'])
+    tiles = bs.active_tile_pairs(sites[:, :3], positions.shape[0], box_tuple(setup, box),
+                                 setup.cutoff, block['tile_pair_capacity'])
     return sites, tiles
 
 
 def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=None,
-                       block=None, tables=None):
+                       block=None, tables=None, box=None):
     """PME energy (kJ/mol), forces (kJ/mol/nm) and diagnostics.
 
     positions: [N,3] nm with M sites placed; mu0: optional dipole predictor
     (ASPC) or warm start; block: a `block_info` dict for the block-sparse
     direct space (None: dense); tables: `site_tables` of params on the
-    positions' device (built here when None). Block mode never builds an
-    [N, N] tensor and adds elec_tile_pairs / elec_tile_overflow /
+    positions' device (built here when None); box: the evaluation's box
+    (three floats; default setup.box). Block mode never builds an [N, N]
+    tensor and adds elec_tile_pairs / elec_tile_overflow /
     elec_line_overflow to the diagnostics.
     """
     dt, dev = positions.dtype, positions.device
     f_elec = units.ELECTRIC
     alpha = setup.alpha
+    box = box_tuple(setup, box)
     pscale = (torch.as_tensor(setup.grid, dtype=dt, device=dev)
-              / torch.as_tensor(setup.box, dtype=dt, device=dev))
+              / torch.as_tensor(box, dtype=dt, device=dev))
 
     charges, dq_w = elec.assemble_charges(params, positions)
     if tables is None:
@@ -215,14 +233,14 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     alpha_pol = tables['polarity']
 
     # ---- direct space: K1 (fixed field + SCF factors) ----
-    consts = elec_direct.DirectConsts.from_setup(setup, params.thole)
+    consts = elec_direct.DirectConsts.from_setup(setup, params.thole, box)
     n = positions.shape[0]
     bs_diag = {}
     if block is None:
         sites = elec_direct.pack_sites(positions, charges, tables['d16_inv'], tables['mol'],
                                        tables['is_o'])
         ef_direct, s3_dir, s5_dir = elec_direct.fixed_field_and_scf_factors(sites, consts)
-        delta = elec_direct.pair_delta(positions, setup.box)
+        delta = elec_direct.pair_delta(positions, box)
 
         def direct_field(mu):
             return elec.dipole_field(mu, s3_dir, s5_dir, delta)
@@ -231,7 +249,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
             return elec_direct.direct_energy_force_pot(sites, mu.contiguous(), consts)
     else:
         perm, inv = block['perm'], block['inv']
-        sites, tiles = block_sites(params, setup, positions, charges, block, tables)
+        sites, tiles = block_sites(params, setup, positions, charges, block, tables, box)
         ef_s, lines = bs.fixed_field_and_scf_lines(sites, n, tiles, consts,
                                                    block['line_capacity'])
         bs_diag = dict(elec_tile_pairs=tiles.n_act,
@@ -249,12 +267,12 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
             return e, f_s[inv], pot_s[inv]
 
     # ---- grid machinery ----
-    Sx, Sy, Sz = _spline_matrices(setup, positions)
+    Sx, Sy, Sz = _spline_matrices(setup, positions, box)
     sx0, sy0, sz0 = Sx[..., 0], Sy[..., 0], Sz[..., 0]
     sx1, sy1, sz1 = Sx[..., 1], Sy[..., 1], Sz[..., 1]
 
     grid = _spread_separable(setup, charges[:, None] * sx0, sy0, sz0)
-    phi = _readback_phi10(_convolve(setup, grid), Sx, Sy, Sz)     # [N,10]
+    phi = _readback_phi10(_convolve(setup, grid, box), Sx, Sy, Sz)     # [N,10]
 
     # ---- fixed field: reciprocal + direct ----
     efield = -pscale[None, :] * phi[:, 1:4] + ef_direct
@@ -270,7 +288,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
         sy = torch.cat([sy0, sy1, sy0], dim=0)
         sz = torch.cat([sz0, sz0, sz1], dim=0)
         g = _spread_separable(setup, wx, sy, sz)
-        return _readback_phi10(_convolve(setup, g), Sx, Sy, Sz)
+        return _readback_phi10(_convolve(setup, g, box), Sx, Sy, Sz)
 
     def field_fn(mu):
         f = direct_field(mu)

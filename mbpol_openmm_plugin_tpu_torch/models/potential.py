@@ -14,7 +14,8 @@ as the JAX package does: dense up to 2560 waters where the CUDA kernels run
 (the potential's device is a card), 512 otherwise; above that 'block' with
 the kernels and 'sparse' without, and 'pairs' dispersion whenever the
 electrostatics leave 'dense'. Every other option ('sparse' included)
-raises NotImplementedError (see ROADMAP.md).
+raises NotImplementedError (see ROADMAP.md). The box is an argument of
+each evaluation (`box`, default the system's), for the barostat.
 
 The potential lives on one device (`device`, default 'cuda'; the tests
 pass 'cpu'): its entry points take numpy arrays or tensors and move them
@@ -238,35 +239,40 @@ class MBPol:
         and dtype."""
         return torch.as_tensor(positions, dtype=self.dtype, device=self.device)
 
-    def _neighbor_lists(self, positions):
-        """Padded pair/triplet lists from the O positions, cutoffs + skin.
+    def _neighbor_lists(self, positions, box=None):
+        """Padded pair/triplet lists from the O positions, cutoffs + skin, in
+        `box` (default the system's; the capacities and the triplet build's
+        shape stay those of the construction box or tune_capacities).
         Returns ((pairs, pmask), (trips, tmask), diag with overflow flags)."""
         sys_ = self.system
         o_pos = positions[:4 * sys_.n_waters].reshape(sys_.n_waters, 4, 3)[:, 0]
+        box = sys_.box if box is None else box
         skin = self.config.nlist_skin
-        pairs, pmask, n_p = neighbors.pair_list(o_pos, sys_.box,
+        pairs, pmask, n_p = neighbors.pair_list(o_pos, box,
                                                 self.config.cutoff_2b + skin, self.pair_cap)
         k_max = self.nlist_k_max
         if k_max is None:
             k_max = neighbors.max_neighbors(sys_.n_waters, sys_.box,
                                             self.config.cutoff_3b + skin)
         trips, tmask, n_t = neighbors.triplet_list(
-            o_pos, sys_.box, self.config.cutoff_3b + skin, self.trip_cap,
+            o_pos, box, self.config.cutoff_3b + skin, self.trip_cap,
             k_max=k_max, kt=self.nlist_kt)
         diag = dict(n_pairs=n_p, n_triplets=n_t,
                     pair_overflow=n_p > self.pair_cap,
                     triplet_overflow=n_t > self.trip_cap)
         return (pairs, pmask), (trips, tmask), diag
 
-    def build_neighbor_lists(self, positions):
+    def build_neighbor_lists(self, positions, box=None):
         """Lists for reuse across MD steps (pair with nlist_skin > 0), built
-        on the potential's device. Returns ((pl, tl), diag)."""
+        on the potential's device in `box` (default the system's). Returns
+        ((pl, tl), diag)."""
         pl, tl, diag = self._neighbor_lists(
-            make_molecules_whole(self.system, self.as_positions(positions)))
+            make_molecules_whole(self.system, self.as_positions(positions), box), box)
         return (pl, tl), diag
 
-    def _smooth_terms(self, positions, nlists=None, disp_pairs=None):
-        """Closed-form terms (1b/2b/3b/dispersion); differentiable."""
+    def _smooth_terms(self, positions, nlists=None, disp_pairs=None, box=None):
+        """Closed-form terms (1b/2b/3b/dispersion) in `box` (default the
+        system's); differentiable."""
         cfg = self.config
         sys_ = self.system
         pos = compute_virtual_sites(sys_, positions)
@@ -276,44 +282,50 @@ class MBPol:
         pl, tl = nlists if nlists is not None else ((None, None), (None, None))
         pip = (cfg.pip_impl, cfg.pip_basis)
         if 'two_body' in cfg.terms:
-            parts['two_body'] = two_body_energy(sys_, pos, pl[0], pl[1], pip=pip)
+            parts['two_body'] = two_body_energy(sys_, pos, pl[0], pl[1], box=box, pip=pip)
         if 'three_body' in cfg.terms:
-            parts['three_body'] = three_body_energy(sys_, pos, tl[0], tl[1], pip=pip)
+            parts['three_body'] = three_body_energy(sys_, pos, tl[0], tl[1], box=box, pip=pip)
         if 'dispersion' in cfg.terms:
             sw = cfg.dispersion_switch_width
             if disp_pairs is not None:
                 parts['dispersion'] = dispersion_energy_pairs(
-                    sys_, pos, disp_pairs[0], disp_pairs[1], cutoff=cfg.cutoff, switch_width=sw)
+                    sys_, pos, disp_pairs[0], disp_pairs[1], cutoff=cfg.cutoff, box=box,
+                    switch_width=sw)
             else:
-                parts['dispersion'] = dispersion_energy(sys_, pos, cutoff=cfg.cutoff,
+                parts['dispersion'] = dispersion_energy(sys_, pos, cutoff=cfg.cutoff, box=box,
                                                         switch_width=sw)
         return parts
 
-    def _energy_forces_impl(self, positions, mu0=None, nlists=None):
+    def _energy_forces_impl(self, positions, mu0=None, nlists=None, box=None):
         """(total energy, forces, parts, diag). mu0: optional induced-dipole
         predictor/warm start; nlists: optional prebuilt lists from
         `build_neighbor_lists` (valid for any superset of the physical
-        lists)."""
+        lists); box: the box of this evaluation, three floats on the host
+        (default the system's, with the same bits as passing it), for a
+        barostat. The PME grid and alpha and every list capacity stay at
+        their construction (or tune_capacities) values; a box shorter than
+        twice the cutoff raises."""
         sys_ = self.system
-        positions = make_molecules_whole(sys_, self.as_positions(positions).detach())
+        box = sys_.box if box is None else np.asarray(box, np.float64)
+        positions = make_molecules_whole(sys_, self.as_positions(positions).detach(), box)
 
         diag = {}
         if nlists is None and self.use_neighbor_lists:
-            pl, tl, diag = self._neighbor_lists(positions)
+            pl, tl, diag = self._neighbor_lists(positions, box)
             nlists = (pl, tl)
 
         disp_pairs = None
         if self.disp_mode == 'pairs' and 'dispersion' in self.config.terms:
             # water-pair list at cutoff + PAIR_MARGIN (+ skin), every evaluation
             o_pos = positions[:4 * sys_.n_waters].reshape(sys_.n_waters, 4, 3)[:, 0]
-            mp, mp_mask, n_mp = neighbors.pair_list(o_pos, sys_.box, self.disp_pair_cut,
+            mp, mp_mask, n_mp = neighbors.pair_list(o_pos, box, self.disp_pair_cut,
                                                     self.disp_pair_cap)
             diag = dict(diag, disp_pair_overflow=n_mp > self.disp_pair_cap)
             disp_pairs = (mp, mp_mask)
 
         with torch.enable_grad():
             p = positions.clone().requires_grad_(True)
-            parts = self._smooth_terms(p, nlists, disp_pairs)
+            parts = self._smooth_terms(p, nlists, disp_pairs, box)
             total = sum(parts.values()) if parts else torch.zeros((), dtype=p.dtype,
                                                                    device=p.device)
             grad = (torch.autograd.grad(total, p)[0] if total.requires_grad
@@ -327,7 +339,7 @@ class MBPol:
             with torch.no_grad():
                 e_elec, f_elec, ediag = pme_mod.pme_electrostatics(
                     self.elec_params, self.pme, pos_v, mu0=mu0, block=self._block_info,
-                    tables=self._site_tables())
+                    tables=self._site_tables(), box=box)
             diag.update(ediag)
             parts['electrostatics'] = e_elec
             # redistribute M-site forces to the parents (average3 weights)
@@ -342,11 +354,12 @@ class MBPol:
             energy = energy + e_elec
         return energy, forces, parts, diag
 
-    def energy_forces(self, positions, mu0=None):
+    def energy_forces(self, positions, mu0=None, box=None):
         """(total energy kJ/mol, forces kJ/mol/nm [natoms,3], per-term
         energies, diagnostics). Pass a previous diag['induced_dipoles'] as
-        mu0 to warm-start the SCF."""
-        return self._energy_forces_impl(positions, mu0=mu0)
+        mu0 to warm-start the SCF, and a box (three floats, nm) to evaluate
+        in another box than the system's."""
+        return self._energy_forces_impl(positions, mu0=mu0, box=box)
 
     def tune_capacities(self, positions, margin=1.15):
         """Size the padded lists from the exact neighbor counts of a
@@ -402,3 +415,19 @@ class MBPol:
                                  min(max(int(margin * max_lines) + 2, 8), n_tiles))
         return self
 
+
+def with_scf_method(pot: MBPol, method: str):
+    """A new MBPol over the same topology, device, lists, capacities and
+    block layout with another SCF closure ('sor' | 'aspc'), as the JAX
+    function of that name. A cold single point converges to the same fixed
+    point under either, so only a trajectory changes: Simulation's
+    scf='auto' runs a SOR potential's dynamics under the ASPC closure."""
+    if pot.elec_params is None:
+        return pot
+    if method not in ('sor', 'aspc'):
+        raise _not_ported(f'scf_method={method!r}')
+    new = object.__new__(MBPol)
+    new.__dict__.update(pot.__dict__)
+    new.config = dataclasses.replace(pot.config, scf_method=method)
+    new.elec_params = dataclasses.replace(pot.elec_params, scf_method=method)
+    return new

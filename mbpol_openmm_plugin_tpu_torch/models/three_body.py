@@ -111,9 +111,10 @@ def three_body_energy_triplets(pos_a, pos_b, pos_c, valid, pip=None):
     return torch.where(active, s * e_poly, 0.0)
 
 
-def _imaged_triplets(system: System, positions, triplets, triplet_mask):
-    """(pos_a, pos_b, pos_c [T, 3, 3] Angstrom, imaged; triplet_mask [T]) of
-    the listed water triplets (default: all i<j<k)."""
+def _imaged_triplets(system: System, positions, triplets, triplet_mask, box=None):
+    """(pos_a, pos_b, pos_c [T, 3, 3] Angstrom, imaged in `box`, default the
+    system's; triplet_mask [T]) of the listed water triplets (default: all
+    i<j<k)."""
     dev = positions.device
     wpos = water_positions(system, positions) * units.NM_TO_ANGSTROM
     if triplets is None:
@@ -126,7 +127,7 @@ def _imaged_triplets(system: System, positions, triplets, triplet_mask):
     pos_b = gather_rows(wflat, triplets[:, 1], triplet_mask).reshape(-1, 3, 3)
     pos_c = gather_rows(wflat, triplets[:, 2], triplet_mask).reshape(-1, 3, 3)
     if system.periodic:
-        box_a = box_tensor(system.box, positions) * units.NM_TO_ANGSTROM
+        box_a = box_tensor(system.box if box is None else box, positions) * units.NM_TO_ANGSTROM
         pos_a, pos_b, pos_c = _image_triplet(pos_a, pos_b, pos_c, box_a)
     return pos_a, pos_b, pos_c, triplet_mask
 
@@ -137,13 +138,15 @@ def three_body_variables(system: System, positions, triplets=None, triplet_mask=
     return triplet_variables(*_imaged_triplets(system, positions, triplets, triplet_mask))[0]
 
 
-def three_body_energy(system: System, positions, triplets=None, triplet_mask=None, pip=None):
+def three_body_energy(system: System, positions, triplets=None, triplet_mask=None, box=None,
+                      pip=None):
     """Total three-body energy in kJ/mol.
 
     triplets: optional [T, 3] integer tensor of water index triplets
-    (default: all i<j<k); triplet_mask: optional [T] bool; pip: optional
-    (impl, basis) of the polynomial evaluator.
+    (default: all i<j<k); triplet_mask: optional [T] bool; box: the
+    periodic box (default the system's); pip: optional (impl, basis) of the
+    polynomial evaluator.
     """
     e_kcal = three_body_energy_triplets(
-        *_imaged_triplets(system, positions, triplets, triplet_mask), pip=pip)
+        *_imaged_triplets(system, positions, triplets, triplet_mask, box), pip=pip)
     return torch.sum(e_kcal) * units.KCAL_PER_MOL_TO_KJ_PER_MOL

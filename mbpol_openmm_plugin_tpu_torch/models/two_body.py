@@ -152,9 +152,10 @@ def all_pairs(n):
     return np.stack([ii, jj], axis=1)
 
 
-def _imaged_pairs(system: System, positions, pairs, pair_mask):
-    """(pos_a, pos_b [P, 3, 3] Angstrom, imaged; pair_mask [P]) of the
-    listed water pairs (default: all i<j)."""
+def _imaged_pairs(system: System, positions, pairs, pair_mask, box=None):
+    """(pos_a, pos_b [P, 3, 3] Angstrom, imaged in `box`, default the
+    system's; pair_mask [P]) of the listed water pairs (default: all
+    i<j)."""
     dev = positions.device
     wpos = water_positions(system, positions) * units.NM_TO_ANGSTROM
     if pairs is None:
@@ -165,7 +166,7 @@ def _imaged_pairs(system: System, positions, pairs, pair_mask):
     pos_a = gather_rows(wflat, pairs[:, 0], pair_mask).reshape(-1, 3, 3)
     pos_b = gather_rows(wflat, pairs[:, 1], pair_mask).reshape(-1, 3, 3)
     if system.periodic:
-        box_a = box_tensor(system.box, positions) * units.NM_TO_ANGSTROM
+        box_a = box_tensor(system.box if box is None else box, positions) * units.NM_TO_ANGSTROM
         pos_a, pos_b = _image_pair(pos_a, pos_b, box_a)
     return pos_a, pos_b, pair_mask
 
@@ -176,12 +177,14 @@ def two_body_variables(system: System, positions, pairs=None, pair_mask=None):
     return pair_variables(*_imaged_pairs(system, positions, pairs, pair_mask))[0]
 
 
-def two_body_energy(system: System, positions, pairs=None, pair_mask=None, pip=None):
+def two_body_energy(system: System, positions, pairs=None, pair_mask=None, box=None, pip=None):
     """Total two-body energy in kJ/mol.
 
     positions: [natoms, 3] nm. pairs: optional [P, 2] integer tensor of
     water index pairs (default: all i<j); pair_mask: optional [P] bool;
-    pip: optional (impl, basis) of the polynomial evaluator.
+    box: the periodic box (default the system's); pip: optional (impl,
+    basis) of the polynomial evaluator.
     """
-    e_kcal = two_body_energy_pairs(*_imaged_pairs(system, positions, pairs, pair_mask), pip=pip)
+    e_kcal = two_body_energy_pairs(*_imaged_pairs(system, positions, pairs, pair_mask, box),
+                                   pip=pip)
     return torch.sum(e_kcal) * units.KCAL_PER_MOL_TO_KJ_PER_MOL

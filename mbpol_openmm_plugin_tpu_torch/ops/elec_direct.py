@@ -17,7 +17,9 @@ in a fixed order, so no atomics and the same bits on every run; s3/s5
 written whole and exactly symmetric).
 
 Dispatch: a CPU tensor goes to the plain twin; a CUDA float32 tensor goes
-to the kernel; anything else raises. There is no fallback. The full twins
+to the kernel; anything else raises. There is no fallback. Before either,
+every wrapper (and those of ops/elec_direct_bs.py) refuses a box shorter
+than twice the cutoff (`DirectConsts.check_box`). The full twins
 (`*_plain`) are written from the XLA dense formulas of models/pme.py with
 torch.special.erfc and the ported gammq34; the triangular twins
 (`*_tri_plain`) run the same formulas in the kernels' decomposition (tiles,
@@ -54,10 +56,22 @@ class DirectConsts:
     box: tuple       # (lx, ly, lz) nm
 
     @classmethod
-    def from_setup(cls, setup, thole):
+    def from_setup(cls, setup, thole, box=None):
+        """From a PmeSetup, the Thole parameters and the evaluation's box
+        (three floats; default setup.box)."""
         return cls(alpha=float(setup.alpha), cutoff=float(setup.cutoff),
                    thole=tuple(float(t) for t in thole),
-                   box=tuple(float(b) for b in setup.box))
+                   box=tuple(float(b) for b in (setup.box if box is None else box)))
+
+    def check_box(self):
+        """Refuse a box shorter than twice the cutoff on some axis: the
+        minimum image of the pair chains (csrc/elec_common.cuh
+        min_image_fast) is exact only while every pair inside the cutoff is
+        nearer than half the box, which a barostat's shrinking box could
+        break."""
+        if min(self.box) < 2.0 * self.cutoff:
+            raise ValueError(f'box {self.box} nm is shorter than twice the direct-space cutoff '
+                             f'{self.cutoff} nm on some axis')
 
     def kernel_args(self):
         return (self.alpha, self.cutoff ** 2, *self.thole, *self.box)
@@ -389,6 +403,7 @@ def fixed_field_and_scf_factors(sites, c: DirectConsts):
     """K1: (field [N,3], s3 [N,N], s5 [N,N]) from packed sites [N,8]."""
     if sites.dim() != 2 or sites.shape[1] != NS:
         raise ValueError(f'packed sites must be [N, {NS}], got {tuple(sites.shape)}')
+    c.check_box()
     if not _on_kernel(sites):
         return fixed_field_and_scf_factors_plain(sites, c)
     from mbpol_openmm_plugin_tpu_torch.ops import _build
@@ -412,6 +427,7 @@ def direct_energy_force_pot(sites, mu, c: DirectConsts):
     if sites.dim() != 2 or sites.shape[1] != NS or tuple(mu.shape) != (n, 3):
         raise ValueError(f'expected sites [N, {NS}] and mu [N, 3], got '
                          f'{tuple(sites.shape)} and {tuple(mu.shape)}')
+    c.check_box()
     if not _on_kernel(sites, mu):
         return direct_energy_force_pot_plain(sites, mu, c)
     from mbpol_openmm_plugin_tpu_torch.ops import _build

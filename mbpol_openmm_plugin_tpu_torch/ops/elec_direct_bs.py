@@ -519,6 +519,7 @@ def fixed_field_and_scf_lines(sites, n_sites, tiles: TileList, c: ED.DirectConst
     active tile-pair list. Only the live lines are written; lines.overflow()
     says whether a slab held more than n_lines."""
     _check_sites(sites)
+    c.check_box()
     np_ = sites.shape[0]
     if n_lines is None:
         n_lines = default_line_capacity(np_)
@@ -543,6 +544,7 @@ def scf_dipole_field_bs(sites, lines: ScfLines, mu_pad, tiles: TileList, n_sites
     """K3-bs: the dipole field [n,3] at the (sorted) sites from the lines
     K1-bs stored for them and mu_pad [padded(n), 3] (padded rows zero)."""
     _check_sites(sites)
+    c.check_box()
     np_ = sites.shape[0]
     shape = (np_ // WATER, TILE // CLUSTER, lines.capacity, WATER, CLUSTER)
     if (tuple(mu_pad.shape) != (np_, 3) or tuple(lines.s3.shape) != shape
@@ -569,6 +571,7 @@ def direct_energy_force_pot_bs(sites, mu, n_sites, tiles: TileList, c: ED.Direct
     """K2-bs: (e_direct scalar, force [n,3], pot [n]) from padded packed
     sites and the induced dipoles mu [n,3] (in the sites' order)."""
     _check_sites(sites)
+    c.check_box()
     if tuple(mu.shape) != (n_sites, 3):
         raise ValueError(f'expected mu [{n_sites}, 3], got {tuple(mu.shape)}')
     if not _on_kernel(_list_tensors(tiles), sites, mu):

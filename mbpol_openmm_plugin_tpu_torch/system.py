@@ -125,12 +125,13 @@ def box_tensor(box, like):
                            device=like.device)
 
 
-def make_molecules_whole(system: System, positions):
-    """Image each water's hydrogens (and M) next to its oxygen. A no-op for
-    whole molecules and non-periodic systems."""
+def make_molecules_whole(system: System, positions, box=None):
+    """Image each water's hydrogens (and M) next to its oxygen in `box`
+    (default the system's). A no-op for whole molecules and non-periodic
+    systems."""
     if not system.periodic:
         return positions
-    box = box_tensor(system.box, positions)
+    box = box_tensor(system.box if box is None else box, positions)
     p4 = _water_blocks(system, positions)
     o = p4[:, 0:1]
     rest = p4[:, 1:] + torch.floor((o - p4[:, 1:]) / box + 0.5) * box

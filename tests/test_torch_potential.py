@@ -119,11 +119,10 @@ def test_not_ported_options_raise():
         MBPol(System.waters(3, n_ions=1, box=[1.9] * 3),
               MBPolConfig(nonbonded_method='PME', terms=('one_body', 'dispersion')),
               device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        Simulation(MBPol(sys_, MBPolConfig.for_dynamics(), device='cpu'),
-                   SimulationConfig(temperature=300.0))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        Simulation(MBPol(sys_, MBPolConfig(nonbonded_method='PME'), device='cpu'))  # per-step SOR
+    for respa in (dict(respa_inner=2), dict(respa_mid=2)):
+        with pytest.raises(NotImplementedError, match='ROADMAP'):
+            Simulation(MBPol(sys_, MBPolConfig.for_dynamics(), device='cpu'),
+                       SimulationConfig(temperature=300.0, thermostat='langevin', **respa))
     # above the CPU's dense limit 'auto' picks the sparse mode, not ported
     big = System.waters(600, box=[_side(600)] * 3)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
