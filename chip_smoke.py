@@ -5,9 +5,10 @@ Drives the port's paths on one CUDA card, in float32, through the entry
 points a user calls (MBPol, tune_capacities, energy_forces, Simulation):
 MB-pol water256 bulk PME in the dense electrostatics mode, water4096 (the
 water256 fixture repeated 2 x 2 x 4, 16,384 sites) in the block-sparse
-mode that 'auto' picks above 2560 waters on a card, and water256 again
-with the 2B/3B polynomials evaluated by each fused kernel
-(MBPolConfig.pip_impl). It builds the hand-written CUDA kernels from csrc/
+mode that 'auto' picks above 2560 waters on a card, water256 again with
+the 2B/3B polynomials evaluated by each fused kernel
+(MBPolConfig.pip_impl), the cluster (NoCutoff) path on water clusters up
+to 256 waters, and r-RESPA on water256 PME. It builds the hand-written CUDA kernels from csrc/
 and holds each against its plain PyTorch twin at the shapes its path gives
 it.
 
@@ -93,7 +94,39 @@ Phases (any failure raises and the script exits non-zero):
      1/ps, 1 bar, barostat_interval=10, 50 steps: finite energies, healthy
      SCF, no list, tile, line or pair overflow, K1-bs/K3-bs/K2-bs launched
      every step, 5 moves attempted, the accepted moves' energies as in
-     phase 14; the acceptance count and steps/s.
+     phase 14; the acceptance count and steps/s;
+ 16. cluster (NoCutoff) single points, float32 on the card: the water3
+     total (-8.78893485 +/- 0.1 kcal/mol) and 4-site electrostatics
+     (-15.818784 +/- 0.1), the 3-site water3 electrostatics (-7.08652 +/-
+     0.01) under SOR and DIIS with fewer DIIS iterations; the water14
+     cluster and the water256 droplet (the water256 fixture made whole,
+     without a box, after tune_capacities) under the default pip_impl and
+     'quad_bf16' (kernel #10 on non-periodic lists), each term and the
+     forces against the port's CPU float64 evaluation of the same float32
+     positions within F32_BOUND_FACTOR x the JAX package's own float32
+     distance (JAX_F32_DISTANCE, tools/cluster_respa_reference.py); the
+     droplet's system moments and its potential on 64 points of a 2 nm
+     sphere, bounded the same way; DIIS against SOR at the droplet and at
+     the water256 PME single point, both at eps 1e-6: the electrostatics
+     within the bound of that input's float32 electrostatics, fewer DIIS
+     iterations;
+ 17. cluster MD: the water14 cluster under the flat-bottom restraint
+     (0.75 nm, 1000 kJ/mol/nm^2), Langevin 300 K at 1/ps, 500 steps
+     (finite, healthy; mean T reported); the water256 droplet under
+     for_dynamics(nonbonded_method='NoCutoff'), 200 NVE steps from rest,
+     |second-half fit| <= 3 x the largest JAX float32 reading
+     (DROPLET_FIT_READINGS); steps/s;
+ 18. r-RESPA on water256 PME (for_dynamics; K1/K2 on every rung that
+     holds the electrostatics): (a) two-level, inner 2, outer 0.4 fs, 100
+     outer steps NVE, the fit gated at 3 x the largest JAX reading
+     (RESPA_FIT_READINGS); (b) three-level, mid 2, inner 2, outer 0.8 fs,
+     50 outer steps under the polarization on the 'mid' and on the 'inner'
+     rung with nlist_rebuild_interval=2 (groups end every 2 outer steps, so
+     the rungs' forces are carried across them): finite, healthy, fit
+     reported; (c) two-level Langevin 300 K at 100/ps, 200 outer steps,
+     mean T over the second half within 300 +/- 30 K. Each run prints outer
+     and base-step-equivalent steps/s beside phase 5's rate and the K1/K2
+     launches per outer step.
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 
@@ -1076,6 +1109,340 @@ def phase_npt4096(torch, card):
     return run_npt(torch, card, sim, NPT4096_STEPS, NPT4096_INTERVAL, BS.KERNELS)
 
 
+# phases 16-18: the cluster (NoCutoff) path and r-RESPA
+FIXTURES = os.path.join(REPO, 'tests', 'fixtures')
+CLUSTER_SP = dict(nonbonded_method='NoCutoff', cutoff=0.9)
+WATER3_GOLDEN_KCAL, WATER3_ELEC_KCAL, WATER3_TOL_KCAL = -8.78893485, -15.818784, 0.1
+THREE_SITE_KCAL, THREE_SITE_TOL_KCAL = -7.08652, 0.01
+# the JAX package's own float32-vs-float64 distance on each input, both at
+# the float32 positions (tools/cluster_respa_reference.py --what single, JAX
+# on the CPU; PERF.md):
+# per term |dE| (kJ/mol), forces max |dF| / max |F|, the moments max |d| /
+# max |m|, the potential on the grid max |d| (kJ/mol/e); the water256 PME
+# electrostatics at phase 4's settings. Phase 16 holds the card's float32
+# against the port's CPU float64 at F32_BOUND_FACTOR times these.
+JAX_F32_DISTANCE = {
+    'water14_cluster': dict(
+        terms=dict(dispersion=1.2159039584958009e-05, electrostatics=0.038762184642223474,
+                   one_body=0.00032163309650456995, three_body=0.07852130841933302,
+                   two_body=0.2878866384492085),
+        forces_rel=0.0007183364460706797),
+    'water256_droplet': dict(
+        terms=dict(dispersion=9.929993666446535e-05, electrostatics=0.791519930042341,
+                   one_body=0.0012241374617080192, three_body=3.2520305983723574,
+                   two_body=6.905955647955125),
+        forces_rel=0.002558965595714546, moments_rel=4.91024924880731e-05,
+        grid_abs=0.003527610733161879),
+    'water256_pme': dict(terms=dict(electrostatics=0.07032796453677292))}
+F32_BOUND_FACTOR = 2.0
+# DIIS against SOR: both converged to DIIS_EPS (scf_eps_floor lowered to it),
+# beyond the closures' own stopping error at the single point's 1e-4
+DIIS_EPS = 1e-6
+GRID_RADIUS, N_GRID = 2.0, 64
+WATER14_MD = dict(nonbonded_method='NoCutoff', target_epsilon=1e-3, max_iterations=200,
+                  restraint_radius=0.75, restraint_k=1000.0)      # bench.py:566-568
+WATER14_STEPS, WATER14_T_K, WATER14_FRICTION = 500, 300.0, 1.0
+DROPLET_STEPS = 200
+# 3 x the largest |second-half fit| of the JAX float32 readings of the same
+# runs (tools/cluster_respa_reference.py --what droplet_md respa_md; PERF.md)
+DROPLET_FIT_READINGS = (0.2154590071270634, 0.47362854679359917, 0.2704368595773131)
+RESPA_FIT_READINGS = (3.3912033150054817, 4.633115190184036, -0.009621460518840027)
+RESPA_A_STEPS, RESPA_B_STEPS, RESPA_C_STEPS = 100, 50, 200
+RESPA_T_K, RESPA_FRICTION, RESPA_REPORT = 300.0, 100.0, 10
+
+
+def fit_bound(readings):
+    return 3.0 * max(abs(r) for r in readings)
+
+
+def load_positions(torch, name, system, box=None):
+    """A fixture's positions, whole in `box` and with the M sites placed in
+    float64 on the CPU, then on the card in float32."""
+    from mbpol_openmm_plugin_tpu_torch.system import compute_virtual_sites, make_molecules_whole
+    with np.load(os.path.join(FIXTURES, name + '.npz')) as z:
+        pos = torch.as_tensor(np.array(z['positions'], np.float64))
+    if box is not None:
+        pos = make_molecules_whole(system.with_box(box), pos)
+    pos = compute_virtual_sites(system, pos)
+    return pos.to(device='cuda', dtype=torch.float32)
+
+
+def cluster_system(name):
+    from mbpol_openmm_plugin_tpu_torch.system import System
+    with np.load(os.path.join(FIXTURES, name + '.npz')) as z:
+        return System.from_atom_names(z['names'], z['resnames'])
+
+
+def cluster_input(torch, name):
+    """(System without a box, card float32 positions, the same positions in
+    float64 on the CPU) of a cluster: the water14 cluster, or the water256
+    droplet (the water256 fixture made whole in its box, evaluated without
+    one)."""
+    if name == 'water256_droplet':
+        system = cluster_system('water256_integration_test')
+        box = [BOX] * 3
+        src = 'water256_integration_test'
+    else:
+        system, box, src = cluster_system(name), None, name
+    pos = load_positions(torch, src, system, box)
+    return system, pos, pos.cpu().double()
+
+
+def three_site_params(elec):
+    """The 3-site water3 of tests/test_electrostatics_cluster.py."""
+    damping = np.tile([0.001310, 0.000294, 0.000294], 3)
+    return elec.ElecParams(
+        thole=np.full(5, 0.4), damping=damping, polarity=damping.copy(),
+        mol_index=np.repeat(np.arange(3), 3), atom_type=np.tile([0, 1, 1], 3),
+        charges=np.tile([-5.1966000e-01, 2.5983000e-01, 2.5983000e-01], 3),
+        include_charge_redistribution=False, target_epsilon=1e-9)
+
+
+THREE_SITE_POS_A = np.array([
+    [-1.516074336, -0.202316765, 1.454672917], [-0.6218989773, -0.6009430735, 1.572437625],
+    [-2.017613812, -0.4190350349, 2.239642849], [-1.763651687, -0.3816594649, -1.300353949],
+    [-1.903851736, -0.4935677617, -0.3457810126], [-2.527904158, -0.7613550077, -1.733803676],
+    [-0.558847214, 2.006699172, -0.1392786582], [-0.941155818, 1.541226676, 0.6163293071],
+    [-0.9858551734, 1.567124294, -0.8830970941]])
+
+
+def within(name, got, bound, failures):
+    """Log got against bound; a failure is recorded, not raised."""
+    ok = got <= bound
+    log(f'    {name}: {got:.4e} (bound {bound:.4e}, {"ok" if ok else "FAIL"})')
+    if not ok:
+        failures.append(name)
+
+
+def phase_cluster_single_points(torch, card):
+    """Phase 16: the cluster path's single points, float32 on the card."""
+    import dataclasses
+
+    from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused as PF
+    from mbpol_openmm_plugin_tpu_torch.system import oxygen_positions
+    from mbpol_openmm_plugin_tpu_torch.utils import units
+
+    kcal = units.KJ_PER_MOL_TO_KCAL_PER_MOL
+    failures = []
+    # goldens
+    sys3, pos3, _ = cluster_input(torch, 'water3')
+    e, f, parts, diag = MBPol(sys3, MBPolConfig(**CLUSTER_SP)).energy_forces(pos3)
+    e_el, _, d_el = elec.cluster_electrostatics(elec.ElecParams.for_system(sys3), pos3)
+    log(f'  water3: total {float(e) * kcal:.6f} kcal/mol (golden {WATER3_GOLDEN_KCAL} +/- '
+        f'{WATER3_TOL_KCAL}); 4-site electrostatics {float(e_el) * kcal:.6f} (golden '
+        f'{WATER3_ELEC_KCAL} +/- {WATER3_TOL_KCAL}); SOR iterations {int(diag["iterations"])}')
+    assert bool(diag['converged']) and bool(d_el['converged'])
+    assert abs(float(e) * kcal - WATER3_GOLDEN_KCAL) <= WATER3_TOL_KCAL, float(e) * kcal
+    assert abs(float(e_el) * kcal - WATER3_ELEC_KCAL) <= WATER3_TOL_KCAL, float(e_el) * kcal
+    pos9 = torch.as_tensor(THREE_SITE_POS_A * 0.1, dtype=torch.float32, device='cuda')
+    iters = {}
+    for method in ('sor', 'diis'):
+        params = dataclasses.replace(three_site_params(elec), scf_method=method)
+        e9, _, d9 = elec.cluster_electrostatics(params, pos9)
+        iters[method] = int(d9['iterations'])
+        log(f'  3-site water3 under {method}: {float(e9) * kcal:.6f} kcal/mol (golden '
+            f'{THREE_SITE_KCAL} +/- {THREE_SITE_TOL_KCAL}), {iters[method]} iterations')
+        assert bool(d9['converged'])
+        assert abs(float(e9) * kcal - THREE_SITE_KCAL) <= THREE_SITE_TOL_KCAL, float(e9) * kcal
+    assert iters['diis'] < iters['sor'], iters
+
+    # water14 cluster and water256 droplet against the port's CPU float64
+    for name in ('water14_cluster', 'water256_droplet'):
+        system, pos, pos64 = cluster_input(torch, name)
+        ref = MBPol(system, MBPolConfig(**CLUSTER_SP), device='cpu').tune_capacities(pos64)
+        t0 = time.perf_counter()
+        e64, f64, p64, d64 = ref.energy_forces(pos64)
+        log(f'  {name}: {system.n_waters} waters, {pos.shape[0]} sites; CPU float64 reference '
+            f'{float(e64) * kcal:.4f} kcal/mol ({int(d64["iterations"])} SOR iterations, '
+            f'{time.perf_counter() - t0:.1f} s)')
+        dist = JAX_F32_DISTANCE[name]
+        for impl in (None, 'quad_bf16'):
+            pot = MBPol(system, MBPolConfig(pip_impl=impl, **CLUSTER_SP)).tune_capacities(pos)
+            PF.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e32, f32, p32, d32 = pot.energy_forces(pos)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {k.__name__: k.launches for k in PF.KERNELS}
+            log(f'  {name} pip_impl={impl!r}: {float(e32) * kcal:.4f} kcal/mol, SOR iterations '
+                f'{int(d32["iterations"])}, {wall * 1e3:.1f} ms ({card}); lists '
+                f'{pot.use_neighbor_lists} (pair/triplet capacities '
+                f'{getattr(pot, "pair_cap", None)}/{getattr(pot, "trip_cap", None)}); '
+                f'launches {launches}')
+            assert bool(d32['converged']) and bool(torch.isfinite(f32).all())
+            assert not any(bool(v) for k, v in d32.items() if k.endswith('_overflow')), d32
+            if impl == 'quad_bf16':
+                assert launches['pip_quad_product_energy_grad'] == 2, launches
+            for term, d in dist['terms'].items():
+                within(f'{name} {impl or "default"} {term} |dE| kJ/mol',
+                       abs(float(p32[term]) - float(p64[term])), F32_BOUND_FACTOR * d, failures)
+            within(f'{name} {impl or "default"} forces max |dF| / max |F|',
+                   float((f32.cpu().double() - f64).abs().max() / f64.abs().max()),
+                   F32_BOUND_FACTOR * dist['forces_rel'], failures)
+
+    # moments and the potential on a grid about the droplet
+    system, pos, pos64 = cluster_input(torch, 'water256_droplet')
+    params = elec.ElecParams.for_system(system)
+    center = oxygen_positions(system, pos64).mean(dim=0).numpy()
+    k = np.arange(N_GRID) + 0.5
+    phi, theta = np.arccos(1.0 - 2.0 * k / N_GRID), np.pi * (1.0 + 5 ** 0.5) * k
+    grid = center + GRID_RADIUS * np.stack([np.cos(theta) * np.sin(phi),
+                                            np.sin(theta) * np.sin(phi), np.cos(phi)], axis=1)
+    m32 = elec.system_moments(params, pos, system.masses).cpu().double()
+    m64 = elec.system_moments(params, pos64, system.masses)
+    grid = torch.as_tensor(grid, dtype=torch.float32)
+    g32 = elec.electrostatic_potential_on_grid(params, pos, grid.cuda()).cpu().double()
+    g64 = elec.electrostatic_potential_on_grid(params, pos64, grid.double())
+    dist = JAX_F32_DISTANCE['water256_droplet']
+    log(f'  water256 droplet: dipole {m64[1:4].tolist()} D; potential on {N_GRID} points at '
+        f'{GRID_RADIUS} nm, max |phi| {float(g64.abs().max()):.4f} kJ/mol/e')
+    within('droplet moments max |d| / max |m|', float((m32 - m64).abs().max() / m64.abs().max()),
+           F32_BOUND_FACTOR * dist['moments_rel'], failures)
+    within('droplet grid potential max |d| kJ/mol/e', float((g32 - g64).abs().max()),
+           F32_BOUND_FACTOR * dist['grid_abs'], failures)
+
+    # DIIS against SOR at the droplet and at the water256 PME single point
+    sys256, pos256 = load_water256(torch, torch.device('cuda'), torch.float32)
+    tight = dict(target_epsilon=DIIS_EPS, scf_eps_floor=DIIS_EPS, terms=('electrostatics',))
+    for name, system_, pos_, cfg in (
+            ('water256_droplet', system, pos, dict(CLUSTER_SP, **tight)),
+            ('water256_pme', sys256, pos256, dict(SINGLE_POINT, **tight))):
+        out = {}
+        for method in ('sor', 'diis'):
+            pot = MBPol(system_, MBPolConfig(scf_method=method, **cfg))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e, _, _, d = pot.energy_forces(pos_)
+            torch.cuda.synchronize()
+            out[method] = (float(e), int(d['iterations']), bool(d['converged']),
+                           time.perf_counter() - t0)
+        (e_s, it_s, c_s, w_s), (e_d, it_d, c_d, w_d) = out['sor'], out['diis']
+        log(f'  {name} at eps {DIIS_EPS}: electrostatics SOR {e_s:.4f} ({it_s} iterations, '
+            f'{w_s * 1e3:.1f} ms), DIIS {e_d:.4f} kJ/mol ({it_d} iterations, {w_d * 1e3:.1f} '
+            f'ms) ({card})')
+        assert c_s and c_d and it_d < it_s, out
+        within(f'{name} DIIS - SOR electrostatics |dE| kJ/mol', abs(e_d - e_s),
+               F32_BOUND_FACTOR * JAX_F32_DISTANCE[name]['terms']['electrostatics'], failures)
+    if failures:
+        raise AssertionError(f'cluster single points outside their bounds: {failures}')
+
+
+def respa_launches(ED, steps):
+    launches = {k.__name__: k.launches for k in ED.KERNELS}
+    return launches, {k: round(v / steps, 2) for k, v in launches.items()}
+
+
+def phase_cluster_md(torch, card):
+    """Phase 17: cluster MD, the water14 cluster under the restraint
+    (Langevin) and the water256 droplet (NVE)."""
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+
+    system, pos, _ = cluster_input(torch, 'water14_cluster')
+    sim = Simulation(MBPol(system, MBPolConfig(**WATER14_MD)),
+                     SimulationConfig(dt=0.0002, temperature=WATER14_T_K, thermostat='langevin',
+                                      friction=WATER14_FRICTION), seed=1)
+    sim.set_positions(pos)
+    sim.set_velocities_to_temperature(WATER14_T_K)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.step(WATER14_STEPS, report_interval=100)   # raises on NaN or a failed SCF
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    t = out['step_temperature']
+    e_r = float(sim.potential.energy_forces(sim.state.positions)[2]['restraint'])
+    log(f'  water14 cluster, restraint R {WATER14_MD["restraint_radius"]} nm, Langevin '
+        f'{WATER14_T_K} K at {WATER14_FRICTION}/ps: {WATER14_STEPS} steps in {wall:.2f} s = '
+        f'{WATER14_STEPS / wall:.2f} steps/s ({card}); mean T over steps '
+        f'{WATER14_STEPS // 2 + 1}..{WATER14_STEPS} {float(np.mean(t[WATER14_STEPS // 2:])):.2f} '
+        f'K (reported, not gated: 42 atoms); restraint energy at the end {e_r:.4f} kJ/mol')
+    assert np.all(np.isfinite(out['step_total_energy'])), out
+
+    system, pos, _ = cluster_input(torch, 'water256_droplet')
+    pot = MBPol(system, MBPolConfig.for_dynamics(nonbonded_method='NoCutoff'))
+    pot.tune_capacities(pos)
+    sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    sim.set_positions(pos)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.step(DROPLET_STEPS)     # raises on NaN, list overflow or a failed SCF
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    e_tot = out['step_total_energy']
+    fit = second_half_fit(e_tot)
+    bound = fit_bound(DROPLET_FIT_READINGS)
+    log(f'  water256 droplet NVE (for_dynamics, NoCutoff, ASPC): {DROPLET_STEPS} steps in '
+        f'{wall:.2f} s = {DROPLET_STEPS / wall:.2f} steps/s ({card}); E_tot {e_tot[0]:.4f} -> '
+        f'{e_tot[-1]:.4f} kJ/mol, second-half fit {fit:+.4f} kJ/mol (bound {bound:.4f} = 3 x the '
+        f'largest JAX reading of {DROPLET_FIT_READINGS}); T_end {out["temperature"][-1]:.2f} K')
+    assert np.all(np.isfinite(e_tot)), out
+    assert abs(fit) <= bound, fit
+    return DROPLET_STEPS / wall
+
+
+def respa_simulation(torch, pot, pos, temperature=None, **scfg):
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    sim = Simulation(pot, SimulationConfig(nlist_rebuild_interval=scfg.pop('interval', 'auto'),
+                                           temperature=temperature, **scfg), seed=1)
+    sim.set_positions(pos)
+    if temperature is not None:
+        sim.set_velocities_to_temperature(temperature)
+    return sim
+
+
+def phase_respa(torch, card, base_rate):
+    """Phase 18: r-RESPA on water256 PME (for_dynamics), K1/K2 on every rung
+    that holds the electrostatics."""
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    pot = MBPol(system, MBPolConfig.for_dynamics())
+    runs = (('(a) two-level, inner 2, outer 0.4 fs, NVE',
+             dict(dt=0.0004, respa_inner=2), RESPA_A_STEPS, None),
+            ("(b) three-level 'mid', mid 2, inner 2, outer 0.8 fs, list interval 2, NVE",
+             dict(dt=0.0008, respa_mid=2, respa_inner=2, interval=2), RESPA_B_STEPS, None),
+            ("(b) three-level 'inner', mid 2, inner 2, outer 0.8 fs, list interval 2, NVE",
+             dict(dt=0.0008, respa_mid=2, respa_inner=2, interval=2,
+                  respa_polarization_rung='inner'), RESPA_B_STEPS, None),
+            (f'(c) two-level Langevin {RESPA_T_K} K at {RESPA_FRICTION}/ps, inner 2, outer '
+             f'0.4 fs', dict(dt=0.0004, respa_inner=2, thermostat='langevin',
+                             friction=RESPA_FRICTION), RESPA_C_STEPS, RESPA_T_K))
+    for name, scfg, steps, temperature in runs:
+        base_steps = scfg.get('respa_mid', 1) * scfg['respa_inner']
+        sim = respa_simulation(torch, pot, pos, temperature, **scfg)
+        torch.cuda.synchronize()
+        ED.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = sim.step(steps, report_interval=RESPA_REPORT if temperature else None)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, per_step = respa_launches(ED, steps)
+        e_tot = out['step_total_energy']
+        fit = second_half_fit(e_tot)
+        log(f'  {name}: {steps} outer steps in {wall:.2f} s = {steps / wall:.2f} outer steps/s '
+            f'= {base_steps * steps / wall:.2f} base-step (0.2 fs) equivalents/s (phase 5, '
+            f'single step: {base_rate:.2f} steps/s) ({card}); K1/K2 launches {launches} = '
+            f'{per_step} per outer step; E_tot {e_tot[0]:.4f} -> {e_tot[-1]:.4f} kJ/mol, '
+            f'second-half fit {fit:+.4f} kJ/mol; T_end {out["temperature"][-1]:.2f} K')
+        assert np.all(np.isfinite(e_tot)), out
+        assert all(n >= steps for n in launches.values()), launches
+        if temperature is None and base_steps == scfg['respa_inner']:
+            bound = fit_bound(RESPA_FIT_READINGS)
+            log(f'    gate: |fit| <= {bound:.4f} kJ/mol (3 x the largest JAX reading of '
+                f'{RESPA_FIT_READINGS})')
+            assert abs(fit) <= bound, fit
+        if temperature is not None:
+            t = out['step_temperature']
+            mean_t = float(np.mean(t[steps // 2:]))
+            log(f'    mean T over outer steps {steps // 2 + 1}..{steps} {mean_t:.3f} K (gate '
+                f'{temperature} +/- {NVT_T_TOL_K})')
+            assert abs(mean_t - temperature) <= NVT_T_TOL_K, mean_t
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1141,6 +1508,14 @@ def main():
     phase_npt4096(torch, card)
     log(f'  water256 steps/s: NVE {quad_steps_per_s:.2f} (phase 5), NVT {nvt_rate:.2f}, '
         f'NPT {npt_rate:.2f} ({card})')
+    log('== phase 16: cluster single points (water3 goldens, water14 cluster, water256 droplet; '
+        'float32 against CPU float64)')
+    phase_cluster_single_points(torch, card)
+    log(f'== phase 17: cluster MD (water14 + restraint, Langevin {WATER14_STEPS} steps; water256 '
+        f'droplet NVE {DROPLET_STEPS} steps)')
+    phase_cluster_md(torch, card)
+    log('== phase 18: r-RESPA (water256 PME, for_dynamics)')
+    phase_respa(torch, card, quad_steps_per_s)
 
     log(card)
     log(json.dumps({'kernels': [record[k] for k in KERNELS]}))

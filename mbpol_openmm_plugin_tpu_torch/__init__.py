@@ -6,11 +6,15 @@ each function has an obvious counterpart. This package imports ``torch``
 and never ``jax``.
 
 Slices covered so far: water PME molecular dynamics
-(``MBPolConfig.for_dynamics()``, velocity Verlet with the ASPC dipole
-closure) in the dense and the block-sparse electrostatics modes, with the
-2B/3B polynomials in plain PyTorch or, as ``MBPolConfig.pip_impl`` says,
-in a fused kernel. The direct-space electrostatics pair work and the fused
-polynomials run in hand-written CUDA kernels on CUDA float32 tensors
+(``MBPolConfig.for_dynamics()``) in the dense and the block-sparse
+electrostatics modes, with the 2B/3B polynomials in plain PyTorch or, as
+``MBPolConfig.pip_impl`` says, in a fused kernel; NVE, NVT and NPT
+dynamics, minimization and two- and three-level r-RESPA; and the cluster (NoCutoff)
+path: polarizable electrostatics of non-periodic systems under SOR, DIIS or
+ASPC, system moments, the potential on a grid, the flat-bottom restraint,
+water + Cl- systems without electrostatics and any site layout. The
+direct-space electrostatics pair work of PME and the fused polynomials run
+in hand-written CUDA kernels on CUDA float32 tensors
 (``ops/elec_direct.py``, ``ops/elec_direct_bs.py``, ``ops/pip_fused.py``;
 sources in ``csrc/``) and in their plain PyTorch twins on the CPU.
 Everything outside the slices raises ``NotImplementedError`` pointing at

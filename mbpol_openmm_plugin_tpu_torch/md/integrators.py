@@ -1,4 +1,5 @@
-"""Integrators, thermostats and the Monte Carlo barostat
+"""Integrators (velocity Verlet, BAOAB Langevin and their r-RESPA
+multiple-time-step forms), thermostats and the Monte Carlo barostat
 (port of mbpol_openmm_plugin_tpu/md/integrators.py).
 
 Units: nm, ps, amu, kJ/mol; velocities nm/ps. M sites carry zero mass:
@@ -12,7 +13,11 @@ and the tests feed the draws of the JAX package's key splits. The box is a
 host float64 triple: a barostat move decides on the host (one read of the
 two energies) and the kernels take the box by value.
 
-RESPA is not ported yet (see ROADMAP.md).
+The RESPA steps take the force of each rung at the state's positions and
+return it at the new ones, so that a caller carries them from step to step
+(and across its groups): each step then evaluates the slow rung once. A
+rung whose evaluation has state (the ASPC dipole history) must be carried,
+never re-evaluated at the step's start.
 """
 from __future__ import annotations
 
@@ -81,6 +86,102 @@ def velocity_verlet_step(system: System, energy_forces_fn, state: MDState, dt):
     v_new = v_half + 0.5 * dt * forces * inv_m
     return dataclasses.replace(state, positions=pos, velocities=v_new, forces=forces,
                                potential_energy=energy, step=state.step + 1)
+
+
+def _inner_verlet(ef_fast, pos, v, f_fast, inv_m, dti):
+    """One velocity-Verlet step of the fast rung: (pos, v, f_fast, e_fast)."""
+    v = v + 0.5 * dti * f_fast * inv_m
+    pos = pos + dti * v
+    e_fast, f_fast = ef_fast(pos)
+    return pos, v + 0.5 * dti * f_fast * inv_m, f_fast, e_fast
+
+
+def respa_velocity_verlet_step(system: System, ef_fast, ef_slow, state: MDState, f_slow, dt,
+                               n_inner, f_fast=None):
+    """One two-level r-RESPA step (Tuckerman-Berne-Martyna): half kicks of
+    the slow forces at the outer step dt around n_inner velocity-Verlet
+    steps of the fast forces at dt / n_inner.
+
+    f_slow (and f_fast, when given; else it is evaluated at the state's
+    positions) are the rungs' forces at state.positions. Returns (state',
+    f_slow', f_fast') with state'.forces their sum and potential_energy the
+    fast + slow energy at the new positions."""
+    inv_m = inv_masses(system, state.positions)
+    dti = dt / n_inner
+    v = state.velocities + 0.5 * dt * f_slow * inv_m
+    if f_fast is None:
+        f_fast = ef_fast(state.positions)[1]
+    pos = state.positions
+    for _ in range(int(n_inner)):
+        pos, v, f_fast, e_fast = _inner_verlet(ef_fast, pos, v, f_fast, inv_m, dti)
+    e_slow, f_slow = ef_slow(pos)
+    v = v + 0.5 * dt * f_slow * inv_m
+    state = dataclasses.replace(state, positions=pos, velocities=v, forces=f_slow + f_fast,
+                                potential_energy=e_slow + e_fast, step=state.step + 1)
+    return state, f_slow, f_fast
+
+
+def respa3_velocity_verlet_step(system: System, ef_fast, ef_mid, ef_slow, state: MDState,
+                                f_mid, f_slow, dt, n_mid, n_inner, f_fast=None):
+    """One three-level r-RESPA step: half kicks of the slow forces at dt
+    around n_mid middle steps at dt / n_mid, each half kicks of the mid
+    forces around n_inner velocity-Verlet steps of the fast forces at
+    dt / (n_mid n_inner). f_mid, f_slow (and f_fast, when given) are the
+    rungs' forces at state.positions. Returns (state', f_mid', f_slow',
+    f_fast') with state'.forces their sum and potential_energy the sum of
+    the three energies at the new positions."""
+    inv_m = inv_masses(system, state.positions)
+    dtm = dt / n_mid
+    dti = dtm / n_inner
+    v = state.velocities + 0.5 * dt * f_slow * inv_m
+    if f_fast is None:
+        f_fast = ef_fast(state.positions)[1]
+    pos = state.positions
+    for _ in range(int(n_mid)):
+        v = v + 0.5 * dtm * f_mid * inv_m
+        for _ in range(int(n_inner)):
+            pos, v, f_fast, e_fast = _inner_verlet(ef_fast, pos, v, f_fast, inv_m, dti)
+        e_mid, f_mid = ef_mid(pos)
+        v = v + 0.5 * dtm * f_mid * inv_m
+    e_slow, f_slow = ef_slow(pos)
+    v = v + 0.5 * dt * f_slow * inv_m
+    state = dataclasses.replace(state, positions=pos, velocities=v,
+                                forces=f_fast + f_mid + f_slow,
+                                potential_energy=e_fast + e_mid + e_slow, step=state.step + 1)
+    return state, f_mid, f_slow, f_fast
+
+
+def respa_langevin_step(system: System, ef_fast, ef_slow, state: MDState, f_slow, dt, n_inner,
+                        temperature_k, friction, noises, f_fast=None):
+    """BAOAB-RESPA Langevin step: half kicks of the slow forces around
+    n_inner BAOAB steps of the fast forces, the O step in each with the
+    inner step's friction factor (n_inner = 1 is BAOAB with the force
+    split). noises: standard normals [n_inner, natoms, 3], one set per
+    inner O step. Returns (state', f_slow', f_fast') as
+    `respa_velocity_verlet_step`."""
+    inv_m = inv_masses(system, state.positions)
+    m = _masses(system, state.positions)
+    kT = units.BOLTZMANN_KJ_MOL_K * temperature_k
+    dti = dt / n_inner
+    c1 = math.exp(-friction * dti)
+    c2 = math.sqrt((1.0 - c1 * c1) * kT)
+
+    v = state.velocities + 0.5 * dt * f_slow * inv_m
+    if f_fast is None:
+        f_fast = ef_fast(state.positions)[1]
+    pos = state.positions
+    for k in range(int(n_inner)):
+        v = v + 0.5 * dti * f_fast * inv_m
+        pos = pos + 0.5 * dti * v
+        v = c1 * v + torch.where(m > 0, c2 * torch.sqrt(inv_m) * noises[k], 0.0)
+        pos = pos + 0.5 * dti * v
+        e_fast, f_fast = ef_fast(pos)
+        v = v + 0.5 * dti * f_fast * inv_m
+    e_slow, f_slow = ef_slow(pos)
+    v = v + 0.5 * dt * f_slow * inv_m
+    state = dataclasses.replace(state, positions=pos, velocities=v, forces=f_slow + f_fast,
+                                potential_energy=e_slow + e_fast, step=state.step + 1)
+    return state, f_slow, f_fast
 
 
 def remove_cm_motion(system: System, velocities):

@@ -2,7 +2,8 @@
 
 Velocity Verlet (NVE), BAOAB Langevin or velocity Verlet with the Andersen
 thermostat (NVT), either under OpenMM's adaptive Monte Carlo barostat
-(NPT); centre-of-mass motion removal, minimization and checkpoints.
+(NPT), and their r-RESPA forms; centre-of-mass motion removal,
+minimization and checkpoints.
 
 A chunk (one report interval) runs in groups, as in the JAX package: a
 group is the fixed list interval k when k > 1, else barostat_interval under
@@ -22,7 +23,21 @@ converged evaluation), and per barostat move its two uniforms and the two
 energies. Random numbers come from one torch.Generator on the potential's
 device, seeded by `seed`; a checkpoint carries its state.
 
-RESPA (respa_inner or respa_mid > 1) is not ported yet (see ROADMAP.md).
+r-RESPA: respa_inner > 1 runs the one-body term at dt / respa_inner inside
+an outer step dt of the other terms (velocity Verlet or BAOAB Langevin);
+respa_mid > 1 adds a middle rung at dt / respa_mid and leaves the terms of
+respa_slow_terms (default the three-body) on the outer one (velocity
+Verlet, optionally Andersen). The polarization sits on the middle rung, or
+with respa_polarization_rung='inner' on the fast one beside the one-body
+term. Each rung is an MBPol over its terms with the parent's capacities;
+the pair and triplet lists are built once per rebuild through the
+all-intermolecular potential and handed to every rung. The rungs' forces
+are carried from step to step, across groups and report chunks, as the
+dipole history is; they are evaluated afresh only where the positions or
+the box changed outside the integrator (set_positions, a checkpoint
+without them, minimization, an accepted barostat move). Unlike the JAX
+package, which re-seeds them at every group and so breaks the splitting's
+time symmetry once per group, a group boundary changes nothing.
 """
 from __future__ import annotations
 
@@ -32,12 +47,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mbpol_openmm_plugin_tpu_torch import ROADMAP_HINT
 from mbpol_openmm_plugin_tpu_torch.md import integrators as I
 from mbpol_openmm_plugin_tpu_torch.md.minimize import lbfgs_minimize
+from mbpol_openmm_plugin_tpu_torch.md.rpmd import mbpol_intra_inter_split, term_subset
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, with_scf_method
+from mbpol_openmm_plugin_tpu_torch.system import oxygen_positions
 from mbpol_openmm_plugin_tpu_torch.utils import units
+
+RESPA_FORCES = ('slow', 'mid', 'fast')
 
 
 def health_flag(diag):
@@ -76,9 +94,15 @@ class SimulationConfig:
     nlist_rebuild_interval: object = 1
     # remove the centre-of-mass velocity every k steps (0: never)
     cm_motion_interval: int = 0
-    # r-RESPA: only 1 (single time step) is ported
+    # r-RESPA: the fast (one-body) rung at dt / respa_inner (1: single time
+    # step); respa_mid > 1: a middle rung at dt / respa_mid with the terms
+    # not in respa_slow_terms, the fast rung at dt / (respa_mid respa_inner)
     respa_inner: int = 1
     respa_mid: int = 1
+    respa_slow_terms: tuple = ('three_body',)
+    # the rung of the polarization under respa_mid > 1: 'mid' or 'inner'
+    # (beside the one-body term, so the ASPC closure advances every base step)
+    respa_polarization_rung: str = 'mid'
 
 
 class Simulation:
@@ -91,11 +115,20 @@ class Simulation:
             raise ValueError(f"SimulationConfig.scf must be 'auto' or 'keep', got {cfg.scf!r}")
         if cfg.thermostat not in ('andersen', 'langevin', 'none'):
             raise ValueError(f'unknown thermostat {cfg.thermostat!r}')
-        if int(cfg.respa_inner) > 1 or int(cfg.respa_mid) > 1:
-            raise NotImplementedError(f'r-RESPA (respa_inner / respa_mid > 1): {ROADMAP_HINT}')
+        if cfg.respa_polarization_rung not in ('mid', 'inner'):
+            raise ValueError(f'unknown respa_polarization_rung {cfg.respa_polarization_rung!r}')
+        if (int(cfg.respa_mid) > 1 and cfg.temperature is not None
+                and cfg.thermostat == 'langevin'):
+            raise ValueError('respa_mid > 1 supports velocity Verlet (+ Andersen) only; use the '
+                             'two-level respa_inner split with langevin')
         if (cfg.scf == 'auto' and potential.elec_params is not None
                 and potential.config.scf_method == 'sor'):
-            potential = with_scf_method(potential, 'aspc')
+            # a mid-rung ASPC closure advances at the mid cadence, where a
+            # deeper corrector keeps its dipole-lag drift down
+            n_corr = (max(potential.config.aspc_n_corr, 2)
+                      if int(cfg.respa_mid) > 1 and cfg.respa_polarization_rung == 'mid'
+                      else None)
+            potential = with_scf_method(potential, 'aspc', aspc_n_corr=n_corr)
         self.potential = potential
         self.system = potential.system
         self.generator = torch.Generator(device=potential.device)
@@ -104,6 +137,10 @@ class Simulation:
         # adaptive barostat move size (scale nm^3, attempted, accepted),
         # carried across chunks, set from the first box
         self._baro = None
+        self._split = None
+        # RESPA force carry: dict(positions, box, slow, mid, fast), valid
+        # while the state's positions are that tensor and the box is equal
+        self._respa_f = None
 
     # ------------------------------------------------------------------
     def _normal(self, shape):
@@ -138,56 +175,199 @@ class Simulation:
         self.state = dataclasses.replace(self.state, velocities=v)
 
     # ------------------------------------------------------------------
-    def _auto_rebuild(self, nl_carry, p, box):
-        """Rebuild the lists at p when 2 * max O displacement since the last
-        build exceeds skin / 2. nl_carry = (lists, build positions,
-        overflow flag); a rebuild's overflow ORs into the flag."""
+    def _auto_rebuild(self, nl_carry, p, box, pot):
+        """Rebuild the lists at p through pot when 2 * max O displacement
+        since the last build exceeds skin / 2. nl_carry = (lists, build
+        positions, overflow flag); a rebuild's overflow ORs into the flag."""
         nl, pb, ovf = nl_carry
-        n = self.system.n_waters
-        o_p = p[:4 * n].reshape(n, 4, 3)[:, 0]
-        o_b = pb[:4 * n].reshape(n, 4, 3)[:, 0]
+        o_p, o_b = oxygen_positions(self.system, p), oxygen_positions(self.system, pb)
         disp = torch.max(torch.linalg.norm(o_p - o_b, dim=-1))
-        if float(2.0 * disp) > 0.5 * self.potential.config.nlist_skin:
-            (pl, tl), d = self.potential.build_neighbor_lists(p, box)
+        if float(2.0 * disp) > 0.5 * pot.config.nlist_skin:
+            (pl, tl), d = pot.build_neighbor_lists(p, box)
             return (pl, tl), p, ovf | d['pair_overflow'] | d['triplet_overflow']
         return nl_carry
 
-    def _one_step(self, state, mu0, nlists, run):
-        """One integrator step (+ thermostat, + CM removal). run: the
-        chunk's mutable carry, {'nl': auto-rebuild carry or None, 'ovf':
-        overflow flag}. Returns (state, the evaluation's induced dipoles)."""
-        cfg, pot = self.config, self.potential
-        box = state.box
-        out = {}
+    def _evaluate(self, pot, p, mu0, nlists, run, box, rebuild=False):
+        """pot's evaluation at p with the run's current lists (rebuilt first
+        when rebuild and the displacement trigger fires); its overflow
+        flags join the run's. Returns (E, F, diag)."""
+        nl = nlists
+        if run['nl'] is not None:
+            if rebuild:
+                run['nl'] = self._auto_rebuild(run['nl'], p, box, pot)
+            nl = run['nl'][0]
+        e, f, _, diag = pot._energy_forces_impl(p, mu0, nlists=nl, box=box)
+        for k, v in diag.items():
+            if k.endswith('_overflow'):
+                run['ovf'] = run['ovf'] | v
+        return e, f, diag
 
-        def ef(p):
-            nl = nlists
-            if run['nl'] is not None:
-                run['nl'] = self._auto_rebuild(run['nl'], p, box)
-                nl = run['nl'][0]
-            e, f, _, diag = pot._energy_forces_impl(p, mu0, nlists=nl, box=box)
-            out['mu'] = diag.get('induced_dipoles')
-            for k, v in diag.items():
-                if k.endswith('_overflow'):
-                    run['ovf'] = run['ovf'] | v
-            return e, f
+    @staticmethod
+    def _predictor(run):
+        """The dipole predictor (ASPC) or warm start from the run's history,
+        None for cold evaluations."""
+        mu = run['mu']
+        if mu is None or run['B'] is None:
+            return mu
+        return torch.einsum('h,hnd->nd', run['B'], mu)
 
-        shape = tuple(state.positions.shape)
-        thermostat = cfg.thermostat if cfg.temperature is not None else 'none'
-        if thermostat == 'langevin':
-            state = I.langevin_step(self.system, ef, state, cfg.dt, cfg.temperature,
-                                    cfg.friction, self._normal(shape))
-        else:
-            state = I.velocity_verlet_step(self.system, ef, state, cfg.dt)
-            if thermostat == 'andersen':
-                state = I.andersen_thermostat(self.system, state, cfg.dt, cfg.temperature,
-                                              cfg.collision_frequency,
-                                              self._uniform(shape[:1]), self._normal(shape))
+    @staticmethod
+    def _push(run, mu_new):
+        """Advance the run's dipole history with an evaluation's dipoles."""
+        if run['mu'] is None or mu_new is None:
+            return
+        run['mu'] = mu_new if run['B'] is None else torch.cat([mu_new[None], run['mu'][:-1]])
+
+    def _thermostat(self):
+        cfg = self.config
+        return cfg.thermostat if cfg.temperature is not None else 'none'
+
+    def _after_step(self, state):
+        """Andersen collisions and CM-motion removal after an integrator step."""
+        cfg = self.config
+        if self._thermostat() == 'andersen':
+            shape = tuple(state.positions.shape)
+            state = I.andersen_thermostat(self.system, state, cfg.dt, cfg.temperature,
+                                          cfg.collision_frequency,
+                                          self._uniform(shape[:1]), self._normal(shape))
         k = int(cfg.cm_motion_interval)
         if k and state.step % k == 0:
             state = dataclasses.replace(
                 state, velocities=I.remove_cm_motion(self.system, state.velocities))
-        return state, out['mu']
+        return state
+
+    def _one_step(self, state, nlists, run):
+        """One integrator step (+ thermostat, + CM removal). run: the
+        chunk's mutable carry ('nl': auto-rebuild carry or None, 'ovf':
+        overflow flag, 'mu': dipole history or None, 'B': ASPC predictor
+        coefficients or None)."""
+        cfg, pot = self.config, self.potential
+        box = state.box
+        mu0 = self._predictor(run)
+        out = {}
+
+        def ef(p):
+            e, f, diag = self._evaluate(pot, p, mu0, nlists, run, box, rebuild=True)
+            out['mu'] = diag.get('induced_dipoles')
+            return e, f
+
+        if self._thermostat() == 'langevin':
+            state = I.langevin_step(self.system, ef, state, cfg.dt, cfg.temperature,
+                                    cfg.friction, self._normal(tuple(state.positions.shape)))
+        else:
+            state = I.velocity_verlet_step(self.system, ef, state, cfg.dt)
+        self._push(run, out['mu'])
+        return self._after_step(state)
+
+    # ------------------------------------------------------------------
+    def _respa_rungs(self):
+        """The RESPA rungs, built once: dict(intra: the one-body ef, inter:
+        the all-intermolecular MBPol that builds the shared lists, and for
+        respa_mid > 1 mid, slow and, with the polarization on the inner
+        rung, fast: MBPols over their terms with the parent's capacities)."""
+        if self._split is None:
+            cfg = self.config
+            ef_intra, pot_inter = mbpol_intra_inter_split(self.potential)
+            rungs = dict(intra=ef_intra, inter=pot_inter, slow=pot_inter, fast=None)
+            if int(cfg.respa_mid) > 1:
+                inter_terms = pot_inter.config.terms
+                slow = tuple(t for t in inter_terms if t in cfg.respa_slow_terms)
+                mid = tuple(t for t in inter_terms if t not in slow)
+                if cfg.respa_polarization_rung == 'inner' and 'electrostatics' in mid:
+                    mid = tuple(t for t in mid if t != 'electrostatics')
+                    rungs['fast'] = term_subset(self.potential, ('one_body', 'electrostatics'))
+                if not slow or not mid:
+                    raise ValueError(f'respa_mid > 1 needs a non-trivial term split; got '
+                                     f'slow={slow} mid={mid} from respa_slow_terms='
+                                     f'{cfg.respa_slow_terms}')
+                rungs['mid'] = term_subset(self.potential, mid)
+                rungs['slow'] = term_subset(self.potential, slow)
+            self._split = rungs
+        return self._split
+
+    def _respa_seed(self, state, nlists, run):
+        """The rungs' forces at the state's positions and box, where the
+        carry is not valid: as the JAX package seeds a group, from the
+        dipole predictor of the run's history, which the seed does not
+        advance."""
+        rungs, box = self._respa_rungs(), state.box
+        mu_seed = self._predictor(run)
+        mid = int(self.config.respa_mid) > 1
+        f = dict(positions=state.positions, box=box, mid=None)
+        if mid:
+            polar_mid = rungs['fast'] is None
+            f['mid'] = self._evaluate(rungs['mid'], state.positions,
+                                      mu_seed if polar_mid else None, nlists, run, box)[1]
+            f['slow'] = self._evaluate(rungs['slow'], state.positions, None, nlists, run, box)[1]
+            if not polar_mid:
+                f['fast'] = self._evaluate(rungs['fast'], state.positions, mu_seed, nlists,
+                                           run, box)[1]
+                return f
+        else:
+            f['slow'] = self._evaluate(rungs['slow'], state.positions, mu_seed, nlists, run,
+                                       box)[1]
+        f['fast'] = rungs['intra'](state.positions, box)[1]
+        return f
+
+    def _respa_carry_valid(self, state):
+        f = self._respa_f
+        return (f is not None and f['positions'] is state.positions
+                and np.array_equal(np.asarray(f['box']), np.asarray(state.box)))
+
+    def _one_step_respa(self, state, nlists, run):
+        """One r-RESPA outer step on the carried rung forces
+        (self._respa_f, valid at state.positions)."""
+        cfg = self.config
+        rungs, box, fc = self._respa_rungs(), state.box, self._respa_f
+        three = int(cfg.respa_mid) > 1
+        polar_inner = rungs['fast'] is not None
+
+        def ef_fast(p):
+            if not polar_inner:
+                return rungs['intra'](p, box)
+            e, f, diag = self._evaluate(rungs['fast'], p, self._predictor(run), nlists, run, box)
+            self._push(run, diag.get('induced_dipoles'))
+            return e, f
+
+        def ef_mid(p):
+            e, f, diag = self._evaluate(rungs['mid'], p,
+                                        None if polar_inner else self._predictor(run),
+                                        nlists, run, box, rebuild=True)
+            if not polar_inner:
+                self._push(run, diag.get('induced_dipoles'))
+            return e, f
+
+        def ef_slow(p):
+            # two-level: the polarization's rung, which rebuilds the lists;
+            # three-level: at the last mid evaluation's positions
+            e, f, diag = self._evaluate(rungs['slow'], p,
+                                        None if three else self._predictor(run),
+                                        nlists, run, box, rebuild=not three)
+            if not three:
+                self._push(run, diag.get('induced_dipoles'))
+            return e, f
+
+        # a stateful fast rung is never re-evaluated at a step's start
+        assert fc['fast'] is not None, 'RESPA fast forces must be carried'
+        if three:
+            state, f_mid, f_slow, f_fast = I.respa3_velocity_verlet_step(
+                self.system, ef_fast, ef_mid, ef_slow, state, fc['mid'], fc['slow'], cfg.dt,
+                int(cfg.respa_mid), int(cfg.respa_inner), f_fast=fc['fast'])
+        elif self._thermostat() == 'langevin':
+            n = int(cfg.respa_inner)
+            state, f_slow, f_fast = I.respa_langevin_step(
+                self.system, ef_fast, ef_slow, state, fc['slow'], cfg.dt, n, cfg.temperature,
+                cfg.friction, self._normal((n,) + tuple(state.positions.shape)),
+                f_fast=fc['fast'])
+            f_mid = None
+        else:
+            state, f_slow, f_fast = I.respa_velocity_verlet_step(
+                self.system, ef_fast, ef_slow, state, fc['slow'], cfg.dt,
+                int(cfg.respa_inner), f_fast=fc['fast'])
+            f_mid = None
+        self._respa_f = dict(positions=state.positions, box=box, slow=f_slow, mid=f_mid,
+                             fast=f_fast)
+        return self._after_step(state)
 
     def _energy_at(self, run):
         """The barostat's converged evaluation (positions, box) -> (E, F);
@@ -222,12 +402,14 @@ class Simulation:
             mu = pot._energy_forces_impl(state.positions, box=state.box)[3]['induced_dipoles']
             if aspc:
                 mu = mu[None].repeat(len(B), 1, 1)
+        respa = int(cfg.respa_inner) > 1 or int(cfg.respa_mid) > 1
+        pot_nl = self._respa_rungs()['inter'] if respa else pot
 
         baro = self._barostat
         group = reuse if reuse > 1 else (cfg.barostat_interval if baro else n_steps)
         if baro:
             group = min(group, cfg.barostat_interval)
-        run = dict(nl=None, ovf=torch.zeros((), dtype=torch.bool, device=dev))
+        run = dict(nl=None, ovf=torch.zeros((), dtype=torch.bool, device=dev), mu=mu, B=B)
         pes, kes = [], []
         moves = [0, 0]
         done = 0
@@ -235,19 +417,19 @@ class Simulation:
             n = min(group, n_steps - done)
             nlists = None
             if use_nl and (auto_nl or reuse > 1):
-                (pl, tl), d = pot.build_neighbor_lists(state.positions, state.box)
+                (pl, tl), d = pot_nl.build_neighbor_lists(state.positions, state.box)
                 run['ovf'] = run['ovf'] | d['pair_overflow'] | d['triplet_overflow']
                 if auto_nl:
                     run['nl'] = ((pl, tl), state.positions, run['ovf'])
                 else:
                     nlists = (pl, tl)
+            if respa and not self._respa_carry_valid(state):
+                self._respa_f = self._respa_seed(state, nlists, run)
             for _ in range(n):
-                mu0 = torch.einsum('h,hnd->nd', B, mu) if aspc else mu
-                state, mu_new = self._one_step(state, mu0, nlists, run)
-                if aspc:
-                    mu = torch.cat([mu_new[None], mu[:-1]], dim=0)
-                elif warm:
-                    mu = mu_new
+                if respa:
+                    state = self._one_step_respa(state, nlists, run)
+                else:
+                    state = self._one_step(state, nlists, run)
                 pes.append(state.potential_energy)
                 kes.append(I.kinetic_energy(self.system, state.velocities))
             if run['nl'] is not None:
@@ -366,9 +548,10 @@ class Simulation:
     # ------------------------------------------------------------------
     def checkpoint(self):
         """The dynamic state as numpy arrays: positions, velocities, forces,
-        energy, box, step, the generator's state and the adaptive barostat's
-        (scale, attempted, accepted), so that a resumed run is bit-identical
-        to an uninterrupted one with the same report boundaries."""
+        energy, box, step, the generator's state, the adaptive barostat's
+        (scale, attempted, accepted) and the RESPA rungs' carried forces, so
+        that a resumed run is bit-identical to an uninterrupted one with the
+        same report boundaries."""
         s = self.state
         ck = dict(positions=s.positions.cpu().numpy(), velocities=s.velocities.cpu().numpy(),
                   forces=s.forces.cpu().numpy(),
@@ -380,6 +563,10 @@ class Simulation:
             ck['baro_scale'] = np.asarray(self._baro[0], np.float64)
             ck['baro_attempted'] = np.asarray(self._baro[1])
             ck['baro_accepted'] = np.asarray(self._baro[2])
+        if self._respa_carry_valid(s):
+            for k in RESPA_FORCES:
+                if self._respa_f[k] is not None:
+                    ck['respa_' + k] = self._respa_f[k].cpu().numpy()
         return ck
 
     def load_checkpoint(self, ck):
@@ -397,6 +584,11 @@ class Simulation:
         if 'baro_scale' in ck:
             self._baro = (float(ck['baro_scale']), int(ck['baro_attempted']),
                           int(ck['baro_accepted']))
+        self._respa_f = None
+        if 'respa_slow' in ck:
+            self._respa_f = dict(positions=self.state.positions, box=self.state.box,
+                                 **{k: tensor(ck['respa_' + k]) if 'respa_' + k in ck else None
+                                    for k in RESPA_FORCES})
 
     def save_checkpoint(self, path):
         np.savez(path, **self.checkpoint())

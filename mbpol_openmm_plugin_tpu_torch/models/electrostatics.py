@@ -1,16 +1,17 @@
 """Many-body polarization: parameters, Thole damping, geometry-dependent
-charges and the induced-dipole SCF closures
-(port of mbpol_openmm_plugin_tpu/models/electrostatics.py, PME slice).
+charges, the induced-dipole SCF closures and the cluster (NoCutoff)
+electrostatics (port of mbpol_openmm_plugin_tpu/models/electrostatics.py).
 
 - TTM4-F style charges from the Partridge-Schwenke dipole-moment surface,
   with their exact Jacobian dq/dr;
 - MB-pol Thole damping factors of orders 1/3/5/7 (the order-1 factor uses
   the regularized incomplete gamma Q(3/4, x));
-- the SOR fixed-point loop (polarSOR = 0.55) and the Kolafa ASPC
-  predictor-corrector closure for MD.
-
-Not ported yet: cluster (NoCutoff) electrostatics, DIIS, system moments
-(see ROADMAP.md).
+- the SOR fixed-point loop (polarSOR = 0.55), the DIIS/Anderson-accelerated
+  loop and the Kolafa ASPC predictor-corrector closure for MD;
+- `cluster_electrostatics`: energy, forces and dipoles of a non-periodic
+  system over dense masked [N, N] tensors (plain PyTorch: the JAX package
+  has no kernel on this path), and from it `system_moments` and
+  `electrostatic_potential_on_grid`.
 """
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mbpol_openmm_plugin_tpu_torch import ROADMAP_HINT, _data
+from mbpol_openmm_plugin_tpu_torch import _data
 from mbpol_openmm_plugin_tpu_torch.models.one_body import vander
 from mbpol_openmm_plugin_tpu_torch.ops.gamma import gammq34
+from mbpol_openmm_plugin_tpu_torch.system import index_tensor
 from mbpol_openmm_plugin_tpu_torch.utils import units
 
 # Thole parameter indices
@@ -46,24 +48,31 @@ class ElecParams:
     include_charge_redistribution: bool = True
     target_epsilon: float = 1e-7
     max_iterations: int = 200
-    scf_method: str = 'sor'      # 'sor' | 'aspc'
+    scf_method: str = 'sor'      # 'sor' | 'diis' | 'aspc'
     aspc_k: int = 3
     aspc_n_corr: int = 1
     scf_eps_floor: Optional[float] = None
-    o_index: Optional[np.ndarray] = None      # water O sites (charge redistribution)
+    # water site indices for charge redistribution (None for 3-site waters)
+    o_index: Optional[np.ndarray] = None
+    h1_index: Optional[np.ndarray] = None
+    h2_index: Optional[np.ndarray] = None
+    m_index: Optional[np.ndarray] = None
 
     @classmethod
     def for_system(cls, system, **kw):
-        """Parameters for a standard OHHM water System (XML values)."""
+        """Parameters for a water System (XML values), per site from its
+        class, so that any site layout gets its own (the JAX function tiles
+        the OHHM values, right only for the standard layout)."""
         ff = _data.load('forcefield')
         if system.n_ions:
             raise NotImplementedError('electrostatics with ions (parity with reference)')
-        per_site = np.stack([ff['atom_O'], ff['atom_H'], ff['atom_H'], ff['atom_M']])
-        vals = np.tile(per_site, (system.n_waters, 1))
+        per_class = np.stack([ff['atom_O'], ff['atom_H'], ff['atom_M']])
+        vals = per_class[np.asarray(system.atom_class)]
         return cls(
             thole=ff['thole'], damping=vals[:, 1], polarity=vals[:, 2],
             mol_index=system.mol_index, atom_type=np.minimum(system.atom_class, 2),
-            charges=vals[:, 0], o_index=system.o_index, **kw)
+            charges=vals[:, 0], o_index=system.o_index, h1_index=system.h1_index,
+            h2_index=system.h2_index, m_index=system.m_index, **kw)
 
 
 def thole_scales(u, gamma, orders=(1, 3, 5, 7)):
@@ -154,6 +163,12 @@ def water_charges_and_derivatives(pos_w):
     return q, dq
 
 
+def _contiguous(params: ElecParams, n):
+    """True when the sites are the stride-4 OHHM block of waters only."""
+    nmol = len(params.o_index)
+    return 4 * nmol == n and bool(np.array_equal(params.o_index, 4 * np.arange(nmol)))
+
+
 def assemble_charges(params: ElecParams, positions):
     """Per-site charge vector [N] and dq/dr tensors for the full system."""
     n = len(params.damping)
@@ -161,12 +176,37 @@ def assemble_charges(params: ElecParams, positions):
         return torch.as_tensor(params.charges, dtype=positions.dtype,
                                device=positions.device), None
     nmol = len(params.o_index)
-    if not (np.array_equal(params.o_index, 4 * np.arange(nmol)) and 4 * nmol == n):
-        raise NotImplementedError(f'non-contiguous water layouts: {ROADMAP_HINT}')
-    pos_w = positions.reshape(nmol, 4, 3)[:, :3]
+    if _contiguous(params, n):
+        pos_w = positions.reshape(nmol, 4, 3)[:, :3]
+        q_w, dq_w = water_charges_and_derivatives(pos_w)
+        zero = torch.zeros((nmol, 1), dtype=positions.dtype, device=positions.device)
+        return torch.cat([zero, q_w], dim=1).reshape(-1), dq_w
+    pos_w = positions[index_tensor(
+        np.stack([params.o_index, params.h1_index, params.h2_index], 1), positions)]
     q_w, dq_w = water_charges_and_derivatives(pos_w)
-    zero = torch.zeros((nmol, 1), dtype=positions.dtype, device=positions.device)
-    return torch.cat([zero, q_w], dim=1).reshape(-1), dq_w
+    charges = torch.zeros(n, dtype=positions.dtype, device=positions.device)
+    for k, idx in enumerate((params.h1_index, params.h2_index, params.m_index)):
+        charges = charges.index_put((index_tensor(idx, positions),), q_w[:, k])
+    return charges, dq_w
+
+
+def charge_derivative_forces(params: ElecParams, phi, dq_w):
+    """Forces [N, 3] (kJ/mol/nm) from the geometry dependence of the charges:
+    -ELECTRIC * dq/dr contracted with the per-site potential phi [N] at the
+    H1, H2 and M sites, on the O, H1 and H2 rows."""
+    f = units.ELECTRIC
+    n = phi.shape[0]
+    nmol = len(params.o_index)
+    if _contiguous(params, n):
+        f_atoms = -f * torch.einsum('masd,ms->mad', dq_w, phi.reshape(nmol, 4)[:, 1:])
+        pad = torch.zeros((nmol, 1, 3), dtype=phi.dtype, device=phi.device)
+        return torch.cat([f_atoms, pad], dim=1).reshape(-1, 3)
+    site_idx = index_tensor(np.stack([params.h1_index, params.h2_index, params.m_index], 1), phi)
+    f_atoms = -f * torch.einsum('masd,ms->mad', dq_w, phi[site_idx])
+    atom_idx = index_tensor(np.stack([params.o_index, params.h1_index, params.h2_index], 1), phi)
+    # every atom row appears once: the scatter has no collisions
+    return torch.zeros((n, 3), dtype=phi.dtype, device=phi.device).index_add(
+        0, atom_idx.reshape(-1), f_atoms.reshape(-1, 3))
 
 
 # ----------------------------------------------------------------------
@@ -268,8 +308,56 @@ def scf_induced_dipoles_aspc(efield_alpha, alpha, field_fn, target_epsilon,
                     epsilon=eps, converged=healthy)
 
 
+def scf_induced_dipoles_diis(efield_alpha, alpha, field_fn, target_epsilon,
+                             max_iterations, mu0=None, eps_floor=None, depth=5):
+    """DIIS/Anderson-accelerated SCF for the induced dipoles.
+
+    Fixed-point map g(mu) = efield_alpha + alpha * field_fn(mu), residual
+    r = g(mu) - mu. Each iteration extrapolates over the last `depth`
+    (g, r) pairs (Anderson type II: minimize |r_0 + D theta| with D_i =
+    r_{i+1} - r_0, a Tikhonov term 1e-8 * trace and a unit diagonal on the
+    slots not filled yet, without which the first iterations are singular),
+    then mu <- g_0 + sum_i theta_i (g_{i+1} - g_0). The metric and the stop
+    test (read on the host once per iteration) are the SOR loop's, so
+    `converged` means the same thing; there is no divergence stop.
+    Returns (mu, dict(iterations, epsilon, converged)) with tensor values.
+    """
+    n = efield_alpha.shape[0]
+    dt, dev = efield_alpha.dtype, efield_alpha.device
+    if dt == torch.float32:
+        target_epsilon = max(target_epsilon, f32_eps_floor(eps_floor))
+    m_dim = depth - 1
+    mu = efield_alpha if mu0 is None else mu0
+    gs = torch.zeros((depth,) + tuple(mu.shape), dtype=dt, device=dev)
+    rs = torch.zeros_like(gs)
+    eye = torch.eye(m_dim, dtype=dt, device=dev)
+    slots = torch.arange(m_dim, device=dev)
+    it = 0
+    while True:
+        g = efield_alpha + field_fn(mu) * alpha[:, None]
+        r = g - mu
+        eps = _metric(r, n)
+        gs = torch.cat([g[None], gs[:-1]])
+        rs = torch.cat([r[None], rs[:-1]])
+        valid = slots < min(it, m_dim)
+        d = torch.where(valid[:, None, None], rs[1:] - rs[0], 0.0).reshape(m_dim, -1)
+        a = d @ d.T
+        a = (a + 1e-8 * (torch.trace(a) + 1e-30) * eye
+             + torch.diag(torch.where(valid, 0.0, 1.0).to(dt)))
+        b = -(d @ rs[0].reshape(-1))
+        chol, _ = torch.linalg.cholesky_ex(a)
+        theta = torch.where(valid, torch.cholesky_solve(b[:, None], chol)[:, 0], 0.0)
+        mu = gs[0] + torch.einsum('k,knd->nd', theta, gs[1:] - gs[0])
+        it += 1
+        converged = float(eps) < target_epsilon
+        if converged or it >= max_iterations:
+            break
+    return mu, dict(iterations=torch.tensor(it, device=dev), epsilon=eps,
+                    converged=torch.tensor(converged, device=dev))
+
+
 def make_scf(params):
-    """SCF solver for params.scf_method ('sor' | 'aspc')."""
+    """SCF solver for params.scf_method ('sor' | 'diis' | 'aspc')."""
     floor = params.scf_eps_floor
     if params.scf_method == 'aspc':
         return functools.partial(scf_induced_dipoles_aspc,
@@ -278,5 +366,144 @@ def make_scf(params):
     if params.scf_method == 'sor':
         return functools.partial(scf_induced_dipoles, eps_floor=floor)
     if params.scf_method == 'diis':
-        raise NotImplementedError(f"scf_method='diis': {ROADMAP_HINT}")
+        return functools.partial(scf_induced_dipoles_diis, eps_floor=floor)
     raise ValueError(f'unknown scf_method {params.scf_method!r}')
+
+
+# ----------------------------------------------------------------------
+# Cluster (NoCutoff) energy and forces
+# ----------------------------------------------------------------------
+
+def _pair_tensors(params: ElecParams, positions):
+    """Dense [N, N] geometry and Thole tensors of a non-periodic system:
+    delta (r_j - r_i), r (1 on the diagonal before the square root), u = r /
+    (A_i A_j)^(1/6), the masks and the TDD gamma selection (same molecule:
+    TDDOH if either site is an O, else TDDHH; other molecules TDD). Masks
+    are applied with torch.where, so every shape is static."""
+    dt, dev = positions.dtype, positions.device
+    n = positions.shape[0]
+    delta = positions[None, :, :] - positions[:, None, :]
+    r2 = torch.sum(delta * delta, dim=-1)
+    notself = ~torch.eye(n, dtype=torch.bool, device=dev)
+    r = torch.sqrt(torch.where(notself, r2, 1.0))
+    d16 = torch.as_tensor(np.asarray(params.damping, np.float64) ** (1.0 / 6.0), dtype=dt,
+                          device=dev)
+    u = r / (d16[:, None] * d16[None, :])
+    mol = torch.as_tensor(np.asarray(params.mol_index, np.int64), device=dev)
+    same_mol = mol[:, None] == mol[None, :]
+    is_o = torch.as_tensor(np.asarray(params.atom_type) == 0, device=dev)
+    th = [torch.tensor(float(x), dtype=dt, device=dev) for x in params.thole]
+    gamma_dd = torch.where(same_mol,
+                           torch.where(is_o[:, None] | is_o[None, :], th[TDDOH], th[TDDHH]),
+                           th[TDD])
+    return dict(delta=delta, r=r, u=u, notself=notself, diff_mol=~same_mol & notself,
+                gamma_dd=gamma_dd)
+
+
+def cluster_electrostatics(params: ElecParams, positions, mu0=None):
+    """Energy (kJ/mol), forces (kJ/mol/nm) and diagnostics (SCF iterations,
+    epsilon, converged, charges, induced_dipoles) of a non-periodic system.
+
+    positions: [N, 3] nm with the M sites placed; mu0: optional dipole
+    predictor (ASPC) or warm start. The fixed field excludes same-molecule
+    pairs, the SCF field (TDD damping) excludes only i = j; the forces use
+    the reference's explicit formulas at the converged dipoles (the
+    reference's second 'polar' dipole copy is identical in MB-pol and is
+    folded in), plus the charge-derivative forces through dq/dr."""
+    dt = positions.dtype
+    f = units.ELECTRIC
+    t = _pair_tensors(params, positions)
+    delta, r, u = t['delta'], t['r'], t['u']
+    notself, diff_mol = t['notself'], t['diff_mol']
+
+    charges, dq_w = assemble_charges(params, positions)
+    alpha = torch.as_tensor(params.polarity, dtype=dt, device=positions.device)
+    th = [float(x) for x in params.thole]
+
+    inv_r = torch.where(notself, 1.0 / r, 0.0)
+    rr1 = inv_r
+    rr3 = inv_r ** 3
+    rr5 = 3.0 * inv_r ** 5
+    rr7 = 15.0 * inv_r ** 7
+
+    s_cc = thole_scales(u, th[TCC], orders=(1, 3))
+    s_cd = thole_scales(u, th[TCD], orders=(3, 5))
+    s_dd = thole_scales(u, t['gamma_dd'], orders=(3, 5, 7))
+
+    # fixed field: damped charge field, same-water pairs excluded
+    k3 = torch.where(diff_mol, rr3 * s_cc[3], 0.0)
+    efield = -torch.einsum('ij,j,ijd->id', k3, charges, delta)
+
+    # SCF (TDD damping, no exclusions)
+    s3 = torch.where(notself, -rr3 * s_dd[3], 0.0)
+    s5 = torch.where(notself, rr5 * s_dd[5], 0.0)
+    mu, diag = make_scf(params)(efield * alpha[:, None], alpha,
+                                lambda m: dipole_field(m, s3, s5, delta),
+                                params.target_epsilon, params.max_iterations, mu0=mu0)
+
+    # energy
+    mu_dot_d_i = torch.einsum('id,ijd->ij', mu, delta)       # mu_i . (r_j - r_i)
+    mu_dot_d_j = torch.einsum('jd,ijd->ij', mu, delta)       # mu_j . (r_j - r_i)
+    gl0 = torch.where(diff_mol, charges[:, None] * charges[None, :], 0.0)
+    gli0 = torch.where(diff_mol,
+                       charges[None, :] * mu_dot_d_i - charges[:, None] * mu_dot_d_j, 0.0)
+    e_pair = rr1 * gl0 * s_cc[1] + 0.5 * rr3 * gli0 * s_cd[3]
+    energy = 0.5 * f * torch.sum(torch.where(notself, e_pair, 0.0))
+
+    # pair forces
+    gfi0 = (rr5 * gli0 * s_cd[5] + rr5 * (mu @ mu.T) * s_dd[5]
+            - rr7 * (mu_dot_d_i * mu_dot_d_j) * s_dd[7])
+    coeff = torch.where(notself, rr3 * gl0 * s_cc[3] + gfi0, 0.0)
+    force_pair = torch.einsum('ij,ijd->id', coeff, delta)
+    w5 = torch.where(notself, rr5 * s_dd[5], 0.0)
+    force_pair = (force_pair + torch.einsum('ij,ij,id->id', w5, mu_dot_d_j, mu)
+                  + torch.einsum('ij,jd->id', w5 * mu_dot_d_i, mu))
+    # (q_i mu_j - q_j mu_i) rr3 s3cd summed over j
+    w3 = torch.where(diff_mol, rr3 * s_cd[3], 0.0)
+    force_pair = force_pair + charges[:, None] * (w3 @ mu) - mu * (w3 @ charges)[:, None]
+    forces = -f * force_pair
+
+    # charge-derivative forces: damped (TCC, orders 1/3) potentials at each
+    # site from every site of the other molecules
+    if params.include_charge_redistribution and dq_w is not None:
+        phi = (torch.einsum('ij,j->i', torch.where(diff_mol, s_cc[1] * rr1, 0.0), charges)
+               + torch.einsum('ij,ij->i', torch.where(diff_mol, s_cc[3] * rr3, 0.0),
+                              -mu_dot_d_j))
+        forces = forces + charge_derivative_forces(params, phi, dq_w)
+    return energy, forces, dict(**diag, charges=charges, induced_dipoles=mu)
+
+
+def system_moments(params: ElecParams, positions, masses):
+    """Net charge, dipole and traceless quadrupole about the centre of mass,
+    induced dipoles included, in the reference's 13-vector convention:
+    charge (e), dipole[3] (Debye), quadrupole[9] (Debye A)."""
+    _, _, diag = cluster_electrostatics(params, positions)
+    charges, mu = diag['charges'], diag['induced_dipoles']
+    m = torch.as_tensor(np.asarray(masses), dtype=positions.dtype, device=positions.device)
+    local = positions - torch.sum(m[:, None] * positions, dim=0) / torch.sum(m)
+
+    def quad(a, b):
+        return torch.sum(local[:, a] * local[:, b] * charges
+                         + local[:, a] * mu[:, b] + local[:, b] * mu[:, a])
+
+    xx, yy, zz = quad(0, 0), quad(1, 1), quad(2, 2)
+    xy, xz, yz = quad(0, 1), quad(0, 2), quad(1, 2)
+    qave = (xx + yy + zz) / 3.0
+    debye = 4.80321
+    q = torch.stack([0.5 * (xx - qave), 0.5 * xy, 0.5 * xz,
+                     0.5 * xy, 0.5 * (yy - qave), 0.5 * yz,
+                     0.5 * xz, 0.5 * yz, 0.5 * (zz - qave)]) * (100.0 * 3.0 * debye)
+    dpl = torch.sum(local * charges[:, None] + mu, dim=0) * (10.0 * debye)
+    return torch.cat([torch.sum(charges)[None], dpl, q])
+
+
+def electrostatic_potential_on_grid(params: ElecParams, positions, grid_points):
+    """Potential (kJ/mol/e) at grid_points [G, 3] (nm) from the charges and
+    the converged induced dipoles, undamped: [G]."""
+    _, _, diag = cluster_electrostatics(params, positions)
+    charges, mu = diag['charges'], diag['induced_dipoles']
+    delta = positions[None, :, :] - grid_points[:, None, :]      # site - grid point
+    r2 = torch.sum(delta * delta, dim=-1)
+    r = torch.sqrt(r2)
+    pot = charges[None, :] / r - torch.einsum('jd,gjd->gj', mu, delta) / (r2 * r)
+    return units.ELECTRIC * torch.sum(pot, dim=1)

@@ -326,11 +326,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
 
     # ---- charge-derivative forces ----
     if params.include_charge_redistribution and dq_w is not None:
-        nmol = len(params.o_index)
-        phi_sites = pot.reshape(nmol, 4)[:, 1:]
-        f_atoms = -f_elec * torch.einsum('masd,ms->mad', dq_w, phi_sites)
-        pad = torch.zeros((nmol, 1, 3), dtype=dt, device=dev)
-        forces = forces + torch.cat([f_atoms, pad], dim=1).reshape(-1, 3)
+        forces = forces + elec.charge_derivative_forces(params, pot, dq_w)
 
     energy = f_elec * (e_direct + e_recip_fixed + e_recip_ind + e_self)
     return energy, forces, dict(**diag, charges=charges, induced_dipoles=mu,

@@ -1,21 +1,26 @@
-"""The full MB-pol potential for PME water boxes
-(port of mbpol_openmm_plugin_tpu/models/potential.py).
+"""The full MB-pol potential (port of mbpol_openmm_plugin_tpu/models/potential.py).
 
 Positions of the real atoms in, per-term energies and total forces out.
-The smooth terms (one-body, 2B/3B PIPs, dispersion) get their forces from
-torch.autograd through the M-site placement; the electrostatic forces are
-explicit and the M-site share is redistributed with the average3 weights.
+The smooth terms (one-body, 2B/3B PIPs, dispersion, the cluster restraint)
+get their forces from torch.autograd through the M-site placement; the
+electrostatic forces are explicit and the M-site share is redistributed
+with the average3 weights.
 
-Accepted here: PME; electrostatics_mode 'auto', 'dense' or 'block'
-(block-sparse direct space for large boxes); dispersion_mode 'auto',
-'dense' or 'pairs'; scf_method 'sor'/'aspc'; analytic list capacities or
-capacities tuned from a configuration (`tune_capacities`). 'auto' resolves
-as the JAX package does: dense up to 2560 waters where the CUDA kernels run
-(the potential's device is a card), 512 otherwise; above that 'block' with
-the kernels and 'sparse' without, and 'pairs' dispersion whenever the
-electrostatics leave 'dense'. Every other option ('sparse' included)
-raises NotImplementedError (see ROADMAP.md). The box is an argument of
-each evaluation (`box`, default the system's), for the barostat.
+Accepted here: PME boxes and NoCutoff clusters (the cluster electrostatics
+of models/electrostatics.py); water-only systems, water + Cl- systems
+without the electrostatics term (the force field defines no ion
+electrostatics), and layouts other than the stride-4 OHHM block;
+electrostatics_mode 'auto', 'dense' or 'block' (block-sparse direct space
+for large PME boxes); dispersion_mode 'auto', 'dense' or 'pairs';
+scf_method 'sor', 'diis' or 'aspc'; the flat-bottom restraint of clusters
+(restraint_radius); analytic list capacities or capacities tuned from a
+configuration (`tune_capacities`). 'auto' resolves as the JAX package does:
+dense up to 2560 waters where the CUDA kernels run (the potential's device
+is a card), 512 otherwise; above that 'block' with the kernels and 'sparse'
+without, and 'pairs' dispersion whenever the electrostatics leave 'dense'.
+'sparse' raises NotImplementedError (see ROADMAP.md). The box is an
+argument of each evaluation (`box`, default the system's), for the
+barostat.
 
 The potential lives on one device (`device`, default 'cuda'; the tests
 pass 'cpu'): its entry points take numpy arrays or tensors and move them
@@ -35,13 +40,14 @@ from mbpol_openmm_plugin_tpu_torch.models import pme as pme_mod
 from mbpol_openmm_plugin_tpu_torch.models.dispersion import (PAIR_MARGIN, dispersion_energy,
                                                               dispersion_energy_pairs)
 from mbpol_openmm_plugin_tpu_torch.models.one_body import one_body_energy
+from mbpol_openmm_plugin_tpu_torch.models.restraint import flat_bottom_energy
 from mbpol_openmm_plugin_tpu_torch.models.three_body import three_body_energy
 from mbpol_openmm_plugin_tpu_torch.models.two_body import two_body_energy
 from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
 from mbpol_openmm_plugin_tpu_torch.ops import neighbors, polyeval
-from mbpol_openmm_plugin_tpu_torch.system import (System, _contiguous_waters,
-                                                  compute_virtual_sites,
-                                                  make_molecules_whole,
+from mbpol_openmm_plugin_tpu_torch.system import (System, _standard_layout,
+                                                  compute_virtual_sites, index_tensor,
+                                                  make_molecules_whole, oxygen_positions,
                                                   water_positions)
 
 # 'auto' keeps the dense direct space up to this many waters (the JAX
@@ -55,8 +61,8 @@ DENSE_LIMIT = 512
 @dataclasses.dataclass(frozen=True)
 class MBPolConfig:
     """Static evaluation options: the JAX package's MBPolConfig fields that
-    the port uses, with the same defaults (list compaction, reference
-    triplet semantics and the cluster restraint are not ported).
+    the port uses, with the same defaults (list compaction and the
+    reference triplet semantics are not ported).
 
     `pip_impl` picks the evaluator of the 2B/3B polynomials, `pip_basis`
     the basis construction of the 'quad' impl (ops/polyeval.pip_apply):
@@ -89,6 +95,11 @@ class MBPolConfig:
     scf_eps_floor: Optional[float] = None
     pip_impl: Optional[str] = None
     pip_basis: Optional[str] = None
+    # flat-bottom restraint of the oxygens about their instantaneous
+    # centroid (models/restraint.py): radius in nm (None: off), k in
+    # kJ/mol/nm^2; non-periodic systems only
+    restraint_radius: Optional[float] = None
+    restraint_k: float = 1000.0
     terms: tuple = ('electrostatics', 'one_body', 'two_body', 'three_body', 'dispersion')
 
     @classmethod
@@ -113,23 +124,20 @@ def _check_config(system: System, config: MBPolConfig):
         raise ValueError(config.nonbonded_method)
     if config.nonbonded_method == 'PME' and not system.periodic:
         raise ValueError('PME requires a periodic box')
-    if config.nonbonded_method == 'NoCutoff' and 'electrostatics' in config.terms:
-        raise _not_ported('cluster (NoCutoff) electrostatics')
+    if config.restraint_radius is not None and system.periodic:
+        # the instantaneous-centroid restraint is ill-defined under PBC
+        raise ValueError('restraint_radius is a cluster (non-periodic) feature')
     if 'electrostatics' in config.terms and system.n_ions:
-        raise ValueError('MB-pol electrostatics supports water-only systems')
+        raise ValueError('MB-pol electrostatics supports water-only systems (the force field '
+                         'defines no ion electrostatics parameters); drop "electrostatics" from '
+                         'MBPolConfig.terms to evaluate the other terms with ions')
     if config.electrostatics_mode not in ('auto', 'dense', 'block', 'sparse'):
         raise ValueError(f'unknown electrostatics_mode {config.electrostatics_mode!r}')
     if config.dispersion_mode not in ('auto', 'dense', 'pairs'):
         raise ValueError(f'unknown dispersion_mode {config.dispersion_mode!r}')
     polyeval._pip_impl_choice(config.pip_impl, config.pip_basis)   # raises on unknown values
-    unsupported = [
-        (config.scf_method not in ('sor', 'aspc'), f'scf_method={config.scf_method!r}'),
-        (system.n_ions > 0 or not _contiguous_waters(system),
-         'ions and non-standard site layouts'),
-    ]
-    for bad, what in unsupported:
-        if bad:
-            raise _not_ported(what)
+    if config.scf_method not in ('sor', 'diis', 'aspc'):
+        raise ValueError(f'unknown scf_method {config.scf_method!r}')
 
 
 def resolve_modes(system: System, config: MBPolConfig, has_pme, kernels):
@@ -188,7 +196,8 @@ class MBPol:
             if config.thole is not None:
                 self.elec_params = dataclasses.replace(
                     self.elec_params, thole=np.asarray(config.thole))
-            self.pme = pme_mod.PmeSetup.from_config(system, config)
+            if config.nonbonded_method == 'PME':
+                self.pme = pme_mod.PmeSetup.from_config(system, config)
         self.elec_mode, self.disp_mode = resolve_modes(
             system, config, self.pme is not None, kernels=self.device.type == 'cuda')
         self._block_info = None
@@ -198,6 +207,8 @@ class MBPol:
         if self.elec_mode == 'block':
             if self.pme is None:
                 raise ValueError('block electrostatics requires PME')
+            if not _standard_layout(system):
+                raise ValueError('block electrostatics requires the stride-4 water layout')
             # identity permutation until tune_capacities sees real positions;
             # correctness never depends on the sort (only the tile-pair count)
             n_sites = 4 * system.n_waters
@@ -245,7 +256,7 @@ class MBPol:
         shape stay those of the construction box or tune_capacities).
         Returns ((pairs, pmask), (trips, tmask), diag with overflow flags)."""
         sys_ = self.system
-        o_pos = positions[:4 * sys_.n_waters].reshape(sys_.n_waters, 4, 3)[:, 0]
+        o_pos = oxygen_positions(sys_, positions)
         box = sys_.box if box is None else box
         skin = self.config.nlist_skin
         pairs, pmask, n_p = neighbors.pair_list(o_pos, box,
@@ -294,6 +305,9 @@ class MBPol:
             else:
                 parts['dispersion'] = dispersion_energy(sys_, pos, cutoff=cfg.cutoff, box=box,
                                                         switch_width=sw)
+        if cfg.restraint_radius is not None:
+            parts['restraint'] = flat_bottom_energy(oxygen_positions(sys_, pos),
+                                                    cfg.restraint_radius, cfg.restraint_k)
         return parts
 
     def _energy_forces_impl(self, positions, mu0=None, nlists=None, box=None):
@@ -317,7 +331,7 @@ class MBPol:
         disp_pairs = None
         if self.disp_mode == 'pairs' and 'dispersion' in self.config.terms:
             # water-pair list at cutoff + PAIR_MARGIN (+ skin), every evaluation
-            o_pos = positions[:4 * sys_.n_waters].reshape(sys_.n_waters, 4, 3)[:, 0]
+            o_pos = oxygen_positions(sys_, positions)
             mp, mp_mask, n_mp = neighbors.pair_list(o_pos, box, self.disp_pair_cut,
                                                     self.disp_pair_cap)
             diag = dict(diag, disp_pair_overflow=n_mp > self.disp_pair_cap)
@@ -337,20 +351,16 @@ class MBPol:
         if self.elec_params is not None:
             pos_v = compute_virtual_sites(sys_, positions)
             with torch.no_grad():
-                e_elec, f_elec, ediag = pme_mod.pme_electrostatics(
-                    self.elec_params, self.pme, pos_v, mu0=mu0, block=self._block_info,
-                    tables=self._site_tables(), box=box)
+                if self.pme is None:
+                    e_elec, f_elec, ediag = elec.cluster_electrostatics(self.elec_params, pos_v,
+                                                                        mu0=mu0)
+                else:
+                    e_elec, f_elec, ediag = pme_mod.pme_electrostatics(
+                        self.elec_params, self.pme, pos_v, mu0=mu0, block=self._block_info,
+                        tables=self._site_tables(), box=box)
             diag.update(ediag)
             parts['electrostatics'] = e_elec
-            # redistribute M-site forces to the parents (average3 weights)
-            w = _data.load('forcefield')['vsite_weights']
-            f4 = f_elec.reshape(sys_.n_waters, 4, 3)
-            f_m = f4[:, 3]
-            f4 = torch.stack([f4[:, 0] + float(w[0]) * f_m,
-                              f4[:, 1] + float(w[1]) * f_m,
-                              f4[:, 2] + float(w[2]) * f_m,
-                              torch.zeros_like(f_m)], dim=1)
-            forces = forces + f4.reshape(-1, 3)
+            forces = forces + _redistribute_m_sites(sys_, f_elec)
             energy = energy + e_elec
         return energy, forces, parts, diag
 
@@ -375,7 +385,7 @@ class MBPol:
             return self
         sys_, cfg = self.system, self.config
         pos = make_molecules_whole(sys_, self.as_positions(positions))
-        o = pos[:4 * sys_.n_waters].reshape(sys_.n_waters, 4, 3)[:, 0]
+        o = oxygen_positions(sys_, pos)
         box, skin, n_w = sys_.box, cfg.nlist_skin, sys_.n_waters
         n_p, _, _ = neighbors.neighbor_counts(o, box, cfg.cutoff_2b + skin)
         _, degree, per_center = neighbors.neighbor_counts(o, box, cfg.cutoff_3b + skin,
@@ -416,18 +426,53 @@ class MBPol:
         return self
 
 
-def with_scf_method(pot: MBPol, method: str):
+def _redistribute_m_sites(system: System, f):
+    """Forces [natoms, 3] with each M-site row moved to its parents O, H1, H2
+    with the average3 weights (a reshape on the standard layout; the index
+    rows are unique otherwise, so the scatter has no collisions)."""
+    w = [float(x) for x in _data.load('forcefield')['vsite_weights']]
+    if _standard_layout(system):
+        f4 = f.reshape(system.n_waters, 4, 3)
+        f_m = f4[:, 3]
+        f4 = torch.stack([f4[:, 0] + w[0] * f_m, f4[:, 1] + w[1] * f_m,
+                          f4[:, 2] + w[2] * f_m, torch.zeros_like(f_m)], dim=1)
+        return f4.reshape(-1, 3)
+    m_rows = index_tensor(system.m_index, f)
+    f_m = f[m_rows]
+    f = f.index_put((m_rows,), torch.zeros_like(f_m))
+    for wk, idx in zip(w, (system.o_index, system.h1_index, system.h2_index)):
+        f = f.index_add(0, index_tensor(idx, f), wk * f_m)
+    return f
+
+
+def with_scf_method(pot: MBPol, method: str, aspc_n_corr: Optional[int] = None):
     """A new MBPol over the same topology, device, lists, capacities and
-    block layout with another SCF closure ('sor' | 'aspc'), as the JAX
-    function of that name. A cold single point converges to the same fixed
-    point under either, so only a trajectory changes: Simulation's
-    scf='auto' runs a SOR potential's dynamics under the ASPC closure."""
+    block layout with another SCF closure ('sor' | 'diis' | 'aspc') and,
+    when given, another ASPC corrector depth, as the JAX function of that
+    name. A cold single point converges to the same fixed point
+    under each, so only a trajectory changes: Simulation's scf='auto' runs
+    a SOR potential's dynamics under the ASPC closure."""
     if pot.elec_params is None:
         return pot
-    if method not in ('sor', 'aspc'):
-        raise _not_ported(f'scf_method={method!r}')
+    if method not in ('sor', 'diis', 'aspc'):
+        raise ValueError(f'unknown scf_method {method!r}')
+    changes = dict(scf_method=method)
+    if aspc_n_corr is not None:
+        changes['aspc_n_corr'] = int(aspc_n_corr)
     new = object.__new__(MBPol)
     new.__dict__.update(pot.__dict__)
-    new.config = dataclasses.replace(pot.config, scf_method=method)
-    new.elec_params = dataclasses.replace(pot.elec_params, scf_method=method)
+    new.config = dataclasses.replace(pot.config, **changes)
+    new.elec_params = dataclasses.replace(pot.elec_params, **changes)
     return new
+
+
+def inherit_capacities(src: MBPol, dst: MBPol):
+    """dst takes src's tuned list capacities, triplet-build shape and block
+    layout (both over the same topology), as the JAX function of that name:
+    the term-subset potentials of r-RESPA keep the parent's tune_capacities
+    operating point instead of the analytic bounds. Returns dst."""
+    for attr in ('pair_cap', 'trip_cap', 'nlist_k_max', 'nlist_kt', 'disp_pair_cap',
+                 '_block_info'):
+        if hasattr(src, attr):
+            setattr(dst, attr, getattr(src, attr))
+    return dst

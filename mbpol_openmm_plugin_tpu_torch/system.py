@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mbpol_openmm_plugin_tpu_torch import ROADMAP_HINT, _data
+from mbpol_openmm_plugin_tpu_torch import _data
 
 # atom class codes (order of the dispersion C6/d6 tables)
 CLASS_O, CLASS_H, CLASS_M, CLASS_CL = 0, 1, 2, 3
@@ -98,26 +98,45 @@ def _contiguous_waters(system: System):
     return bool(np.array_equal(system.o_index, 4 * np.arange(n)))
 
 
-def _water_blocks(system: System, positions):
-    """[n_waters, 4, 3] view of the standard water-only layout (the only one
-    ported; ions and other orderings are not, see ROADMAP.md)."""
-    if system.n_ions or not _contiguous_waters(system):
-        raise NotImplementedError(f'ions and non-standard site layouts: {ROADMAP_HINT}')
-    return positions.reshape(system.n_waters, 4, 3)
+def _standard_layout(system: System):
+    """True for the water-only stride-4 OHHM block: then every per-molecule
+    restructuring is a reshape."""
+    return system.n_ions == 0 and _contiguous_waters(system)
 
 
 def compute_virtual_sites(system: System, positions):
     """Place each water's M site: weights (w1, w2, w3) over (O, H1, H2).
     Differentiable."""
     w1, w2, w3 = (float(w) for w in _data.load('forcefield')['vsite_weights'])
-    p4 = _water_blocks(system, positions)
-    m = w1 * p4[:, 0] + w2 * p4[:, 1] + w3 * p4[:, 2]
-    return torch.cat([p4[:, :3], m[:, None]], dim=1).reshape(-1, 3)
+    if _standard_layout(system):
+        p4 = positions.reshape(system.n_waters, 4, 3)
+        m = w1 * p4[:, 0] + w2 * p4[:, 1] + w3 * p4[:, 2]
+        return torch.cat([p4[:, :3], m[:, None]], dim=1).reshape(-1, 3)
+    o, h1, h2 = (positions[index_tensor(i, positions)]
+                 for i in (system.o_index, system.h1_index, system.h2_index))
+    m_pos = w1 * o + w2 * h1 + w3 * h2
+    return positions.index_put((index_tensor(system.m_index, positions),), m_pos)
+
+
+def index_tensor(idx, like):
+    """A numpy index array as an int64 tensor on `like`'s device."""
+    return torch.as_tensor(np.asarray(idx, np.int64), device=like.device)
 
 
 def water_positions(system: System, positions):
-    """[n_waters, 3, 3] (O,H1,H2) position blocks."""
-    return _water_blocks(system, positions)[:, :3]
+    """[n_waters, 3, 3] (O,H1,H2) position blocks (a reshape on the standard
+    layout, a gather otherwise)."""
+    if _contiguous_waters(system):
+        return positions[:4 * system.n_waters].reshape(system.n_waters, 4, 3)[:, :3]
+    return positions[index_tensor(np.stack([system.o_index, system.h1_index, system.h2_index],
+                                           axis=1), positions)]
+
+
+def oxygen_positions(system: System, positions):
+    """[n_waters, 3] oxygen positions."""
+    if _contiguous_waters(system):
+        return positions[:4 * system.n_waters].reshape(system.n_waters, 4, 3)[:, 0]
+    return positions[index_tensor(system.o_index, positions)]
 
 
 def box_tensor(box, like):
@@ -126,16 +145,23 @@ def box_tensor(box, like):
 
 
 def make_molecules_whole(system: System, positions, box=None):
-    """Image each water's hydrogens (and M) next to its oxygen in `box`
-    (default the system's). A no-op for whole molecules and non-periodic
-    systems."""
+    """Image each water's hydrogens (and, on the standard layout, its M)
+    next to its oxygen in `box` (default the system's). A no-op for whole
+    molecules and non-periodic systems."""
     if not system.periodic:
         return positions
     box = box_tensor(system.box if box is None else box, positions)
-    p4 = _water_blocks(system, positions)
-    o = p4[:, 0:1]
-    rest = p4[:, 1:] + torch.floor((o - p4[:, 1:]) / box + 0.5) * box
-    return torch.cat([o, rest], dim=1).reshape(-1, 3)
+    if _standard_layout(system):
+        p4 = positions.reshape(system.n_waters, 4, 3)
+        o = p4[:, 0:1]
+        rest = p4[:, 1:] + torch.floor((o - p4[:, 1:]) / box + 0.5) * box
+        return torch.cat([o, rest], dim=1).reshape(-1, 3)
+    o = oxygen_positions(system, positions)
+    for idx in (system.h1_index, system.h2_index):
+        rows = index_tensor(idx, positions)
+        p = positions[rows]
+        positions = positions.index_put((rows,), p + torch.floor((o - p) / box + 0.5) * box)
+    return positions
 
 
 def minimum_image(delta, box):

@@ -22,6 +22,7 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.models.electrostatics',
     'mbpol_openmm_plugin_tpu_torch.models.pme',
     'mbpol_openmm_plugin_tpu_torch.models.potential',
+    'mbpol_openmm_plugin_tpu_torch.models.restraint',
     'mbpol_openmm_plugin_tpu_torch.ops.gather',
     'mbpol_openmm_plugin_tpu_torch.ops.polyeval',
     'mbpol_openmm_plugin_tpu_torch.ops.neighbors',
@@ -34,6 +35,7 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.ops.pip_fused_check',
     'mbpol_openmm_plugin_tpu_torch.ops._build',
     'mbpol_openmm_plugin_tpu_torch.md.integrators',
+    'mbpol_openmm_plugin_tpu_torch.md.rpmd',
     'mbpol_openmm_plugin_tpu_torch.md.simulation',
     'mbpol_openmm_plugin_tpu_torch.tools.step_breakdown',
 ]

@@ -13,8 +13,9 @@ function's own key splits.
   nlist_rebuild_interval=2 and cm_motion_interval=1 under the ASPC
   closure, and scf='keep' on a SOR potential; per-step potential energy and
   the final total energy within 1e-8 kJ/mol.
-- Langevin at friction 0 and Andersen at frequency 0 equal Verlet; RESPA
-  still raises.
+- Langevin at friction 0 and Andersen at frequency 0 equal Verlet;
+  respa_mid > 1 with Langevin raises ValueError (RESPA itself is in
+  test_torch_respa.py).
 
 The barostat's move and an NPT checkpoint replay are in
 test_torch_dynamic_box.py.
@@ -240,8 +241,10 @@ def test_zero_friction_and_zero_collisions_equal_verlet(water50):
 
 
 def test_respa_raises(water50):
+    """respa_mid > 1 runs velocity Verlet only: with Langevin it raises, as
+    the JAX Simulation does."""
     tsys = water50[0]
     pot = MBPol(tsys, MBPolConfig.for_dynamics(cutoff=CUTOFF), device='cpu')
-    for kw in (dict(respa_inner=2), dict(respa_mid=3)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            Simulation(pot, SimulationConfig(**kw))
+    with pytest.raises(ValueError, match='respa_mid'):
+        Simulation(pot, SimulationConfig(respa_mid=3, temperature=T_K, thermostat='langevin'))
+    Simulation(pot, SimulationConfig(respa_inner=2, temperature=T_K, thermostat='langevin'))

@@ -6,8 +6,8 @@ carried across by convert.from_jax_arrays. Bounds: |dE| <= 1e-6 kJ/mol per
 term, max |dF| <= 1e-6 kJ/mol/nm, equal SCF iteration counts; plus the
 reference golden totals of test_potential_pme.py. Also: tune_capacities
 gives the JAX tuned fields on water256, 'auto' resolves the modes as JAX
-does on both sides of 512 and 2560 waters, and the options outside the
-port raise.
+does on both sides of 512 and 2560 waters, and 'sparse' (the option
+outside the port) raises.
 """
 
 import numpy as np
@@ -110,19 +110,9 @@ def test_golden_total(evaluated):
 
 def test_not_ported_options_raise():
     sys_ = System.waters(3, box=[1.9] * 3)
-    for cfg in (dict(electrostatics_mode='sparse'), dict(scf_method='diis')):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            MBPol(sys_, MBPolConfig(nonbonded_method='PME', **cfg), device='cpu')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        MBPol(System.waters(3), MBPolConfig(nonbonded_method='NoCutoff'), device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        MBPol(System.waters(3, n_ions=1, box=[1.9] * 3),
-              MBPolConfig(nonbonded_method='PME', terms=('one_body', 'dispersion')),
+        MBPol(sys_, MBPolConfig(nonbonded_method='PME', electrostatics_mode='sparse'),
               device='cpu')
-    for respa in (dict(respa_inner=2), dict(respa_mid=2)):
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            Simulation(MBPol(sys_, MBPolConfig.for_dynamics(), device='cpu'),
-                       SimulationConfig(temperature=300.0, thermostat='langevin', **respa))
     # above the CPU's dense limit 'auto' picks the sparse mode, not ported
     big = System.waters(600, box=[_side(600)] * 3)
     with pytest.raises(NotImplementedError, match='ROADMAP'):
