@@ -127,11 +127,24 @@ Phases (any failure raises and the script exits non-zero):
      mean T over the second half within 300 +/- 30 K. Each run prints outer
      and base-step-equivalent steps/s beside phase 5's rate and the K1/K2
      launches per outer step.
+ 19. the captured step: for water256 (dense, 200 steps) and water4096
+     (block + pairs after tune_capacities, 50 steps), the same steps from
+     the same state run eagerly (Simulation(..., _eager=True)) and
+     captured: E_tot traces and final positions and velocities equal bit
+     for bit; the captured groups run under
+     torch.cuda.set_sync_debug_mode('error') (a synchronizing call raises;
+     the warm-up step and the capture excepted); wall ms per step of each,
+     in the order eager / captured / captured / eager, steps/s and the
+     speedup, the capture time.
+Phases 5, 8, 11, 13-15 and 17 run each MD step as a replay of one CUDA graph
+(Simulation.captured; the kernel wrappers' launch counts include the
+replays); phase 18 (r-RESPA) runs the same step body eagerly.
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 
 Usage: python3 chip_smoke.py     (needs one CUDA card; no arguments)
 """
+import contextlib
 import json
 import os
 import sys
@@ -470,6 +483,7 @@ def phase_md(torch, card, record):
     system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
     pot = MBPol(system, MBPolConfig.for_dynamics())
     sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    assert sim.captured
     sim.set_positions(pos)
     torch.cuda.synchronize()
     ED.reset_launch_counts()
@@ -491,7 +505,8 @@ def phase_md(torch, card, record):
         f'T_end {out["temperature"][-1]:.2f} K')
     log(f'  {MD_STEPS} steps in {wall:.3f} s = {MD_STEPS / wall:.2f} steps/s, including the two '
         f'converged evaluations step() makes at the chunk start and end (one takes '
-        f'{cold_ms:.1f} ms) ({card})')
+        f'{cold_ms:.1f} ms) and the graph capture ({sim.capture_ms[0]:.1f} ms) ({card}); list '
+        f'rebuilds {sim.list_rebuilds}')
     log(f'  kernel launches during the MD run: {launches}')
     assert np.all(np.isfinite(e_tot)), out
     assert abs(fit) <= MD_FIT_TOL_KJ, fit
@@ -665,6 +680,7 @@ def phase_md4096(torch, card, record, pot, pos):
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as BS
 
     sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    assert sim.captured
     sim.set_positions(pos)
     torch.cuda.synchronize()
     BS.reset_launch_counts()
@@ -681,7 +697,8 @@ def phase_md4096(torch, card, record, pot, pos):
         f'change {fit:+.4f} kJ/mol = {fit / N_COPIES:+.4f} per water256 copy (bound |fit| <= '
         f'{MD4096_FIT_TOL_KJ:.1f}); T_end {out["temperature"][-1]:.2f} K')
     log(f'  {MD4096_STEPS} steps in {wall:.3f} s = {MD4096_STEPS / wall:.3f} steps/s, including '
-        f'the two converged evaluations step() makes at the chunk start and end ({card})')
+        f'the two converged evaluations step() makes at the chunk start and end and the graph '
+        f'capture ({sim.capture_ms[0]:.1f} ms) ({card}); list rebuilds {sim.list_rebuilds}')
     log(f'  kernel launches during the MD run: {launches}; peak device memory '
         f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB')
     assert np.all(np.isfinite(e_tot)), out
@@ -843,6 +860,7 @@ def phase_pip_md(torch, card, record, quad_steps_per_s):
         steps = MD_STEPS if impl == 'quad_bf16' else PIP_MD_STEPS_SHORT
         pot = MBPol(system, MBPolConfig.for_dynamics(pip_impl=impl))
         sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+        assert sim.captured
         sim.set_positions(pos)
         torch.cuda.synchronize()
         PF.reset_launch_counts()
@@ -974,6 +992,7 @@ def phase_nvt(torch, card):
     for name, thermostat, steps in runs:
         sim = Simulation(pot, md_config(temperature=NVT_T_K, cm_motion_interval=1,
                                         **thermostat), seed=1)
+        assert sim.captured
         sim.set_positions(pos)
         sim.set_velocities_to_temperature(NVT_T_K)
         torch.cuda.synchronize()
@@ -1004,6 +1023,7 @@ def npt_simulation(pot, pos, interval, seed):
     sim = Simulation(pot, md_config(temperature=NVT_T_K, thermostat='langevin', friction=1.0,
                                     barostat_pressure=1.0, barostat_interval=interval),
                      seed=seed)
+    assert sim.captured
     sim.set_positions(pos)
     sim.set_velocities_to_temperature(NVT_T_K)
     return sim
@@ -1040,6 +1060,11 @@ def run_npt(torch, card, sim, steps, interval, kernels):
         f'box {sim.state.box[0]:.5f} nm, dV/V {dv:+.4%}; move scale '
         f'{sim._baro[0]:.5f} nm^3; accepted moves\' energy vs a fresh evaluation: max relative '
         f'{max(e_rel, default=0.0):.3e} (bound {NPT_E_REL}); launches {launches}')
+    captures = sim.capture_ms
+    log(f'  graph captures: {len(captures)} (the first box and each box a move moved to '
+        f'before a group), {np.mean(captures):.1f} ms each on the mean (min '
+        f'{np.min(captures):.1f}, max {np.max(captures):.1f}), {np.sum(captures) / 1e3:.3f} s '
+        f'of the {wall:.3f} s')
     assert attempted == steps // interval, attempted
     assert all(r <= NPT_E_REL for r in e_rel), e_rel
     assert all(n >= steps for n in launches.values()), launches
@@ -1393,6 +1418,104 @@ def respa_simulation(torch, pot, pos, temperature=None, **scfg):
     return sim
 
 
+CAPTURE_STEPS = {256: MD_STEPS, 4096: 50}
+
+
+@contextlib.contextmanager
+def sync_checked_replays(torch):
+    """Every step of Simulation's groups under
+    torch.cuda.set_sync_debug_mode('error') (a synchronizing call raises),
+    except a graph's warm-up and capture (torch.cuda.graph synchronizes
+    the device on entry)."""
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation
+    from mbpol_openmm_plugin_tpu_torch.md.step_graph import StepGraph
+    group, capture = Simulation._group, StepGraph._warm_up_and_capture
+
+    def strict_group(self, *a):
+        torch.cuda.set_sync_debug_mode('error')
+        try:
+            return group(self, *a)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+
+    def lenient_capture(self, body):
+        torch.cuda.set_sync_debug_mode(0)
+        try:
+            capture(self, body)
+        finally:
+            torch.cuda.set_sync_debug_mode('error')
+    Simulation._group, StepGraph._warm_up_and_capture = strict_group, lenient_capture
+    try:
+        yield
+    finally:
+        Simulation._group, StepGraph._warm_up_and_capture = group, capture
+
+
+def phase_captured_step(torch, card):
+    """Phase 19: the same steps eager and captured from the same state,
+    water256 (dense) and water4096 (block + pairs): E_tot traces equal bit
+    for bit, the captured groups free of synchronizing calls, the rates."""
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+
+    probe = torch.ones(1, device='cuda')
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        probe.item()
+        raise AssertionError("set_sync_debug_mode('error') let .item() through")
+    except RuntimeError:
+        pass
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    rows = {}
+    for waters, steps in CAPTURE_STEPS.items():
+        if waters == 256:
+            system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+            pot = MBPol(system, MBPolConfig.for_dynamics())
+        else:
+            pot, pos = water4096_potential(torch, card)
+
+        def run(eager, checked=False):
+            sim = Simulation(pot, md_config(), _eager=eager)
+            assert sim.captured == (not eager), sim.captured
+            sim.set_positions(pos)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if checked:
+                with sync_checked_replays(torch):
+                    out = sim.step(steps)
+            else:
+                out = sim.step(steps)
+            torch.cuda.synchronize()
+            return sim, out, time.perf_counter() - t0
+
+        sim_e, out_e, wall_e = run(True)
+        sim_c, out_c, wall_c = run(False, checked=True)
+        same = (np.array_equal(out_e['step_total_energy'], out_c['step_total_energy'])
+                and bool(torch.equal(sim_e.state.positions, sim_c.state.positions))
+                and bool(torch.equal(sim_e.state.velocities, sim_c.state.velocities)))
+        # the other order, for the rates
+        _, _, wall_c2 = run(False)
+        _, _, wall_e2 = run(True)
+        ms_e = 1e3 * (wall_e + wall_e2) / (2 * steps)
+        ms_c = 1e3 * (wall_c + wall_c2) / (2 * steps)
+        log(f'  water{waters} ({pot.elec_mode}/{pot.disp_mode}), {steps} steps from the same '
+            f'state: E_tot traces and final state equal bit for bit: {same}; the captured groups '
+            f"ran under set_sync_debug_mode('error'); graph capture {sim_c.capture_ms[0]:.1f} ms; "
+            f'list rebuilds {sim_c.list_rebuilds}')
+        log(f'    wall per step (the call, its converged seed and health check included; '
+            f'two runs each, eager / captured / captured / eager): eager {1e3 * wall_e / steps:.3f}'
+            f' / {1e3 * wall_e2 / steps:.3f} ms, captured {1e3 * wall_c / steps:.3f} / '
+            f'{1e3 * wall_c2 / steps:.3f} ms; {1e3 / ms_e:.2f} -> {1e3 / ms_c:.2f} steps/s, '
+            f'speedup {ms_e / ms_c:.2f}x ({card})')
+        assert same, (out_e['step_total_energy'][-3:], out_c['step_total_energy'][-3:])
+        assert np.all(np.isfinite(out_c['step_total_energy'])), out_c
+        rows[waters] = (1e3 / ms_e, 1e3 / ms_c)
+        del pot, sim_e, sim_c
+        torch.cuda.empty_cache()
+    return rows
+
+
 def phase_respa(torch, card, base_rate):
     """Phase 18: r-RESPA on water256 PME (for_dynamics), K1/K2 on every rung
     that holds the electrostatics."""
@@ -1516,6 +1639,9 @@ def main():
     phase_cluster_md(torch, card)
     log('== phase 18: r-RESPA (water256 PME, for_dynamics)')
     phase_respa(torch, card, quad_steps_per_s)
+    log(f'== phase 19: captured step against the eager step (water256 {CAPTURE_STEPS[256]} '
+        f'steps, water4096 {CAPTURE_STEPS[4096]})')
+    phase_captured_step(torch, card)
 
     log(card)
     log(json.dumps({'kernels': [record[k] for k in KERNELS]}))

@@ -30,6 +30,7 @@ import torch
 
 from mbpol_openmm_plugin_tpu_torch.system import System
 from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 # 1 bar in kJ/mol/nm^3
 BAR_KJ_MOL_NM3 = 0.0602214076
@@ -46,19 +47,18 @@ class MDState:
 
 
 def _masses(system: System, like):
-    return torch.as_tensor(np.asarray(system.masses), dtype=like.dtype,
-                           device=like.device)[:, None]
+    return device_const(np.asarray(system.masses), dtype=like.dtype, device=like.device)[:, None]
 
 
 def inv_masses(system: System, like):
     m = np.asarray(system.masses)
     inv = np.where(m > 0, 1.0 / np.where(m > 0, m, 1.0), 0.0)
-    return torch.as_tensor(inv, dtype=like.dtype, device=like.device)[:, None]
+    return device_const(inv, dtype=like.dtype, device=like.device)[:, None]
 
 
 def kinetic_energy(system: System, velocities):
-    m = torch.as_tensor(np.asarray(system.masses), dtype=velocities.dtype,
-                        device=velocities.device)
+    m = device_const(np.asarray(system.masses), dtype=velocities.dtype,
+                     device=velocities.device)
     return 0.5 * torch.sum(m[:, None] * velocities * velocities)
 
 
@@ -74,7 +74,7 @@ def maxwell_boltzmann_velocities(system: System, temperature_k, normals):
     m = np.asarray(system.masses)
     sigma = np.sqrt(units.BOLTZMANN_KJ_MOL_K * temperature_k / np.where(m > 0, m, 1.0))
     sigma = np.where(m > 0, sigma, 0.0)
-    return normals * torch.as_tensor(sigma, dtype=normals.dtype, device=normals.device)[:, None]
+    return normals * device_const(sigma, dtype=normals.dtype, device=normals.device)[:, None]
 
 
 def velocity_verlet_step(system: System, energy_forces_fn, state: MDState, dt):
@@ -201,7 +201,7 @@ def andersen_thermostat(system: System, state: MDState, dt, temperature_k,
     new velocities."""
     m = np.asarray(system.masses)
     p_collide = 1.0 - np.exp(-collision_frequency * dt)
-    real = torch.as_tensor(m > 0, device=uniforms.device)
+    real = device_const(m > 0, device=uniforms.device)
     hit = (uniforms < p_collide) & real
     v_new = maxwell_boltzmann_velocities(system, temperature_k, normals)
     return dataclasses.replace(state, velocities=torch.where(hit[:, None], v_new,

@@ -17,11 +17,17 @@ volume moves; with scf='keep' each step's SOR loop starts from the last
 step's dipoles (scf_warm_start).
 
 The box is a host float64 triple in the state, an argument of every
-evaluation. Host reads: the displacement trigger once per step ('auto'),
-the SOR loop's stop test once per iteration (scf='keep' and every
-converged evaluation), and per barostat move its two uniforms and the two
-energies. Random numbers come from one torch.Generator on the potential's
-device, seeded by `seed`; a checkpoint carries its state.
+evaluation. An MD step reads nothing on the host: the displacement trigger
+is a flag on the device that selects between the lists built at the step's
+positions and the carried ones (as the JAX package's lax.cond), the draws
+are made before the step into its buffers, and CM removal follows it. On a
+card such a step is replayed as one CUDA graph (`Simulation`'s docstring
+says when). Host reads stay at the chunk's edges: the per-step energies
+after the chunk, the health check, and per barostat move its two uniforms
+and two energies; and in the SOR loop's stop test once per iteration
+(scf='keep' on a SOR potential, and every converged evaluation). Random
+numbers come from one torch.Generator on the potential's device, seeded by
+`seed`; a checkpoint carries its state.
 
 r-RESPA: respa_inner > 1 runs the one-body term at dt / respa_inner inside
 an outer step dt of the other terms (velocity Verlet or BAOAB Langevin);
@@ -50,10 +56,12 @@ import torch
 from mbpol_openmm_plugin_tpu_torch.md import integrators as I
 from mbpol_openmm_plugin_tpu_torch.md.minimize import lbfgs_minimize
 from mbpol_openmm_plugin_tpu_torch.md.rpmd import mbpol_intra_inter_split, term_subset
+from mbpol_openmm_plugin_tpu_torch.md.step_graph import StepGraph
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, with_scf_method
 from mbpol_openmm_plugin_tpu_torch.system import oxygen_positions
 from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 RESPA_FORCES = ('slow', 'mid', 'fast')
 
@@ -106,9 +114,26 @@ class SimulationConfig:
 
 
 class Simulation:
-    """MD driver over an MBPol potential."""
+    """MD driver over an MBPol potential.
 
-    def __init__(self, potential: MBPol, config: Optional[SimulationConfig] = None, seed=0):
+    Every MD step runs one body (`_body`) on the static buffers of a
+    `StepGraph` (md/step_graph.py). `captured` is True, and each step at a
+    box is one replay of a CUDA graph of that body, when the potential's
+    device is a card and the step reads nothing on the host: no r-RESPA,
+    and the trajectory's closure is ASPC with a warm start (scf='auto' on a
+    SOR or ASPC potential with scf_warm_start) or there is no
+    electrostatics term. r-RESPA, scf='keep' on a SOR potential, a DIIS
+    potential, cold evaluations and the CPU run the same body eagerly (every
+    SOR or DIIS iteration reads its stop test on the host); so do the converged
+    evaluations (the chunk's seed, the health check, the barostat's trial
+    energies, minimization). The graph is captured at the first step at a
+    box, after one eager step at it on a side stream, and again after an
+    accepted barostat move. A failed capture or replay raises. `_eager=True`
+    runs the body eagerly on a card too (for comparisons).
+    """
+
+    def __init__(self, potential: MBPol, config: Optional[SimulationConfig] = None, seed=0,
+                 _eager=False):
         self.config = config if config is not None else SimulationConfig()
         cfg = self.config
         if cfg.scf not in ('auto', 'keep'):
@@ -141,6 +166,31 @@ class Simulation:
         # RESPA force carry: dict(positions, box, slow, mid, fast), valid
         # while the state's positions are that tensor and the box is equal
         self._respa_f = None
+        self._eager = bool(_eager)
+        self._graph = None          # the StepGraph of the current box
+        self.capture_ms = []        # host ms of each graph capture so far
+        self._rebuilds = None       # 'auto' list rebuilds so far (device int)
+
+    @property
+    def _respa(self):
+        cfg = self.config
+        return int(cfg.respa_inner) > 1 or int(cfg.respa_mid) > 1
+
+    @property
+    def captured(self):
+        """True when each MD step replays a CUDA graph (the rule in the
+        class docstring)."""
+        pot, cfg = self.potential, self.config
+        closure_on_device = pot.elec_params is None or (
+            cfg.scf_warm_start and pot.config.scf_method == 'aspc')
+        return (pot.device.type == 'cuda' and not self._eager and not self._respa
+                and closure_on_device)
+
+    @property
+    def list_rebuilds(self):
+        """Displacement-triggered list rebuilds inside the steps so far
+        ('auto'; the builds at each group's start are not counted)."""
+        return 0 if self._rebuilds is None else int(self._rebuilds)
 
     # ------------------------------------------------------------------
     def _normal(self, shape):
@@ -176,25 +226,36 @@ class Simulation:
 
     # ------------------------------------------------------------------
     def _auto_rebuild(self, nl_carry, p, box, pot):
-        """Rebuild the lists at p through pot when 2 * max O displacement
-        since the last build exceeds skin / 2. nl_carry = (lists, build
-        positions, overflow flag); a rebuild's overflow ORs into the flag."""
-        nl, pb, ovf = nl_carry
+        """The lists at p through pot where 2 * max O displacement since the
+        last build exceeds skin / 2, else the carried ones: the
+        counterpart of the JAX package's lax.cond, on the device. The lists
+        are built every call and selected with the trigger, a 0-d bool on
+        the device compared in float64 as the host compared float(2 disp)
+        with 0.5 skin. nl_carry = (lists, build positions, overflow flag); a
+        rebuild's overflow ORs into the flag. Returns (nl_carry', trigger)."""
+        ((pairs, pmask), (trips, tmask)), pb, ovf = nl_carry
         o_p, o_b = oxygen_positions(self.system, p), oxygen_positions(self.system, pb)
         disp = torch.max(torch.linalg.norm(o_p - o_b, dim=-1))
-        if float(2.0 * disp) > 0.5 * pot.config.nlist_skin:
-            (pl, tl), d = pot.build_neighbor_lists(p, box)
-            return (pl, tl), p, ovf | d['pair_overflow'] | d['triplet_overflow']
-        return nl_carry
+        fire = (2.0 * disp).to(torch.float64) > 0.5 * pot.config.nlist_skin
+        ((pairs_n, pmask_n), (trips_n, tmask_n)), d = pot.build_neighbor_lists(p, box)
+        ovf_n = ovf | d['pair_overflow'] | d['triplet_overflow']
+
+        def sel(new, old):
+            return torch.where(fire, new, old)
+        return (((sel(pairs_n, pairs), sel(pmask_n, pmask)),
+                 (sel(trips_n, trips), sel(tmask_n, tmask))),
+                sel(p, pb), sel(ovf_n, ovf)), fire
 
     def _evaluate(self, pot, p, mu0, nlists, run, box, rebuild=False):
         """pot's evaluation at p with the run's current lists (rebuilt first
-        when rebuild and the displacement trigger fires); its overflow
-        flags join the run's. Returns (E, F, diag)."""
+        when rebuild and the displacement trigger fires; run['rebuilds']
+        counts the triggers); its overflow flags join the run's. Returns
+        (E, F, diag)."""
         nl = nlists
         if run['nl'] is not None:
             if rebuild:
-                run['nl'] = self._auto_rebuild(run['nl'], p, box, pot)
+                run['nl'], fire = self._auto_rebuild(run['nl'], p, box, pot)
+                run['rebuilds'] = run['rebuilds'] + fire
             nl = run['nl'][0]
         e, f, _, diag = pot._energy_forces_impl(p, mu0, nlists=nl, box=box)
         for k, v in diag.items():
@@ -222,25 +283,41 @@ class Simulation:
         cfg = self.config
         return cfg.thermostat if cfg.temperature is not None else 'none'
 
-    def _after_step(self, state):
-        """Andersen collisions and CM-motion removal after an integrator step."""
+    def _draws(self):
+        """One step's random draws, in the order the steps consume them:
+        Langevin's normals ([respa_inner, natoms, 3] under RESPA), or
+        Andersen's uniforms [natoms] then normals [natoms, 3]; nothing
+        else draws inside a step, so drawing them before it gives the
+        generator's sequence of the step-by-step loop."""
+        shape = tuple(self.state.positions.shape)
+        th, cfg = self._thermostat(), self.config
+        if th == 'langevin':
+            return dict(noise=self._normal(((int(cfg.respa_inner),) + shape) if self._respa
+                                           else shape))
+        if th == 'andersen':
+            uniforms = self._uniform(shape[:1])
+            return dict(uniforms=uniforms, normals=self._normal(shape))
+        return {}
+
+    def _after_step(self, state, draws):
+        """Andersen collisions after an integrator step."""
         cfg = self.config
         if self._thermostat() == 'andersen':
-            shape = tuple(state.positions.shape)
             state = I.andersen_thermostat(self.system, state, cfg.dt, cfg.temperature,
-                                          cfg.collision_frequency,
-                                          self._uniform(shape[:1]), self._normal(shape))
-        k = int(cfg.cm_motion_interval)
-        if k and state.step % k == 0:
-            state = dataclasses.replace(
-                state, velocities=I.remove_cm_motion(self.system, state.velocities))
+                                          cfg.collision_frequency, draws['uniforms'],
+                                          draws['normals'])
         return state
 
-    def _one_step(self, state, nlists, run):
-        """One integrator step (+ thermostat, + CM removal). run: the
-        chunk's mutable carry ('nl': auto-rebuild carry or None, 'ovf':
-        overflow flag, 'mu': dipole history or None, 'B': ASPC predictor
-        coefficients or None)."""
+    def _cm_due(self, step):
+        k = int(self.config.cm_motion_interval)
+        return bool(k) and step % k == 0
+
+    def _one_step(self, state, nlists, run, draws):
+        """One integrator step (+ thermostat; CM removal is the caller's).
+        run: the chunk's mutable carry ('nl': auto-rebuild carry or None,
+        'ovf': overflow flag, 'mu': dipole history or None, 'B': ASPC
+        predictor coefficients or None, 'rebuilds': trigger count);
+        draws: `_draws()`."""
         cfg, pot = self.config, self.potential
         box = state.box
         mu0 = self._predictor(run)
@@ -253,11 +330,41 @@ class Simulation:
 
         if self._thermostat() == 'langevin':
             state = I.langevin_step(self.system, ef, state, cfg.dt, cfg.temperature,
-                                    cfg.friction, self._normal(tuple(state.positions.shape)))
+                                    cfg.friction, draws['noise'])
         else:
             state = I.velocity_verlet_step(self.system, ef, state, cfg.dt)
         self._push(run, out['mu'])
-        return self._after_step(state)
+        return self._after_step(state, draws)
+
+    def _body(self, g):
+        """One MD step on the static buffers of g (a `StepGraph`): the
+        integrator step with its evaluation (and on 'auto' the list
+        select), the thermostat, the ASPC push and the kinetic energy,
+        written back into the buffers in place. On a card this is what the
+        graph holds; everywhere else it runs as it stands. It reads no
+        device value on the host and copies nothing from it."""
+        b = g.buffers
+        state = I.MDState(positions=b['positions'], velocities=b['velocities'],
+                          forces=b['forces'], potential_energy=b['pe'], box=g.box)
+        nl = g.lists()
+        run = dict(nl=None if 'nl_pos' not in b else (nl, b['nl_pos'], b['nl_ovf']),
+                   ovf=b['ovf'], mu=b.get('mu'), B=g.B, rebuilds=b.get('rebuilds'))
+        state = self._one_step(state, None if 'nl_pos' in b else nl, run,
+                               {k: b[k] for k in ('noise', 'uniforms', 'normals') if k in b})
+        b['positions'].copy_(state.positions)
+        b['velocities'].copy_(state.velocities)
+        b['forces'].copy_(state.forces)
+        b['pe'].copy_(state.potential_energy)
+        b['ke'].copy_(I.kinetic_energy(self.system, state.velocities))
+        b['ovf'].copy_(run['ovf'])
+        if 'mu' in b:
+            b['mu'].copy_(run['mu'])
+        if 'nl_pos' in b:
+            ((pairs, pmask), (trips, tmask)), pos, ovf = run['nl']
+            for k, v in zip(('pairs', 'pmask', 'trips', 'tmask', 'nl_pos', 'nl_ovf'),
+                            (pairs, pmask, trips, tmask, pos, ovf)):
+                b[k].copy_(v)
+            b['rebuilds'].copy_(run['rebuilds'])
 
     # ------------------------------------------------------------------
     def _respa_rungs(self):
@@ -314,7 +421,7 @@ class Simulation:
         return (f is not None and f['positions'] is state.positions
                 and np.array_equal(np.asarray(f['box']), np.asarray(state.box)))
 
-    def _one_step_respa(self, state, nlists, run):
+    def _one_step_respa(self, state, nlists, run, draws):
         """One r-RESPA outer step on the carried rung forces
         (self._respa_f, valid at state.positions)."""
         cfg = self.config
@@ -357,8 +464,7 @@ class Simulation:
             n = int(cfg.respa_inner)
             state, f_slow, f_fast = I.respa_langevin_step(
                 self.system, ef_fast, ef_slow, state, fc['slow'], cfg.dt, n, cfg.temperature,
-                cfg.friction, self._normal((n,) + tuple(state.positions.shape)),
-                f_fast=fc['fast'])
+                cfg.friction, draws['noise'], f_fast=fc['fast'])
             f_mid = None
         else:
             state, f_slow, f_fast = I.respa_velocity_verlet_step(
@@ -367,7 +473,7 @@ class Simulation:
             f_mid = None
         self._respa_f = dict(positions=state.positions, box=box, slow=f_slow, mid=f_mid,
                              fast=f_fast)
-        return self._after_step(state)
+        return self._after_step(state, draws)
 
     def _energy_at(self, run):
         """The barostat's converged evaluation (positions, box) -> (E, F);
@@ -394,22 +500,23 @@ class Simulation:
         warm = cfg.scf_warm_start and pot.elec_params is not None
         aspc = warm and pot.config.scf_method == 'aspc'
         dev = state.positions.device
-        B = (torch.as_tensor(elec.aspc_predictor_coefficients(pot.config.aspc_k),
-                             dtype=state.positions.dtype, device=dev) if aspc else None)
+        B = (device_const(elec.aspc_predictor_coefficients(pot.config.aspc_k),
+                          dtype=state.positions.dtype, device=dev) if aspc else None)
         mu = None
         if warm:
             # seed the dipoles from a converged evaluation at the chunk's start
             mu = pot._energy_forces_impl(state.positions, box=state.box)[3]['induced_dipoles']
             if aspc:
                 mu = mu[None].repeat(len(B), 1, 1)
-        respa = int(cfg.respa_inner) > 1 or int(cfg.respa_mid) > 1
+        respa = self._respa
         pot_nl = self._respa_rungs()['inter'] if respa else pot
 
         baro = self._barostat
         group = reuse if reuse > 1 else (cfg.barostat_interval if baro else n_steps)
         if baro:
             group = min(group, cfg.barostat_interval)
-        run = dict(nl=None, ovf=torch.zeros((), dtype=torch.bool, device=dev), mu=mu, B=B)
+        run = dict(nl=None, ovf=torch.zeros((), dtype=torch.bool, device=dev), mu=mu, B=B,
+                   rebuilds=torch.zeros((), dtype=torch.int64, device=dev) if auto_nl else None)
         pes, kes = [], []
         moves = [0, 0]
         done = 0
@@ -423,15 +530,22 @@ class Simulation:
                     run['nl'] = ((pl, tl), state.positions, run['ovf'])
                 else:
                     nlists = (pl, tl)
-            if respa and not self._respa_carry_valid(state):
-                self._respa_f = self._respa_seed(state, nlists, run)
-            for _ in range(n):
-                if respa:
-                    state = self._one_step_respa(state, nlists, run)
-                else:
-                    state = self._one_step(state, nlists, run)
-                pes.append(state.potential_energy)
-                kes.append(I.kinetic_energy(self.system, state.velocities))
+            if respa:
+                if not self._respa_carry_valid(state):
+                    self._respa_f = self._respa_seed(state, nlists, run)
+                pe, ke = [], []
+                for _ in range(n):
+                    state = self._one_step_respa(state, nlists, run, self._draws())
+                    if self._cm_due(state.step):
+                        state = dataclasses.replace(state, velocities=I.remove_cm_motion(
+                            self.system, state.velocities))
+                    pe.append(state.potential_energy)
+                    ke.append(I.kinetic_energy(self.system, state.velocities))
+                pe, ke = torch.stack(pe), torch.stack(ke)
+            else:
+                state, pe, ke = self._group(state, nlists, run, n)
+            pes.append(pe)
+            kes.append(ke)
             if run['nl'] is not None:
                 run['ovf'] = run['ovf'] | run['nl'][2]
                 run['nl'] = None
@@ -442,7 +556,43 @@ class Simulation:
                 moves[0] += 1
                 moves[1] += int(accepted)
             done += n
-        return state, torch.stack(pes), torch.stack(kes), run['ovf'], tuple(moves)
+        if run['rebuilds'] is not None:
+            self._rebuilds = (run['rebuilds'] if self._rebuilds is None
+                              else self._rebuilds + run['rebuilds'])
+        return state, torch.cat(pes), torch.cat(kes), run['ovf'], tuple(moves)
+
+    def _group(self, state, nlists, run, n):
+        """n steps of a group through `_body` on the static buffers of a
+        StepGraph (replayed as a graph where `captured` says so), CM
+        removal on the steps it falls on. Returns (state, PE [n], KE [n])
+        and updates run's carry."""
+        draws = self._draws()
+        g = self._graph
+        if g is None or not g.matches(self.potential, state, nlists, run, draws):
+            # a new box (an accepted barostat move) or new capacities: the
+            # old graph and its memory go, the next step captures anew
+            self._graph = g = None
+            g = self._graph = StepGraph(self.potential, state, nlists, run, draws,
+                                        self.captured, self.capture_ms)
+        g.load(state, nlists, run)
+        b = g.buffers
+        pe = torch.empty((n,), dtype=b['pe'].dtype, device=b['pe'].device)
+        ke = torch.empty_like(pe)
+        for i in range(n):
+            if i:
+                draws = self._draws()
+            g.set_draws(draws)
+            g.step(self._body)
+            if self._cm_due(state.step + i + 1):
+                v = I.remove_cm_motion(self.system, b['velocities'])
+                b['velocities'].copy_(v)
+                b['ke'].copy_(I.kinetic_energy(self.system, v))
+            pe[i].copy_(b['pe'])
+            ke[i].copy_(b['ke'])
+        positions, velocities, forces, e = g.unload(run)
+        state = dataclasses.replace(state, positions=positions, velocities=velocities,
+                                    forces=forces, potential_energy=e, step=state.step + n)
+        return state, pe, ke
 
     def step(self, n_steps, report_interval=None, check_health=True):
         """Advance n_steps. Returns per-report-interval metrics (potential,

@@ -1,0 +1,185 @@
+"""One MD step as a CUDA graph: the static buffers a step reads and writes,
+its capture after a warm-up step, its replay, and the kernel wrappers'
+launch counts across replays.
+
+`Simulation` (md/simulation.py) runs every step through one body,
+`Simulation._body`, on the buffers of a `StepGraph`: on a card, when its
+configuration is captured, the first step at a box runs the body eagerly on
+a side stream (it builds the kernels, warms autograd, the cuFFT plans and
+the constant caches), the second records it into a `torch.cuda.CUDAGraph`,
+and every later step at that box replays the graph. Otherwise every step
+runs the body as it stands. A failed capture or replay raises; nothing
+falls back to the eager step.
+"""
+from __future__ import annotations
+
+import time
+
+import numpy as np
+import torch
+
+from mbpol_openmm_plugin_tpu_torch.utils import consts
+
+LIST_KEYS = ('pairs', 'pmask', 'trips', 'tmask')
+
+
+def kernel_wrappers():
+    """Every wrapper of a hand-written kernel, with its `launches` count."""
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct, elec_direct_bs, pip_fused
+    return elec_direct.KERNELS + elec_direct_bs.KERNELS + pip_fused.KERNELS
+
+
+class LaunchLedger:
+    """Launch counts of a captured step. A wrapper counts one where it
+    launches its kernel, also while a graph is being recorded, when no
+    kernel runs; a replay runs the recorded kernels and calls no wrapper.
+    So `end_capture` takes the capture's increments back and keeps them,
+    and `replayed` adds them once per replay."""
+
+    def __init__(self, wrappers):
+        self.wrappers = tuple(wrappers)
+        self.per_replay = None
+        self._before = None
+
+    def begin_capture(self):
+        self._before = [w.launches for w in self.wrappers]
+
+    def end_capture(self):
+        self.per_replay = [w.launches - b for w, b in zip(self.wrappers, self._before)]
+        for w, b in zip(self.wrappers, self._before):
+            w.launches = b
+
+    def replayed(self, n=1):
+        for w, d in zip(self.wrappers, self.per_replay):
+            w.launches += n * d
+
+
+class StepGraph:
+    """The static buffers of one MD step at one box, and on a card the step
+    captured as a graph (`capture=True`).
+
+    buffers: positions, velocities, forces, pe, ke, ovf (the chunk's
+    overflow flag); mu (the dipole history, with a warm start); the lists
+    pairs/pmask/trips/tmask (with prebuilt lists); nl_pos, nl_ovf and
+    rebuilds (the 'auto' carry: build positions, its overflow flag, the
+    trigger count); noise or uniforms/normals (the thermostat's draws).
+    `load` copies a state and a run's carry in, `step` advances them one
+    step, `unload` hands out copies."""
+
+    def __init__(self, pot, state, nlists, run, draws, capture, captures=None):
+        self.box = None if state.box is None else np.array(state.box, np.float64)
+        self.B = run['B']
+        self.capture = capture
+        src = self._sources(state, nlists, run, draws)
+        self.signature = self._signature(pot, state, src, run)
+        # what the graph reads by address and the potential may replace
+        self.keep = (pot._block_info, pot._tables)
+        self.buffers = {k: torch.empty_like(v) for k, v in src.items()}
+        self.graph = None
+        self.ledger = LaunchLedger(kernel_wrappers())
+        self.pinned = None
+        self.capture_ms = None
+        # the owner's list of capture times (host ms), appended at each capture
+        self.captures = captures if captures is not None else []
+
+    @staticmethod
+    def _sources(state, nlists, run, draws):
+        """{buffer name: the tensor it is loaded from (or shaped like)}."""
+        src = dict(positions=state.positions, velocities=state.velocities,
+                   forces=state.forces, pe=state.potential_energy,
+                   ke=state.potential_energy, ovf=run['ovf'])
+        if run['mu'] is not None:
+            src['mu'] = run['mu']
+        lists = run['nl'][0] if run['nl'] is not None else nlists
+        if lists is not None:
+            src.update(zip(LIST_KEYS, (lists[0][0], lists[0][1], lists[1][0], lists[1][1])))
+        if run['nl'] is not None:
+            src.update(nl_pos=run['nl'][1], nl_ovf=run['nl'][2], rebuilds=run['rebuilds'])
+        src.update(draws)
+        return src
+
+    @staticmethod
+    def _signature(pot, state, src, run):
+        box = None if state.box is None else np.asarray(state.box, np.float64).tobytes()
+        return (box, id(run['B']), id(pot._block_info), id(pot._tables),
+                tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(src.items())))
+
+    def matches(self, pot, state, nlists, run, draws):
+        """True when this graph serves a step of pot from `state` with this
+        carry: the same box, the same potential tables and buffers of the
+        same shapes and dtypes."""
+        src = self._sources(state, nlists, run, draws)
+        return self._signature(pot, state, src, run) == self.signature
+
+    def lists(self):
+        """((pairs, pmask), (trips, tmask)) of the buffers, or None."""
+        b = self.buffers
+        if 'pairs' not in b:
+            return None
+        return (b['pairs'], b['pmask']), (b['trips'], b['tmask'])
+
+    def load(self, state, nlists, run):
+        b = self.buffers
+        for k, v in (('positions', state.positions), ('velocities', state.velocities),
+                     ('forces', state.forces), ('pe', state.potential_energy),
+                     ('ovf', run['ovf'])):
+            b[k].copy_(v)
+        if 'mu' in b:
+            b['mu'].copy_(run['mu'])
+        lists = run['nl'][0] if run['nl'] is not None else nlists
+        if lists is not None:
+            for k, v in zip(LIST_KEYS, (lists[0][0], lists[0][1], lists[1][0], lists[1][1])):
+                b[k].copy_(v)
+        if run['nl'] is not None:
+            b['nl_pos'].copy_(run['nl'][1])
+            b['nl_ovf'].copy_(run['nl'][2])
+            b['rebuilds'].copy_(run['rebuilds'])
+
+    def set_draws(self, draws):
+        for k, v in draws.items():
+            self.buffers[k].copy_(v)
+
+    def unload(self, run):
+        """(positions, velocities, forces, pe) as new tensors, and the run's
+        carry (ovf, mu, the 'auto' carry, rebuilds) updated with copies."""
+        b = {k: v.clone() for k, v in self.buffers.items()
+             if k not in ('ke', 'noise', 'uniforms', 'normals')}
+        run['ovf'] = b['ovf']
+        if 'mu' in b:
+            run['mu'] = b['mu']
+        if 'nl_pos' in b:
+            run['nl'] = (((b['pairs'], b['pmask']), (b['trips'], b['tmask'])), b['nl_pos'],
+                         b['nl_ovf'])
+            run['rebuilds'] = b['rebuilds']
+        return b['positions'], b['velocities'], b['forces'], b['pe']
+
+    def step(self, body):
+        """Advance the buffers one step: body(self), or the graph's replay."""
+        if not self.capture:
+            body(self)
+        elif self.graph is not None:
+            self.graph.replay()
+            self.ledger.replayed()
+        else:
+            self._warm_up_and_capture(body)
+
+    def _warm_up_and_capture(self, body):
+        """The first step at this box: body(self) on a side stream (the real
+        step), then body(self) recorded into a graph, which runs nothing."""
+        cur = torch.cuda.current_stream()
+        side = torch.cuda.Stream(device=cur.device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            body(self)
+        cur.wait_stream(side)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        self.ledger.begin_capture()
+        try:
+            with consts.recording() as pinned, torch.cuda.graph(graph):
+                body(self)
+        finally:
+            self.ledger.end_capture()
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.captures.append(self.capture_ms)
+        self.graph, self.pinned = graph, pinned

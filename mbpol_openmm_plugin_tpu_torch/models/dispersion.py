@@ -13,6 +13,7 @@ import torch
 from mbpol_openmm_plugin_tpu_torch import _data
 from mbpol_openmm_plugin_tpu_torch.ops.gather import gather_rows
 from mbpol_openmm_plugin_tpu_torch.system import System, minimum_image, water_positions
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 # Site-vs-oxygen offset bound for molecule-pair lists: a water's real sites
 # sit within ~0.125 nm of its O even for thermally stretched OH bonds, so
@@ -44,10 +45,10 @@ def dispersion_energy(system: System, positions, cutoff=None, box=None, switch_w
     (default the system's)."""
     ff = _data.load('forcefield')
     dt, dev = positions.dtype, positions.device
-    cls = torch.as_tensor(np.asarray(system.atom_class, np.int64), device=dev)
-    C6 = torch.as_tensor(ff['C6'], dtype=dt, device=dev)[cls][:, cls]
-    d6 = torch.as_tensor(ff['d6'], dtype=dt, device=dev)[cls][:, cls]
-    mol = torch.as_tensor(np.asarray(system.mol_index, np.int64), device=dev)
+    cls = device_const(np.asarray(system.atom_class, np.int64), device=dev)
+    C6 = device_const(ff['C6'], dtype=dt, device=dev)[cls][:, cls]
+    d6 = device_const(ff['d6'], dtype=dt, device=dev)[cls][:, cls]
+    mol = device_const(np.asarray(system.mol_index, np.int64), device=dev)
 
     delta = minimum_image(positions[None, :, :] - positions[:, None, :],
                           (system.box if box is None else box) if system.periodic else None)
@@ -80,8 +81,8 @@ def dispersion_energy_pairs(system: System, positions, mol_pairs, pair_mask, cut
     ff = _data.load('forcefield')
     dt, dev = positions.dtype, positions.device
     cls = np.array([0, 1, 1])                      # O, H, H class codes
-    C6b = torch.as_tensor(np.asarray(ff['C6'])[np.ix_(cls, cls)], dtype=dt, device=dev)
-    d6b = torch.as_tensor(np.asarray(ff['d6'])[np.ix_(cls, cls)], dtype=dt, device=dev)
+    C6b = device_const(np.asarray(ff['C6'])[np.ix_(cls, cls)], dtype=dt, device=dev)
+    d6b = device_const(np.asarray(ff['d6'])[np.ix_(cls, cls)], dtype=dt, device=dev)
 
     wflat = water_positions(system, positions).reshape(system.n_waters, 9)
     pa = gather_rows(wflat, mol_pairs[:, 0], pair_mask).reshape(-1, 3, 3)

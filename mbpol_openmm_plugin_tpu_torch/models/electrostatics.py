@@ -28,6 +28,7 @@ from mbpol_openmm_plugin_tpu_torch.models.one_body import vander
 from mbpol_openmm_plugin_tpu_torch.ops.gamma import gammq34
 from mbpol_openmm_plugin_tpu_torch.system import index_tensor
 from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 # Thole parameter indices
 TCC, TCD, TDD, TDDOH, TDDHH = 0, 1, 2, 3, 4
@@ -173,8 +174,8 @@ def assemble_charges(params: ElecParams, positions):
     """Per-site charge vector [N] and dq/dr tensors for the full system."""
     n = len(params.damping)
     if not params.include_charge_redistribution:
-        return torch.as_tensor(params.charges, dtype=positions.dtype,
-                               device=positions.device), None
+        return device_const(params.charges, dtype=positions.dtype,
+                            device=positions.device), None
     nmol = len(params.o_index)
     if _contiguous(params, n):
         pos_w = positions.reshape(nmol, 4, 3)[:, :3]
@@ -386,13 +387,13 @@ def _pair_tensors(params: ElecParams, positions):
     r2 = torch.sum(delta * delta, dim=-1)
     notself = ~torch.eye(n, dtype=torch.bool, device=dev)
     r = torch.sqrt(torch.where(notself, r2, 1.0))
-    d16 = torch.as_tensor(np.asarray(params.damping, np.float64) ** (1.0 / 6.0), dtype=dt,
-                          device=dev)
+    d16 = device_const(np.asarray(params.damping, np.float64) ** (1.0 / 6.0), dtype=dt,
+                       device=dev)
     u = r / (d16[:, None] * d16[None, :])
-    mol = torch.as_tensor(np.asarray(params.mol_index, np.int64), device=dev)
+    mol = device_const(np.asarray(params.mol_index, np.int64), device=dev)
     same_mol = mol[:, None] == mol[None, :]
-    is_o = torch.as_tensor(np.asarray(params.atom_type) == 0, device=dev)
-    th = [torch.tensor(float(x), dtype=dt, device=dev) for x in params.thole]
+    is_o = device_const(np.asarray(params.atom_type) == 0, device=dev)
+    th = [device_const(float(x), dtype=dt, device=dev) for x in params.thole]
     gamma_dd = torch.where(same_mol,
                            torch.where(is_o[:, None] | is_o[None, :], th[TDDOH], th[TDDHH]),
                            th[TDD])
@@ -417,7 +418,7 @@ def cluster_electrostatics(params: ElecParams, positions, mu0=None):
     notself, diff_mol = t['notself'], t['diff_mol']
 
     charges, dq_w = assemble_charges(params, positions)
-    alpha = torch.as_tensor(params.polarity, dtype=dt, device=positions.device)
+    alpha = device_const(params.polarity, dtype=dt, device=positions.device)
     th = [float(x) for x in params.thole]
 
     inv_r = torch.where(notself, 1.0 / r, 0.0)
@@ -479,7 +480,7 @@ def system_moments(params: ElecParams, positions, masses):
     charge (e), dipole[3] (Debye), quadrupole[9] (Debye A)."""
     _, _, diag = cluster_electrostatics(params, positions)
     charges, mu = diag['charges'], diag['induced_dipoles']
-    m = torch.as_tensor(np.asarray(masses), dtype=positions.dtype, device=positions.device)
+    m = device_const(np.asarray(masses), dtype=positions.dtype, device=positions.device)
     local = positions - torch.sum(m[:, None] * positions, dim=0) / torch.sum(m)
 
     def quad(a, b):

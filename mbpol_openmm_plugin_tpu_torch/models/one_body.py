@@ -13,6 +13,7 @@ import torch
 
 from mbpol_openmm_plugin_tpu_torch import _data
 from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 # scaling factors for the contributions to the empirical potential
 _F5Z = 0.999677885
@@ -88,13 +89,13 @@ def one_body_energy(pos_ohh):
     x3 = costh - _COSTHE
     v1, v2, v3 = vander(x1), vander(x2), vander(x3)
 
-    A1, A2, A3 = (torch.as_tensor(t[k], dtype=dt, device=dev) for k in ('A1', 'A2', 'A3'))
+    A1, A2, A3 = (device_const(t[k], dtype=dt, device=dev) for k in ('A1', 'A2', 'A3'))
     p11 = v1 @ A1.T        # x1^(idx1-1)  [nmol, 244]
     p22 = v2 @ A2.T
     p12 = v1 @ A2.T        # symmetrized partner
     p21 = v2 @ A1.T
     p3 = v3 @ A3.T
-    c5z = torch.as_tensor(t['c5z'], dtype=dt, device=dev)
+    c5z = device_const(t['c5z'], dtype=dt, device=dev)
     sum0 = ((p11 * p22 + p12 * p21) * p3) @ c5z
 
     efac = torch.exp(-t['b1'] * ((d1 - t['reoh']) ** 2 + (d2 - t['reoh']) ** 2))

@@ -36,6 +36,7 @@ from mbpol_openmm_plugin_tpu_torch.ops import elec_direct
 from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
 from mbpol_openmm_plugin_tpu_torch.ops.bspline import ORDER, bspline5, bspline_moduli
 from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils.consts import cached, device_const
 
 _SQRT_PI = np.sqrt(np.pi)
 _NDERIV = 3   # spline value + 1st + 2nd derivative
@@ -78,9 +79,9 @@ def _spline_matrices(setup: PmeSetup, positions, box):
     coefficient of site n's B-spline at grid line g (zero outside its
     5-point support)."""
     dt, dev = positions.dtype, positions.device
-    dims_i = torch.as_tensor(setup.grid, device=dev)
+    dims_i = device_const(setup.grid, device=dev)
     dims = dims_i.to(dt)
-    box = torch.as_tensor(box, dtype=dt, device=dev)
+    box = device_const(box, dtype=dt, device=dev)
     pos = positions - torch.floor(positions / box + 0.5) * box
     fr = dims * (pos / box + 0.5)
     ifr = torch.floor(fr)
@@ -140,21 +141,22 @@ def _eterm_static(setup: PmeSetup):
     return tuple(mvec(n) for n in setup.grid) + (1.0 / b,)
 
 
-@functools.lru_cache(maxsize=16)
 def _eterm(setup: PmeSetup, box, dtype, device):
     """Reciprocal convolution kernel on the grid for the box `box` (a
-    tuple; float64 host math, then cast). Cached per box: under a barostat
-    the box changes only on an accepted move, and a move evaluates the old
-    and the trial box."""
-    mx, my, mz, binv = _eterm_static(setup)
-    box = np.asarray(box)
-    m2 = ((mx / box[0])[:, None, None] ** 2 + (my / box[1])[None, :, None] ** 2
-          + (mz / box[2])[None, None, :] ** 2)
-    expfac = np.pi * np.pi / (setup.alpha * setup.alpha)
-    scale = 1.0 / (np.pi * box[0] * box[1] * box[2])
-    m2safe = np.where(m2 > 0, m2, 1.0)
-    et = np.where(m2 > 0, scale * np.exp(-expfac * m2safe) / m2safe * binv, 0.0)
-    return torch.as_tensor(et, dtype=dtype, device=device)
+    tuple; float64 host math, then cast). Cached per box (utils/consts.py):
+    under a barostat the box changes only on an accepted move, and a move
+    evaluates the old and the trial box."""
+    def build():
+        mx, my, mz, binv = _eterm_static(setup)
+        b = np.asarray(box)
+        m2 = ((mx / b[0])[:, None, None] ** 2 + (my / b[1])[None, :, None] ** 2
+              + (mz / b[2])[None, None, :] ** 2)
+        expfac = np.pi * np.pi / (setup.alpha * setup.alpha)
+        scale = 1.0 / (np.pi * b[0] * b[1] * b[2])
+        m2safe = np.where(m2 > 0, m2, 1.0)
+        et = np.where(m2 > 0, scale * np.exp(-expfac * m2safe) / m2safe * binv, 0.0)
+        return torch.as_tensor(et, dtype=dtype, device=device)
+    return cached(('eterm', setup, tuple(box), dtype, torch.device(device)), build)
 
 
 def _convolve(setup: PmeSetup, grid, box):
@@ -224,8 +226,8 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     f_elec = units.ELECTRIC
     alpha = setup.alpha
     box = box_tuple(setup, box)
-    pscale = (torch.as_tensor(setup.grid, dtype=dt, device=dev)
-              / torch.as_tensor(box, dtype=dt, device=dev))
+    pscale = (device_const(setup.grid, dtype=dt, device=dev)
+              / device_const(box, dtype=dt, device=dev))
 
     charges, dq_w = elec.assemble_charges(params, positions)
     if tables is None:
@@ -314,7 +316,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     phid = mu_recip_phi(mu)
     smu = mu * pscale[None, :]
     e_recip_ind = 0.5 * torch.sum(smu * phi[:, 1:4])
-    hess = torch.as_tensor(_HESS, device=dev)
+    hess = device_const(_HESS, device=dev)
     f_ind = 2.0 * torch.einsum('ndk,nk->nd', phi[:, hess] + phid[:, hess], smu)
     f_ind = f_ind + 2.0 * charges[:, None] * phid[:, 1:4]
     forces = forces - 0.5 * f_elec * pscale[None, :] * f_ind

@@ -21,6 +21,7 @@ from mbpol_openmm_plugin_tpu_torch.ops.polyeval import pip_apply
 from mbpol_openmm_plugin_tpu_torch.system import (System, box_tensor,
                                                   water_positions)
 from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 _RMIN = 2.0   # A
 
@@ -58,8 +59,8 @@ def triplet_variables(pos_a, pos_b, pos_c, valid):
 
     # substitute geometry for inactive entries (see two_body_energy_pairs)
     safe = ~active[:, None, None]
-    pos_b = torch.where(safe, pos_a + torch.tensor([4.0, 0.0, 0.0], dtype=dt, device=dev), pos_b)
-    pos_c = torch.where(safe, pos_a + torch.tensor([0.0, 4.0, 0.0], dtype=dt, device=dev), pos_c)
+    pos_b = torch.where(safe, pos_a + device_const((4.0, 0.0, 0.0), dtype=dt, device=dev), pos_b)
+    pos_c = torch.where(safe, pos_a + device_const((0.0, 4.0, 0.0), dtype=dt, device=dev), pos_c)
     ob, hb1, hb2 = pos_b[:, 0], pos_b[:, 1], pos_b[:, 2]
     oc, hc1, hc2 = pos_c[:, 0], pos_c[:, 1], pos_c[:, 2]
 
@@ -119,7 +120,7 @@ def _imaged_triplets(system: System, positions, triplets, triplet_mask, box=None
     wpos = water_positions(system, positions) * units.NM_TO_ANGSTROM
     if triplets is None:
         trip = list(itertools.combinations(range(system.n_waters), 3))
-        triplets = torch.as_tensor(np.asarray(trip, np.int64).reshape(-1, 3), device=dev)
+        triplets = device_const(np.asarray(trip, np.int64).reshape(-1, 3), device=dev)
     if triplet_mask is None:
         triplet_mask = torch.ones(len(triplets), dtype=torch.bool, device=dev)
     wflat = wpos.reshape(-1, 9)

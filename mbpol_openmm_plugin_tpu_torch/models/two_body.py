@@ -17,6 +17,7 @@ from mbpol_openmm_plugin_tpu_torch.ops.polyeval import pip_apply
 from mbpol_openmm_plugin_tpu_torch.system import (System, box_tensor,
                                                   water_positions)
 from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 _D0_INTRA = 1.0   # A
 _D0_INTER = 4.0   # A
@@ -80,7 +81,7 @@ def pair_variables(pos_a, pos_b, valid):
     # geometry BEFORE the exponential variables: coincident monomers would
     # drive the coulomb-type variables to ~1e8 and one f32 inf in the
     # polynomial turns the masked backward pass into 0*inf = NaN forces.
-    shift = torch.tensor([5.0, 0.0, 0.0], dtype=pos_a.dtype, device=pos_a.device)
+    shift = device_const((5.0, 0.0, 0.0), dtype=pos_a.dtype, device=pos_a.device)
     pos_b = torch.where((~active)[:, None, None], pos_a + shift, pos_b)
     ob, hb1, hb2 = pos_b[:, 0], pos_b[:, 1], pos_b[:, 2]
 
@@ -159,7 +160,7 @@ def _imaged_pairs(system: System, positions, pairs, pair_mask, box=None):
     dev = positions.device
     wpos = water_positions(system, positions) * units.NM_TO_ANGSTROM
     if pairs is None:
-        pairs = torch.as_tensor(all_pairs(system.n_waters), device=dev)
+        pairs = device_const(all_pairs(system.n_waters).astype(np.int64), device=dev)
     if pair_mask is None:
         pair_mask = torch.ones(len(pairs), dtype=torch.bool, device=dev)
     wflat = wpos.reshape(-1, 9)

@@ -35,11 +35,13 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from mbpol_openmm_plugin_tpu_torch.models.electrostatics import (TCC, TCD, TDD,
                                                                  TDDHH, TDDOH,
                                                                  thole_scales)
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 _X, _Y, _Z, _Q, _D16, _MOL, _ISO = range(7)
 NS = 8
@@ -111,7 +113,7 @@ def pair_delta(positions, box):
 def _delta(prow, pcol, box):
     """[..., I, J, 3] minimum-image displacements r_j - r_i between row
     positions [..., I, 3] and column positions [..., J, 3]."""
-    b = torch.as_tensor(box, dtype=prow.dtype, device=prow.device)
+    b = device_const(np.asarray(box, np.float64), dtype=prow.dtype, device=prow.device)
     d = pcol[..., None, :, :] - prow[..., :, None, :]
     return d - torch.floor(d / b + 0.5) * b
 

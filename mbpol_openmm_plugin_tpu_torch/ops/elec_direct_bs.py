@@ -52,6 +52,7 @@ import torch
 from mbpol_openmm_plugin_tpu_torch.models.electrostatics import dipole_field
 from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
 from mbpol_openmm_plugin_tpu_torch.ops.neighbors import _first_true
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 TILE = 256
 # metadata bit flags per tile pair (elec_pallas_bs._VALID, _FIRST_IN_ROW;
@@ -100,7 +101,7 @@ def _tile_aabbs(positions, n_sites, box, tile):
     np_ = positions.shape[0]
     n_tiles = np_ // tile
     dt, dev = positions.dtype, positions.device
-    b = torch.as_tensor(np.asarray(box, np.float64), dtype=dt, device=dev)
+    b = device_const(np.asarray(box, np.float64), dtype=dt, device=dev)
     valid_site = (torch.arange(np_, device=dev) < n_sites)[:, None]
     p3 = positions.reshape(n_tiles, tile, 3)
     v3 = valid_site.reshape(n_tiles, tile, 1)
@@ -141,7 +142,7 @@ def active_tile_pairs(positions, n_sites, box, cutoff, capacity, tile=TILE):
     minimum-image AABB gap is <= cutoff on every axis. Returns a TileList."""
     n_tiles = positions.shape[0] // tile
     dt, dev = positions.dtype, positions.device
-    b = torch.as_tensor(np.asarray(box, np.float64), dtype=dt, device=dev)
+    b = device_const(np.asarray(box, np.float64), dtype=dt, device=dev)
     center, half, has_sites = _tile_aabbs(positions, n_sites, box, tile)
     dc = center[None, :, :] - center[:, None, :]                   # [T, T, 3]
     dc = dc - torch.floor(dc / b + 0.5) * b
@@ -211,7 +212,7 @@ def group_boxes(xyz, n_sites, box, size):
     tight box; each half extent is padded by CULL_MARGIN + CULL_REL |first
     coordinate|. A group without real sites has half = EMPTY."""
     g = xyz.shape[0] // size
-    b = torch.as_tensor(np.asarray(box, np.float64), dtype=xyz.dtype, device=xyz.device)
+    b = device_const(np.asarray(box, np.float64), dtype=xyz.dtype, device=xyz.device)
     p = xyz.reshape(g, size, 3)
     ref = p[:, 0, :]
     d = p - ref[:, None, :]
@@ -233,7 +234,7 @@ def live_lines(xyz, n_sites, tiles: TileList, box, cutoff):
     |dc| - (half_a + half_b) floored at 0, give a distance above the
     cutoff: on each axis that gap is a lower bound of every pair's
     minimum-image separation."""
-    b = torch.as_tensor(np.asarray(box, np.float64), dtype=xyz.dtype, device=xyz.device)
+    b = device_const(np.asarray(box, np.float64), dtype=xyz.dtype, device=xyz.device)
     rc, rh = (x.reshape(-1, TILE // WATER, 3) for x in group_boxes(xyz, n_sites, box, WATER))
     cc, ch = (x.reshape(-1, TILE // CLUSTER, 3) for x in group_boxes(xyz, n_sites, box, CLUSTER))
     ti, tj = tiles.ti.long(), tiles.tj.long()

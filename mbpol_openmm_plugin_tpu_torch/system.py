@@ -14,6 +14,7 @@ import numpy as np
 import torch
 
 from mbpol_openmm_plugin_tpu_torch import _data
+from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 # atom class codes (order of the dispersion C6/d6 tables)
 CLASS_O, CLASS_H, CLASS_M, CLASS_CL = 0, 1, 2, 3
@@ -119,8 +120,9 @@ def compute_virtual_sites(system: System, positions):
 
 
 def index_tensor(idx, like):
-    """A numpy index array as an int64 tensor on `like`'s device."""
-    return torch.as_tensor(np.asarray(idx, np.int64), device=like.device)
+    """A numpy index array as an int64 tensor on `like`'s device (copied
+    once, utils/consts.py)."""
+    return device_const(np.asarray(idx, np.int64), device=like.device)
 
 
 def water_positions(system: System, positions):
@@ -140,8 +142,9 @@ def oxygen_positions(system: System, positions):
 
 
 def box_tensor(box, like):
-    return torch.as_tensor(np.asarray(box, np.float64), dtype=like.dtype,
-                           device=like.device)
+    """The box (three floats) as a tensor in `like`'s dtype and device
+    (copied once per box)."""
+    return device_const(np.asarray(box, np.float64), dtype=like.dtype, device=like.device)
 
 
 def make_molecules_whole(system: System, positions, box=None):

@@ -37,6 +37,8 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.md.integrators',
     'mbpol_openmm_plugin_tpu_torch.md.rpmd',
     'mbpol_openmm_plugin_tpu_torch.md.simulation',
+    'mbpol_openmm_plugin_tpu_torch.md.step_graph',
+    'mbpol_openmm_plugin_tpu_torch.utils.consts',
     'mbpol_openmm_plugin_tpu_torch.tools.step_breakdown',
 ]
 

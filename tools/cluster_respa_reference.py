@@ -2,7 +2,8 @@
 r-RESPA of the PyTorch port), through the JAX package on the CPU.
 
     JAX_PLATFORMS=cpu python tools/cluster_respa_reference.py \
-        [--what single droplet_md respa_md gaps] [--chunks 3] [--out FILE]
+        [--what single droplet_md respa_md gaps water14_langevin] [--chunks 3]
+        [--seeds 0 1 2] [--out FILE]
 
 single      float32 against float64 single points of the JAX MBPol, both at
             the float32-rounded positions (the same input): the
@@ -33,6 +34,14 @@ gaps        the JAX package's own faults on the port's test inputs:
             against 1 (one group), max |d position| and |d PE|; and the
             water14 cluster stored as H1, O, M, H2 per water against the
             standard layout, |d E| of the electrostatics.
+water14_langevin
+            phase 17's water14 protocol through the JAX Simulation in
+            float32: MBPolConfig(nonbonded_method='NoCutoff',
+            target_epsilon=1e-3, restraint_radius=0.75, restraint_k=1000),
+            Langevin 300 K at 1/ps, 0.2 fs, set_velocities_to_temperature(300)
+            from each --seeds seed, 500 steps in reports of 100; per seed the
+            kinetic temperature after step 1 and its mean over steps
+            251..500 (every step's, read by a callback inside the chunk).
 
 Float32 runs with x64 off, float64 inside jax.enable_x64(True). The
 last line is a JSON object of every reading.
@@ -330,11 +339,63 @@ def gaps(readings):
           f'{e_std:.6f} kJ/mol in the standard layout ({e_new - e_std:+.6f})', flush=True)
 
 
+WATER14_MD = dict(nonbonded_method='NoCutoff', target_epsilon=1e-3, max_iterations=200,
+                  restraint_radius=0.75, restraint_k=1000.0)
+WATER14_STEPS, WATER14_REPORT, WATER14_T_K, WATER14_FRICTION = 500, 100, 300.0, 1.0
+
+
+def water14_langevin(readings, seeds):
+    import jax
+
+    from mbpol_openmm_plugin_tpu.md import integrators as I
+    from mbpol_openmm_plugin_tpu.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu.models.potential import MBPol, MBPolConfig
+    system, pos = load_inputs()['water14_cluster']
+    ndof = 3 * int(np.sum(np.asarray(system.masses) > 0))
+    kb = 0.00831446261815324
+    ke = {}
+
+    class Recording(Simulation):
+        """The JAX Simulation with every step's kinetic energy sent to the
+        host by a callback (the chunk reports only its last)."""
+        def _maybe_remove_cm(self, state):
+            state = super()._maybe_remove_cm(state)
+            jax.debug.callback(lambda s, k: ke.__setitem__(int(s), float(k)), state.step,
+                               I.kinetic_energy(self.system, state.velocities))
+            return state
+
+    pot = MBPol(system, MBPolConfig(**WATER14_MD))
+    cfg = SimulationConfig(dt=DT, temperature=WATER14_T_K, thermostat='langevin',
+                           friction=WATER14_FRICTION)
+    runs = []
+    print(f'water14 cluster under the restraint, Langevin {WATER14_T_K} K at '
+          f'{WATER14_FRICTION}/ps, {WATER14_STEPS} steps (float32):', flush=True)
+    for seed in seeds:
+        ke.clear()
+        sim = Recording(pot, cfg, seed=seed)
+        sim.set_positions(np.asarray(pos, np.float32))
+        sim.set_velocities_to_temperature(WATER14_T_K)
+        t_start = 2.0 * float(I.kinetic_energy(system, sim.state.velocities)) / (ndof * kb)
+        sim.step(WATER14_STEPS, report_interval=WATER14_REPORT)
+        jax.effects_barrier()
+        t = np.array([ke[k] for k in range(1, WATER14_STEPS + 1)]) * 2.0 / (ndof * kb)
+        row = dict(seed=seed, t_start=t_start, t_step1=float(t[0]),
+                   mean_t_second_half=float(np.mean(t[WATER14_STEPS // 2:])),
+                   mean_t_first_half=float(np.mean(t[:WATER14_STEPS // 2])))
+        runs.append(row)
+        print(f'  seed {seed}: T from the draw {t_start:.2f} K, after step 1 {t[0]:.2f} K; '
+              f'mean T over steps 1..{WATER14_STEPS // 2} {row["mean_t_first_half"]:.2f} K, '
+              f'over {WATER14_STEPS // 2 + 1}..{WATER14_STEPS} '
+              f'{row["mean_t_second_half"]:.2f} K', flush=True)
+    readings['water14_langevin'] = runs
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--what', nargs='+', default=['single', 'droplet_md', 'respa_md', 'gaps'],
-                    choices=['single', 'droplet_md', 'respa_md', 'gaps'])
+                    choices=['single', 'droplet_md', 'respa_md', 'gaps', 'water14_langevin'])
     ap.add_argument('--chunks', type=int, default=3)
+    ap.add_argument('--seeds', type=int, nargs='+', default=[0, 1, 2])
     ap.add_argument('--out', default=None)
     args = ap.parse_args(argv)
     import jax
@@ -344,7 +405,8 @@ def main(argv=None):
         {'single': lambda: single(readings),
          'droplet_md': lambda: droplet_md(readings, args.chunks),
          'respa_md': lambda: respa_md(readings, args.chunks),
-         'gaps': lambda: gaps(readings)}[what]()
+         'gaps': lambda: gaps(readings),
+         'water14_langevin': lambda: water14_langevin(readings, args.seeds)}[what]()
         print(f'({what}: {time.perf_counter() - t0:.0f} s)', flush=True)
     line = json.dumps(readings)
     if args.out:
