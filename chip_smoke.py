@@ -2,13 +2,15 @@
 """GPU smoke run of the PyTorch/CUDA port (mbpol_openmm_plugin_tpu_torch).
 
 Drives the port's paths on one CUDA card, in float32, through the entry
-points a user calls (MBPol, tune_capacities, energy_forces, Simulation):
+points a user calls (MBPol, tune_capacities, energy_forces, Simulation,
+PIMDSimulation, REMDSimulation, virial_pressure):
 MB-pol water256 bulk PME in the dense electrostatics mode, water4096 (the
 water256 fixture repeated 2 x 2 x 4, 16,384 sites) in the block-sparse
 mode that 'auto' picks above 2560 waters on a card, water256 again with
 the 2B/3B polynomials evaluated by each fused kernel
 (MBPolConfig.pip_impl), the cluster (NoCutoff) path on water clusters up
-to 256 waters, and r-RESPA on water256 PME. It builds the hand-written CUDA kernels from csrc/
+to 256 waters, r-RESPA on water256 PME, path-integral MD (contracted,
+full-bead and NPT) and replica exchange. It builds the hand-written CUDA kernels from csrc/
 and holds each against its plain PyTorch twin at the shapes its path gives
 it.
 
@@ -136,9 +138,36 @@ Phases (any failure raises and the script exits non-zero):
      the warm-up step and the capture excepted); wall ms per step of each,
      in the order eager / captured / captured / eager, steps/s and the
      speedup, the capture time.
-Phases 5, 8, 11, 13-15 and 17 run each MD step as a replay of one CUDA graph
-(Simulation.captured; the kernel wrappers' launch counts include the
-replays); phase 18 (r-RESPA) runs the same step body eagerly.
+ 20. contracted PIMD at water256 (bench.py:373-478): for_dynamics(scf_method=
+     'sor') after tune_capacities(margin=1.3), 8 beads contracted to 1, PILE
+     300 K, dt 0.1 fs, lists every 25 steps, spread 0.002 nm; 1000
+     health-checked steps, then a timed 100-step window; the same with 24
+     beads: finite, 0 < KE_cv < 1.5 N n kT, KE_cv over the classical
+     3/2 N kT > 1.3, |window drift of E_tot| < 400 kJ/mol, KE_cv(8)/KE_cv(24)
+     in (0.55, 1.05), K1/K2 once per step; steps/s beside phase 5's;
+ 21. Hamiltonian RPMD (thermostat 'none') with 8 full beads at water256,
+     200 steps: |second-half fit of the ring-polymer Hamiltonian| <= 3 x the
+     largest JAX float32 reading (HAM_FIT_READINGS,
+     tools/pimd_remd_reference.py), K1/K2 8 times a step; 20 steps captured
+     against eager, bit for bit;
+ 22. NPT-PIMD (8 -> 1, PILE, 1 bar, a move every 25 steps, 500 steps): 20
+     moves, >= 1 accepted, |dV/V| < 5%, each accepted move's per-bead
+     energies and forces equal to a fresh converged evaluation; 50 steps +
+     a checkpoint file + a new PIMDSimulation + 50 equal to 100, bit for
+     bit; virial_pressure at the fixture against the JAX float64 jvp: the
+     port's CPU float64 within 1e-6 of |dU/dlambda|, the card's float32
+     within 2 x the JAX float32 distance; the rpmd_virial_pressure of a
+     short 8-bead run (not gated);
+ 23. REMD, eager: water256 (bench.py:481-533) at R = 1 and 2 and the water14
+     cluster (bench.py:535-630) at R = 1 and 8, each block a health-checked
+     run(1): finite, no list overflow, each block's walkers an even/odd
+     involution of its accepts; one block after a checkpoint bit for bit;
+     replica-steps/s, ladder efficiency, acceptance per pair.
+Each phase prints its wall time and the script its total.
+Phases 5, 8, 11, 13-15, 17 and 20-22 run each step as a replay of one CUDA
+graph (Simulation.captured, PIMDSimulation.captured; the kernel wrappers'
+launch counts include the replays); phases 18 (r-RESPA) and 23 (REMD) run
+eagerly.
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 
@@ -1566,8 +1595,406 @@ def phase_respa(torch, card, base_rate):
             assert abs(mean_t - temperature) <= NVT_T_TOL_K, mean_t
 
 
+# phases 20-23: path-integral MD, the virial pressure and replica exchange
+PIMD_DT, PIMD_TAU0, PIMD_NL_EVERY, PIMD_SPREAD = 1e-4, 0.1, 25, 0.002
+PIMD_BEADS, PIMD_BEADS_REF = 8, 24
+PIMD_WINDOW, PIMD_THERM = 100, 1000
+PIMD_DRIFT_KJ = 400.0
+PIMD_KE_RATIO_MIN, PIMD_KE_8_24 = 1.3, (0.55, 1.05)
+# phase 21: the JAX float32 fits of the ring-polymer Hamiltonian over the
+# second half of the same 200-step protocol, seeds 0 / 1 / 2
+# (tools/pimd_remd_reference.py --what hamiltonian)
+HAM_STEPS, HAM_EAGER_STEPS = 200, 20
+HAM_FIT_READINGS = (7.261843877400007, 6.975443178519774, 5.860730926040125)
+# phase 22: NPT-PIMD on phase 14's protocol, and the pressure
+PIMD_NPT_STEPS, PIMD_NPT_INTERVAL, PIMD_CHECKPOINT_STEPS = 500, 25, 100
+# |P32 - P64| of the JAX virial_pressure at the water256 fixture, 300 K,
+# and its float64 reading (tools/pimd_remd_reference.py --what pressure), bar
+PRESSURE_JAX_F32_DISTANCE = 121.83339758963484
+PRESSURE_JAX_F64_BAR = 10775.311913214635
+# the port's CPU float64 dU/dlambda against the JAX float64 jvp, relative
+# (tests/test_torch_pressure.py's bound)
+PRESSURE_F64_REL = 1e-6
+PIMD_PRESSURE_STEPS, PIMD_PRESSURE_REPORT = 20, 10
+# phase 23: REMD, thermalization + timed blocks, cut from bench.py's 4 + 4
+# (water256) and 40 + 40 (water14) to keep the script within half its time
+# limit
+REMD_BLOCKS = {'water256': (2, 4), 'water14': (2, 4)}
+
+
+def pimd_potential(torch):
+    """The water256 potential of bench.py's PIMD figure:
+    for_dynamics(scf_method='sor') after tune_capacities(margin=1.3)."""
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    pot = MBPol(system, MBPolConfig.for_dynamics(scf_method='sor'))
+    pot.tune_capacities(pos, margin=1.3)
+    return pot, pos
+
+
+def k12_launches():
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    return sum(k.launches for k in ED.KERNELS) / len(ED.KERNELS)
+
+
+def phase_pimd(torch, card, classical_rate):
+    """Phase 20: contracted PIMD (8 -> 1 and 24 -> 1) at water256, bench.py's
+    protocol and physics gates."""
+    from mbpol_openmm_plugin_tpu_torch.md.rpmd import PIMDSimulation
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.utils import units
+
+    pot, pos = pimd_potential(torch)
+    n_real = int(np.sum(np.asarray(pot.system.masses) > 0))
+    classical_ke = 1.5 * n_real * units.BOLTZMANN_KJ_MOL_K * 300.0
+    ke, rate = {}, None
+    for nb in (PIMD_BEADS, PIMD_BEADS_REF):
+        sim = PIMDSimulation(pot, n_beads=nb, dt=PIMD_DT, temperature=300.0, tau0=PIMD_TAU0,
+                             contraction=1, seed=0, nlist_rebuild_interval=PIMD_NL_EVERY)
+        assert sim.captured
+        sim.set_positions(pos, spread=PIMD_SPREAD)
+        t0 = time.perf_counter()
+        sim.step(PIMD_THERM, report_interval=PIMD_WINDOW)      # health-checked
+        torch.cuda.synchronize()
+        therm = time.perf_counter() - t0
+        m0 = sim.step(PIMD_WINDOW, check_health=False)
+        torch.cuda.synchronize()
+        ED.reset_launch_counts()
+        t0 = time.perf_counter()
+        m = sim.step(PIMD_WINDOW, check_health=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_step = k12_launches() / PIMD_WINDOW
+        sim.step(2, report_interval=2)                          # the health gate
+        ke_cv = float(np.mean(m['step_kinetic_virial']))
+        drift = float(m['total_energy'][-1] - m0['total_energy'][-1])
+        finite = all(np.all(np.isfinite(x[k])) for x in (m0, m)
+                     for k in ('step_potential_energy', 'step_kinetic_virial'))
+        ke[nb] = ke_cv
+        log(f'  {nb} beads contracted to 1, list interval {PIMD_NL_EVERY}: {PIMD_THERM} '
+            f'thermalization steps in {therm:.2f} s (reports of {PIMD_WINDOW}, health-checked); '
+            f'timed window {PIMD_WINDOW} steps in {wall:.3f} s = {PIMD_WINDOW / wall:.2f} steps/s '
+            f'({card}); K1/K2 launches per step {per_step:.2f}; graph captures '
+            f'{len(sim.capture_ms)} ({np.mean(sim.capture_ms):.1f} ms)')
+        log(f'    KE_cv (window mean) {ke_cv:.2f} kJ/mol = {ke_cv / classical_ke:.3f} x the '
+            f'classical 3/2 N kT (gate > {PIMD_KE_RATIO_MIN}; ceiling {nb} x); window drift of '
+            f'E_tot {drift:+.2f} kJ/mol (gate |.| < {PIMD_DRIFT_KJ}); finite {finite}')
+        assert finite, (m0, m)
+        assert 0.0 < ke_cv < classical_ke * nb, ke_cv
+        assert ke_cv / classical_ke > PIMD_KE_RATIO_MIN, ke_cv
+        assert abs(drift) < PIMD_DRIFT_KJ, drift
+        assert abs(per_step - 1.0) < 0.05, per_step
+        rate = rate or PIMD_WINDOW / wall
+        del sim
+    ratio = ke[PIMD_BEADS] / ke[PIMD_BEADS_REF]
+    log(f'  KE_cv({PIMD_BEADS}) / KE_cv({PIMD_BEADS_REF}) = {ratio:.3f} (gate in '
+        f'{PIMD_KE_8_24}); contracted PIMD {rate:.2f} steps/s against the classical '
+        f'{classical_rate:.2f} (phase 5): {classical_rate / rate:.3f} x the classical per-step '
+        f'time ({card})')
+    assert PIMD_KE_8_24[0] < ratio < PIMD_KE_8_24[1], ratio
+    return rate
+
+
+def phase_hamiltonian_rpmd(torch, card):
+    """Phase 21: Hamiltonian RPMD (thermostat 'none') with 8 full beads at
+    water256: the fit of the ring-polymer Hamiltonian, the launches per
+    step, and the captured step against the eager one bit for bit."""
+    from mbpol_openmm_plugin_tpu_torch.md.rpmd import PIMDSimulation, ring_polymer_hamiltonian
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    pot, pos = pimd_potential(torch)
+
+    def sim_for(eager=False):
+        sim = PIMDSimulation(pot, n_beads=PIMD_BEADS, dt=PIMD_DT, temperature=300.0,
+                             thermostat='none', seed=0, nlist_rebuild_interval=PIMD_NL_EVERY,
+                             _eager=eager)
+        assert sim.captured == (not eager)
+        sim.set_positions(pos, spread=PIMD_SPREAD)
+        return sim
+
+    sim = sim_for()
+    h0 = float(ring_polymer_hamiltonian(sim.system, sim.state, 300.0))
+    torch.cuda.synchronize()
+    ED.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.step(HAM_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_step = k12_launches() / HAM_STEPS
+    h = np.concatenate([[h0], out['step_hamiltonian']])
+    fit = second_half_fit(h)
+    bound = None if HAM_FIT_READINGS is None else fit_bound(HAM_FIT_READINGS)
+    log(f'  8 full beads, thermostat none, list interval {PIMD_NL_EVERY}: {HAM_STEPS} steps in '
+        f'{wall:.3f} s = {HAM_STEPS / wall:.2f} steps/s ({card}); K1/K2 launches per step '
+        f'{per_step:.3f}; graph capture {sim.capture_ms[0]:.1f} ms')
+    log(f'    H {h[0]:.4f} / {h[HAM_STEPS // 2]:.4f} / {h[-1]:.4f} kJ/mol; second-half fit '
+        f'{fit:+.4f} kJ/mol (bound {bound} = 3 x the largest JAX float32 reading of '
+        f'{HAM_FIT_READINGS})')
+    assert np.all(np.isfinite(h)), h
+    assert bound is not None and abs(fit) <= bound, (fit, bound)
+    # one evaluation per bead and step, and the health check's one
+    assert abs(per_step - (PIMD_BEADS + 1.0 / HAM_STEPS)) < 0.05, per_step
+    del sim
+    runs = {}
+    for eager in (True, False):
+        s2 = sim_for(eager)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        o = s2.step(HAM_EAGER_STEPS)
+        torch.cuda.synchronize()
+        runs[eager] = (s2, o, time.perf_counter() - t0)
+    (se, oe, we), (sc, oc, wc) = runs[True], runs[False]
+    same = (np.array_equal(oe['step_hamiltonian'], oc['step_hamiltonian'])
+            and all(bool(torch.equal(getattr(se.state, k), getattr(sc.state, k)))
+                    for k in ('positions', 'velocities', 'forces', 'potential_energy')))
+    log(f'  {HAM_EAGER_STEPS} steps eager and captured from the same state: H traces and final '
+        f'state equal bit for bit: {same}; eager {HAM_EAGER_STEPS / we:.2f} steps/s, captured '
+        f'{HAM_EAGER_STEPS / wc:.2f} (the capture included) ({card})')
+    assert same, (oe['step_hamiltonian'][-3:], oc['step_hamiltonian'][-3:])
+    return HAM_STEPS / wall
+
+
+def phase_pimd_npt(torch, card):
+    """Phase 22: NPT-PIMD (8 -> 1, PILE, 1 bar, a move every 25 steps), a
+    checkpointed resume, the virial pressure against the JAX float64, and
+    the ring-polymer pressure of a short uncontracted run."""
+    import tempfile
+
+    from mbpol_openmm_plugin_tpu_torch.md import pressure as PR
+    from mbpol_openmm_plugin_tpu_torch.md.rpmd import PIMDSimulation
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol
+    from mbpol_openmm_plugin_tpu_torch.system import compute_virtual_sites, make_molecules_whole
+    from mbpol_openmm_plugin_tpu_torch.utils import units
+
+    pot, pos = pimd_potential(torch)
+
+    def npt(seed):
+        sim = PIMDSimulation(pot, n_beads=PIMD_BEADS, dt=PIMD_DT, temperature=300.0,
+                             tau0=PIMD_TAU0, contraction=1, seed=seed, barostat_pressure=1.0,
+                             barostat_interval=PIMD_NPT_INTERVAL)
+        assert sim.captured
+        sim.set_positions(pos, spread=PIMD_SPREAD)
+        return sim
+
+    sim = npt(2)
+    v0 = float(np.prod(sim.state.box))
+    attempted = accepted = 0
+    e_rel, f_abs, wall = [], [], 0.0
+    launches0 = k12_launches()
+    for _ in range(PIMD_NPT_STEPS // PIMD_NPT_INTERVAL):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.step(PIMD_NPT_INTERVAL)      # raises on NaN, overflow (trials too), bad SCF
+        torch.cuda.synchronize()
+        wall += time.perf_counter() - t0
+        assert np.all(np.isfinite(out['step_potential_energy'])), out
+        attempted += out['barostat_attempted']
+        accepted += out['barostat_accepted']
+        if out['barostat_accepted']:
+            e, f, _ = sim._converged(sim.state.positions, sim.state.box)
+            e_rel.append(float(torch.max(torch.abs(sim.state.potential_energy - e))
+                               / torch.max(torch.abs(e))))
+            f_abs.append(float(torch.max(torch.abs(sim.state.forces - f))))
+    per_step = (k12_launches() - launches0) / PIMD_NPT_STEPS
+    dv = float(np.prod(sim.state.box)) / v0 - 1.0
+    log(f'  {PIMD_NPT_STEPS} steps in {wall:.3f} s = {PIMD_NPT_STEPS / wall:.2f} steps/s, the '
+        f'moves and health checks included ({card}); moves attempted {attempted}, accepted '
+        f'{accepted}; box {sim.state.box[0]:.5f} nm, dV/V {dv:+.4%}; K1/K2 launches per step '
+        f'{per_step:.2f}; graph captures {len(sim.capture_ms)} ({np.sum(sim.capture_ms) / 1e3:.3f}'
+        f' s)')
+    log(f'    accepted moves against a fresh converged evaluation at their positions and box: '
+        f'per-bead energies max relative {max(e_rel, default=0.0):.3e} (bound {NPT_E_REL}), '
+        f'forces max |dF| {max(f_abs, default=0.0):.3e} kJ/mol/nm (the JAX function keeps the '
+        f'old forces)')
+    assert attempted == PIMD_NPT_STEPS // PIMD_NPT_INTERVAL and accepted >= 1, attempted
+    assert abs(dv) < NPT_DV_MAX, dv
+    assert all(r <= NPT_E_REL for r in e_rel), e_rel
+    assert all(d <= NPT_E_REL * 1e3 for d in f_abs), f_abs
+    del sim
+
+    half = PIMD_CHECKPOINT_STEPS // 2
+    a = npt(3)
+    a.step(PIMD_CHECKPOINT_STEPS, report_interval=half)
+    b = npt(3)
+    b.step(half)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'pimd.npz')
+        b.save_checkpoint(path)
+        c = PIMDSimulation(pot, n_beads=PIMD_BEADS, dt=PIMD_DT, temperature=300.0,
+                           tau0=PIMD_TAU0, contraction=1, seed=0, barostat_pressure=1.0,
+                           barostat_interval=PIMD_NPT_INTERVAL)
+        c.load_checkpoint_file(path)
+    c.step(half)
+    same = {k: bool(torch.equal(getattr(a.state, k), getattr(c.state, k)))
+            for k in ('positions', 'velocities', 'forces', 'potential_energy')}
+    same['box'] = bool(np.array_equal(a.state.box, c.state.box))
+    same['barostat'] = a._baro == c._baro
+    same['generator'] = bool(torch.equal(a.generator.get_state(), c.generator.get_state()))
+    same['dipoles'] = bool(torch.equal(a._mu, c._mu))
+    log(f'  {PIMD_CHECKPOINT_STEPS} steps against {half} + checkpoint file + new PIMDSimulation '
+        f'+ {half}: bit-identical {same}')
+    assert all(same.values()), same
+    del a, b, c
+
+    # the virial pressure at the fixture: the card (float32) and the port's
+    # CPU float64 against the JAX float64 jvp, at the tool's positions (the
+    # fixture rounded to float32, then whole, M sites placed in float64)
+    sys_ = pot.system
+    ref = MBPol(sys_, pot.config, device='cpu')
+    with np.load(FIXTURE) as z:
+        raw = torch.as_tensor(np.asarray(z['positions'], np.float32)).double()
+    pos64 = compute_virtual_sites(sys_, make_molecules_whole(sys_, raw))
+    ref.tune_capacities(pos64)
+    vol_bar = 3 * float(np.prod(sys_.box)) * PR.BAR_IN_KJ_MOL_NM3
+    t0 = time.perf_counter()
+    p64 = PR.virial_pressure(ref, pos64, temperature_k=300.0)
+    t64 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p32 = PR.virial_pressure(pot, pos64.to(pos), temperature_k=300.0)
+    torch.cuda.synchronize()
+    t32 = time.perf_counter() - t0
+    ideal = 3 * sys_.n_waters * units.BOLTZMANN_KJ_MOL_K * 300.0
+    du64 = ideal - p64 * vol_bar
+    bound64 = PRESSURE_F64_REL * abs(du64) / vol_bar
+    bound32 = F32_BOUND_FACTOR * PRESSURE_JAX_F32_DISTANCE
+    log(f'  virial_pressure at the water256 fixture, 300 K (dU/dlambda by autograd with the '
+        f'dipoles held): CPU float64 {p64:.4f} bar ({t64:.1f} s), the JAX float64 jvp '
+        f'{PRESSURE_JAX_F64_BAR:.4f}: |d| {abs(p64 - PRESSURE_JAX_F64_BAR):.4f} bar (bound '
+        f'{bound64:.4f} = {PRESSURE_F64_REL:g} of |dU/dlambda| {abs(du64):.4f} kJ/mol)')
+    log(f'  card float32 {p32:.4f} bar ({t32:.2f} s): against the JAX float64 |d| '
+        f'{abs(p32 - PRESSURE_JAX_F64_BAR):.4f} bar (bound {bound32:.2f} = 2 x the JAX float32 '
+        f'distance {PRESSURE_JAX_F32_DISTANCE:.2f}), against the CPU float64 '
+        f'{abs(p32 - p64):.4f} ({card})')
+    assert abs(p64 - PRESSURE_JAX_F64_BAR) <= bound64, (p64, PRESSURE_JAX_F64_BAR)
+    assert abs(p32 - PRESSURE_JAX_F64_BAR) <= bound32, (p32, PRESSURE_JAX_F64_BAR)
+
+    sim = PIMDSimulation(pot, n_beads=PIMD_BEADS, dt=PIMD_DT, temperature=300.0, tau0=PIMD_TAU0,
+                         seed=4)
+    sim.set_positions(pos, spread=PIMD_SPREAD)
+    t0 = time.perf_counter()
+    out = sim.step(PIMD_PRESSURE_STEPS, report_interval=PIMD_PRESSURE_REPORT,
+                   report_pressure=True)
+    wall = time.perf_counter() - t0
+    log(f'  8 full beads, PILE, {PIMD_PRESSURE_STEPS} steps with report_pressure every '
+        f'{PIMD_PRESSURE_REPORT}: rpmd_virial_pressure {np.round(out["pressure"], 2).tolist()} '
+        f'bar, mean {float(np.mean(out["pressure"])):.2f} (not gated) in {wall:.2f} s ({card})')
+    assert np.all(np.isfinite(out['pressure'])), out
+
+
+def check_permutations(walkers, accepts, start_walker, parity0):
+    """Each block's walkers follow a valid even/odd sweep: an involution of
+    neighbour swaps on the block's parity, accepted exactly where the
+    sweep says. Returns the number of swaps."""
+    prev, swaps = np.asarray(start_walker), 0
+    for b, (w, acc) in enumerate(zip(walkers, accepts)):
+        R = len(w)
+        perm = np.array([int(np.nonzero(prev == w[i])[0][0]) for i in range(R)])
+        assert np.array_equal(perm[perm], np.arange(R)), (b, perm)
+        for i in range(R):
+            d = perm[i] - i
+            assert d in (-1, 0, 1), (b, perm)
+            if d == 1:
+                assert i % 2 == (parity0 + b) % 2 and acc[i], (b, perm, acc)
+                swaps += 1
+            elif d == 0:
+                assert not acc[i], (b, perm, acc)
+        prev = np.asarray(w)
+    return swaps
+
+
+def run_ladder(torch, card, name, pot, pos, temperatures, config, blocks, checkpoint=False):
+    """Thermalization and timed blocks of one ladder, each block its own
+    health-checked run() call. Returns (replica-steps/s, acceptance, K1/K2
+    launches per step)."""
+    from mbpol_openmm_plugin_tpu_torch.md import remd
+    sim = remd.REMDSimulation(pot, temperatures, config, seed=0)
+    sim.set_positions(pos)
+    sim.set_velocities_to_temperature()
+    R, k = len(temperatures), config.exchange_interval
+    n_therm, n_timed = blocks
+    walkers, accepts, wall, parity0 = [], [], 0.0, 0
+    start = sim.walker.copy()
+    launches0 = k12_launches()
+    for b in range(n_therm + n_timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.run(1)        # raises on a list overflow, NaN or an unhealthy replica
+        torch.cuda.synchronize()
+        if b >= n_therm:
+            wall += time.perf_counter() - t0
+        assert np.all(np.isfinite(out['potential_energy'])), out
+        walkers.append(out['walker'][0])
+        accepts.append(out['accept'][0])
+    per_step = (k12_launches() - launches0) / ((n_therm + n_timed) * k)
+    swaps = check_permutations(walkers, accepts, start, parity0)
+    rate = n_timed * k * R / wall
+    log(f'  {name}, R = {R} ({np.round(temperatures, 1).tolist()} K): {n_therm} + {n_timed} '
+        f'blocks of {k} steps, each block health-checked; timed {n_timed * k} steps in '
+        f'{wall:.2f} s = {rate:.2f} replica-steps/s ({card}); acceptance per pair '
+        f'{np.round(out["acceptance"], 3).tolist()}, swaps {swaps}, walkers {walkers[-1].tolist()}'
+        f'; K1/K2 launches per step {per_step:.2f}')
+    if checkpoint:
+        ck = sim.checkpoint()
+        ref = sim.run(1)
+        sim2 = remd.REMDSimulation(pot, temperatures, config, seed=9)
+        sim2.load_checkpoint(ck)
+        again = sim2.run(1)
+        same = (np.array_equal(ref['potential_energy'], again['potential_energy'])
+                and np.array_equal(ref['walker'], again['walker'])
+                and bool(torch.equal(sim.state.positions, sim2.state.positions))
+                and bool(torch.equal(sim.state.velocities, sim2.state.velocities)))
+        log(f'    one block after a checkpoint against the uninterrupted ladder: bit-identical '
+            f'{same}')
+        assert same
+    return rate, out['acceptance'], per_step
+
+
+def phase_remd(torch, card):
+    """Phase 23: REMD, (a) water256 R = 2 (bench.py:481-533), (b) the water14
+    cluster at R = 1 and R = 8 (bench.py:535-630); eager (SOR)."""
+    from mbpol_openmm_plugin_tpu_torch.md import remd
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    pot = MBPol(system, MBPolConfig.for_dynamics(scf_method='sor', nlist_skin=0.03))
+    pot.tune_capacities(pos)
+    cfg = remd.REMDConfig(dt=2e-4, exchange_interval=25, nlist_reuse=True)
+    rates = {}
+    for R in (1, 2):
+        rates[R], _, per_step = run_ladder(torch, card, 'water256 PME, SOR warm start', pot, pos,
+                                           remd.geometric_ladder(290.0, 330.0, R), cfg,
+                                           REMD_BLOCKS['water256'])
+        assert abs(per_step - R) < 0.2 * R, per_step
+    log(f'  water256 ladder efficiency (R = 2 rate / (2 x the R = 1 rate)) '
+        f'{rates[2] / (2 * rates[1]):.3f} ({card})')
+    del pot
+    system, pos, _ = cluster_input(torch, 'water14_cluster')
+    pot = MBPol(system, MBPolConfig(**WATER14_MD))
+    cfg = remd.REMDConfig(dt=2e-4, exchange_interval=25)
+    for R in (1, 8):
+        rates[R], _, _ = run_ladder(torch, card, 'water14 cluster, restraint 0.75 nm', pot, pos,
+                                    remd.geometric_ladder(180.0, 480.0, R), cfg,
+                                    REMD_BLOCKS['water14'], checkpoint=R == 8)
+    log(f'  water14 ladder efficiency (R = 8 rate / (8 x the R = 1 rate)) '
+        f'{rates[8] / (8 * rates[1]):.3f} ({card})')
+
+
+_PHASE = {}
+
+
+def begin_phase(title):
+    """Log the wall time of the phase before and the header of the next."""
+    now = time.perf_counter()
+    if _PHASE:
+        log(f'  ({_PHASE["name"]} wall {now - _PHASE["t0"]:.1f} s)')
+    if title is not None:
+        log(title)
+        _PHASE.update(name=title.split(':')[0].strip('= '), t0=now)
+
+
 def main():
     import torch
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device visible (torch.cuda.is_available() is false)',
               file=sys.stderr)
@@ -1575,7 +2002,7 @@ def main():
     import mbpol_openmm_plugin_tpu_torch  # noqa: F401  (precision switches)
     from mbpol_openmm_plugin_tpu_torch.ops import _build
 
-    log('== phase 1: card')
+    begin_phase('== phase 1: card')
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f'  {card}')
@@ -1585,7 +2012,7 @@ def main():
     assert not torch.backends.cudnn.allow_tf32
     assert torch.get_float32_matmul_precision() == 'highest'
 
-    log('== phase 2: kernel build')
+    begin_phase('== phase 2: kernel build')
     t0 = time.perf_counter()
     path = _build.build()
     log(f'  built {os.path.relpath(path, REPO)} in {time.perf_counter() - t0:.2f} s')
@@ -1594,54 +2021,68 @@ def main():
             log('  ' + line.strip())
 
     record = {}
-    log('== phase 3: dense kernels vs twins (water256 and water2048, float32)')
+    begin_phase('== phase 3: dense kernels vs twins (water256 and water2048, float32)')
     phase_kernels(torch, card, record)
-    log('== phase 4: single point (water256 PME, float32)')
+    begin_phase('== phase 4: single point (water256 PME, float32)')
     pot256, e256, f256, parts256 = phase_single_point(torch, card)
-    log(f'== phase 5: MD (water256, for_dynamics, {MD_STEPS} Verlet steps at 0.2 fs)')
+    begin_phase(f'== phase 5: MD (water256, for_dynamics, {MD_STEPS} Verlet steps at 0.2 fs)')
     quad_steps_per_s = phase_md(torch, card, record)
-    log('== phase 6: block kernels vs twins (water4096, float32)')
+    begin_phase('== phase 6: block kernels vs twins (water4096, float32)')
     pot4096, pos4096 = water4096_potential(torch, card)
     phase_block_kernels(torch, card, record, pot4096, pos4096)
-    log('== phase 7: replication (water4096 single point vs water256 x 2 x 2 x 4)')
+    begin_phase('== phase 7: replication (water4096 single point vs water256 x 2 x 2 x 4)')
     phase_replication(torch, card, pot256, e256, f256)
-    log(f'== phase 8: MD (water4096, for_dynamics, block/pairs, {MD4096_STEPS} Verlet steps '
+    begin_phase(f'== phase 8: MD (water4096, for_dynamics, block/pairs, {MD4096_STEPS} Verlet steps '
         f'at 0.2 fs)')
     torch.cuda.reset_peak_memory_stats()
     phase_md4096(torch, card, record, pot4096, pos4096)
     del pot4096, pos4096
     torch.cuda.empty_cache()
-    log('== phase 9: fused PIP kernels vs twins (water256 lists and seeded rows, float32)')
+    begin_phase('== phase 9: fused PIP kernels vs twins (water256 lists and seeded rows, float32)')
     phase_pip_kernels(torch, card, record)
-    log('== phase 10: single point under each fused pip_impl (water256 PME, float32)')
+    begin_phase('== phase 10: single point under each fused pip_impl (water256 PME, float32)')
     phase_pip_single_point(torch, card, e256, f256, parts256)
-    log(f'== phase 11: MD under each fused pip_impl (water256, for_dynamics; {MD_STEPS} Verlet '
+    begin_phase(f'== phase 11: MD under each fused pip_impl (water256, for_dynamics; {MD_STEPS} Verlet '
         f"steps under 'quad_bf16', {PIP_MD_STEPS_SHORT} under the others)")
     phase_pip_md(torch, card, record, quad_steps_per_s)
-    log('== phase 12: dynamic box (K1/K2 and water256 at 1.01 and 0.99 x the box)')
+    begin_phase('== phase 12: dynamic box (K1/K2 and water256 at 1.01 and 0.99 x the box)')
     phase_dynamic_box(torch, card)
-    log(f'== phase 13: NVT (water256, for_dynamics; Langevin {NVT_STEPS} steps, Andersen '
+    begin_phase(f'== phase 13: NVT (water256, for_dynamics; Langevin {NVT_STEPS} steps, Andersen '
         f'{ANDERSEN_STEPS})')
     nvt_rate = phase_nvt(torch, card)
-    log(f'== phase 14: NPT (water256, for_dynamics, Langevin, 1 bar, {NPT_STEPS} steps, '
+    begin_phase(f'== phase 14: NPT (water256, for_dynamics, Langevin, 1 bar, {NPT_STEPS} steps, '
         f'barostat_interval {NPT_INTERVAL}); checkpoint; L-BFGS')
     npt_rate, _, _ = phase_npt(torch, card)
-    log(f'== phase 15: NPT (water4096, block/pairs, {NPT4096_STEPS} steps, barostat_interval '
+    begin_phase(f'== phase 15: NPT (water4096, block/pairs, {NPT4096_STEPS} steps, barostat_interval '
         f'{NPT4096_INTERVAL})')
     phase_npt4096(torch, card)
     log(f'  water256 steps/s: NVE {quad_steps_per_s:.2f} (phase 5), NVT {nvt_rate:.2f}, '
         f'NPT {npt_rate:.2f} ({card})')
-    log('== phase 16: cluster single points (water3 goldens, water14 cluster, water256 droplet; '
+    begin_phase('== phase 16: cluster single points (water3 goldens, water14 cluster, water256 droplet; '
         'float32 against CPU float64)')
     phase_cluster_single_points(torch, card)
-    log(f'== phase 17: cluster MD (water14 + restraint, Langevin {WATER14_STEPS} steps; water256 '
+    begin_phase(f'== phase 17: cluster MD (water14 + restraint, Langevin {WATER14_STEPS} steps; water256 '
         f'droplet NVE {DROPLET_STEPS} steps)')
     phase_cluster_md(torch, card)
-    log('== phase 18: r-RESPA (water256 PME, for_dynamics)')
+    begin_phase('== phase 18: r-RESPA (water256 PME, for_dynamics)')
     phase_respa(torch, card, quad_steps_per_s)
-    log(f'== phase 19: captured step against the eager step (water256 {CAPTURE_STEPS[256]} '
+    begin_phase(f'== phase 19: captured step against the eager step (water256 {CAPTURE_STEPS[256]} '
         f'steps, water4096 {CAPTURE_STEPS[4096]})')
     phase_captured_step(torch, card)
+    begin_phase(f'== phase 20: PIMD (water256, 8 -> 1 and 24 -> 1 contracted, PILE, '
+                f'{PIMD_THERM} + {PIMD_WINDOW} steps)')
+    pimd_rate = phase_pimd(torch, card, quad_steps_per_s)
+    begin_phase(f'== phase 21: Hamiltonian RPMD (water256, 8 full beads, {HAM_STEPS} steps)')
+    full_rate = phase_hamiltonian_rpmd(torch, card)
+    begin_phase(f'== phase 22: NPT-PIMD (water256, 8 -> 1, 1 bar, {PIMD_NPT_STEPS} steps, '
+                f'barostat_interval {PIMD_NPT_INTERVAL}); checkpoint; virial pressure')
+    phase_pimd_npt(torch, card)
+    begin_phase('== phase 23: REMD (water256 R = 1, 2; water14 cluster R = 1, 8)')
+    phase_remd(torch, card)
+    begin_phase(None)
+    log(f'  steps/s: classical {quad_steps_per_s:.2f} (phase 5), PIMD contracted {pimd_rate:.2f},'
+        f' 8 full beads {full_rate:.2f} ({card})')
+    log(f'  chip_smoke wall {time.perf_counter() - t_script:.1f} s')
 
     log(card)
     log(json.dumps({'kernels': [record[k] for k in KERNELS]}))

@@ -56,7 +56,7 @@ import torch
 from mbpol_openmm_plugin_tpu_torch.md import integrators as I
 from mbpol_openmm_plugin_tpu_torch.md.minimize import lbfgs_minimize
 from mbpol_openmm_plugin_tpu_torch.md.rpmd import mbpol_intra_inter_split, term_subset
-from mbpol_openmm_plugin_tpu_torch.md.step_graph import StepGraph
+from mbpol_openmm_plugin_tpu_torch.md.step_graph import LIST_KEYS, StepGraph
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, with_scf_method
 from mbpol_openmm_plugin_tpu_torch.system import oxygen_positions
@@ -76,6 +76,27 @@ def health_flag(diag):
         if k.endswith('_overflow'):
             ok = ok & ~torch.as_tensor(v).cpu()
     return ok
+
+
+def md_step_sources(state, nlists, run, draws):
+    """{buffer name: the tensor it is loaded from (or shaped like)} of one
+    `Simulation` step: positions, velocities, forces, pe, ke, ovf (the
+    chunk's overflow flag); mu (the dipole history, with a warm start); the
+    lists pairs/pmask/trips/tmask (with prebuilt lists); nl_pos, nl_ovf and
+    rebuilds (the 'auto' carry: build positions, its overflow flag, the
+    trigger count); noise or uniforms/normals (the thermostat's draws)."""
+    src = dict(positions=state.positions, velocities=state.velocities,
+               forces=state.forces, pe=state.potential_energy,
+               ke=state.potential_energy, ovf=run['ovf'])
+    if run['mu'] is not None:
+        src['mu'] = run['mu']
+    lists = run['nl'][0] if run['nl'] is not None else nlists
+    if lists is not None:
+        src.update(zip(LIST_KEYS, (lists[0][0], lists[0][1], lists[1][0], lists[1][1])))
+    if run['nl'] is not None:
+        src.update(nl_pos=run['nl'][1], nl_ovf=run['nl'][2], rebuilds=run['rebuilds'])
+    src.update(draws)
+    return src
 
 
 @dataclasses.dataclass
@@ -567,21 +588,21 @@ class Simulation:
         removal on the steps it falls on. Returns (state, PE [n], KE [n])
         and updates run's carry."""
         draws = self._draws()
+        src = md_step_sources(state, nlists, run, draws)
         g = self._graph
-        if g is None or not g.matches(self.potential, state, nlists, run, draws):
+        if g is None or not g.matches(self.potential, state.box, run['B'], src):
             # a new box (an accepted barostat move) or new capacities: the
             # old graph and its memory go, the next step captures anew
             self._graph = g = None
-            g = self._graph = StepGraph(self.potential, state, nlists, run, draws,
+            g = self._graph = StepGraph(self.potential, state.box, run['B'], src,
                                         self.captured, self.capture_ms)
-        g.load(state, nlists, run)
+        g.load(src)
         b = g.buffers
         pe = torch.empty((n,), dtype=b['pe'].dtype, device=b['pe'].device)
         ke = torch.empty_like(pe)
         for i in range(n):
             if i:
-                draws = self._draws()
-            g.set_draws(draws)
+                g.load(self._draws())
             g.step(self._body)
             if self._cm_due(state.step + i + 1):
                 v = I.remove_cm_motion(self.system, b['velocities'])
@@ -589,7 +610,16 @@ class Simulation:
                 b['ke'].copy_(I.kinetic_energy(self.system, v))
             pe[i].copy_(b['pe'])
             ke[i].copy_(b['ke'])
-        positions, velocities, forces, e = g.unload(run)
+        out = g.unload(skip=('ke', 'noise', 'uniforms', 'normals'))
+        run['ovf'] = out['ovf']
+        if 'mu' in out:
+            run['mu'] = out['mu']
+        if 'nl_pos' in out:
+            run['nl'] = (((out['pairs'], out['pmask']), (out['trips'], out['tmask'])),
+                         out['nl_pos'], out['nl_ovf'])
+            run['rebuilds'] = out['rebuilds']
+        positions, velocities, forces, e = (out['positions'], out['velocities'],
+                                            out['forces'], out['pe'])
         state = dataclasses.replace(state, positions=positions, velocities=velocities,
                                     forces=forces, potential_energy=e, step=state.step + n)
         return state, pe, ke

@@ -3,7 +3,9 @@ its capture after a warm-up step, its replay, and the kernel wrappers'
 launch counts across replays.
 
 `Simulation` (md/simulation.py) runs every step through one body,
-`Simulation._body`, on the buffers of a `StepGraph`: on a card, when its
+`Simulation._body`, on the buffers of a `StepGraph`, and
+`PIMDSimulation` (md/rpmd.py) every ring-polymer step through
+`PIMDSimulation._body` on bead-leading buffers: on a card, when its
 configuration is captured, the first step at a box runs the body eagerly on
 a side stream (it builds the kernels, warms autograd, the cuFFT plans and
 the constant caches), the second records it into a `torch.cuda.CUDAGraph`,
@@ -58,23 +60,22 @@ class StepGraph:
     """The static buffers of one MD step at one box, and on a card the step
     captured as a graph (`capture=True`).
 
-    buffers: positions, velocities, forces, pe, ke, ovf (the chunk's
-    overflow flag); mu (the dipole history, with a warm start); the lists
-    pairs/pmask/trips/tmask (with prebuilt lists); nl_pos, nl_ovf and
-    rebuilds (the 'auto' carry: build positions, its overflow flag, the
-    trigger count); noise or uniforms/normals (the thermostat's draws).
-    `load` copies a state and a run's carry in, `step` advances them one
-    step, `unload` hands out copies."""
+    `sources` names each buffer and the tensor it is first loaded from (or
+    shaped like): for `Simulation`, `md_step_sources`; for `PIMDSimulation`,
+    bead-leading positions, velocities, forces and energies, the dipole
+    payload, per-bead lists and the O step's normals. B: the ASPC
+    predictor coefficients the body reads (Simulation; None else). `load`
+    copies tensors in by name, `step` advances the buffers one step,
+    `unload` hands out copies."""
 
-    def __init__(self, pot, state, nlists, run, draws, capture, captures=None):
-        self.box = None if state.box is None else np.array(state.box, np.float64)
-        self.B = run['B']
+    def __init__(self, pot, box, B, sources, capture, captures=None):
+        self.box = None if box is None else np.array(box, np.float64)
+        self.B = B
         self.capture = capture
-        src = self._sources(state, nlists, run, draws)
-        self.signature = self._signature(pot, state, src, run)
+        self.signature = self._signature(pot, box, B, sources)
         # what the graph reads by address and the potential may replace
         self.keep = (pot._block_info, pot._tables)
-        self.buffers = {k: torch.empty_like(v) for k, v in src.items()}
+        self.buffers = {k: torch.empty_like(v) for k, v in sources.items()}
         self.graph = None
         self.ledger = LaunchLedger(kernel_wrappers())
         self.pinned = None
@@ -83,33 +84,16 @@ class StepGraph:
         self.captures = captures if captures is not None else []
 
     @staticmethod
-    def _sources(state, nlists, run, draws):
-        """{buffer name: the tensor it is loaded from (or shaped like)}."""
-        src = dict(positions=state.positions, velocities=state.velocities,
-                   forces=state.forces, pe=state.potential_energy,
-                   ke=state.potential_energy, ovf=run['ovf'])
-        if run['mu'] is not None:
-            src['mu'] = run['mu']
-        lists = run['nl'][0] if run['nl'] is not None else nlists
-        if lists is not None:
-            src.update(zip(LIST_KEYS, (lists[0][0], lists[0][1], lists[1][0], lists[1][1])))
-        if run['nl'] is not None:
-            src.update(nl_pos=run['nl'][1], nl_ovf=run['nl'][2], rebuilds=run['rebuilds'])
-        src.update(draws)
-        return src
-
-    @staticmethod
-    def _signature(pot, state, src, run):
-        box = None if state.box is None else np.asarray(state.box, np.float64).tobytes()
-        return (box, id(run['B']), id(pot._block_info), id(pot._tables),
+    def _signature(pot, box, B, src):
+        box = None if box is None else np.asarray(box, np.float64).tobytes()
+        return (box, id(B), id(pot._block_info), id(pot._tables),
                 tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(src.items())))
 
-    def matches(self, pot, state, nlists, run, draws):
-        """True when this graph serves a step of pot from `state` with this
-        carry: the same box, the same potential tables and buffers of the
-        same shapes and dtypes."""
-        src = self._sources(state, nlists, run, draws)
-        return self._signature(pot, state, src, run) == self.signature
+    def matches(self, pot, box, B, sources):
+        """True when this graph serves a step of pot at `box` with these
+        buffers: the same box, the same potential tables and buffers of the
+        same names, shapes and dtypes."""
+        return self._signature(pot, box, B, sources) == self.signature
 
     def lists(self):
         """((pairs, pmask), (trips, tmask)) of the buffers, or None."""
@@ -118,40 +102,14 @@ class StepGraph:
             return None
         return (b['pairs'], b['pmask']), (b['trips'], b['tmask'])
 
-    def load(self, state, nlists, run):
-        b = self.buffers
-        for k, v in (('positions', state.positions), ('velocities', state.velocities),
-                     ('forces', state.forces), ('pe', state.potential_energy),
-                     ('ovf', run['ovf'])):
-            b[k].copy_(v)
-        if 'mu' in b:
-            b['mu'].copy_(run['mu'])
-        lists = run['nl'][0] if run['nl'] is not None else nlists
-        if lists is not None:
-            for k, v in zip(LIST_KEYS, (lists[0][0], lists[0][1], lists[1][0], lists[1][1])):
-                b[k].copy_(v)
-        if run['nl'] is not None:
-            b['nl_pos'].copy_(run['nl'][1])
-            b['nl_ovf'].copy_(run['nl'][2])
-            b['rebuilds'].copy_(run['rebuilds'])
-
-    def set_draws(self, draws):
-        for k, v in draws.items():
+    def load(self, sources):
+        """Copy each named tensor into its buffer."""
+        for k, v in sources.items():
             self.buffers[k].copy_(v)
 
-    def unload(self, run):
-        """(positions, velocities, forces, pe) as new tensors, and the run's
-        carry (ovf, mu, the 'auto' carry, rebuilds) updated with copies."""
-        b = {k: v.clone() for k, v in self.buffers.items()
-             if k not in ('ke', 'noise', 'uniforms', 'normals')}
-        run['ovf'] = b['ovf']
-        if 'mu' in b:
-            run['mu'] = b['mu']
-        if 'nl_pos' in b:
-            run['nl'] = (((b['pairs'], b['pmask']), (b['trips'], b['tmask'])), b['nl_pos'],
-                         b['nl_ovf'])
-            run['rebuilds'] = b['rebuilds']
-        return b['positions'], b['velocities'], b['forces'], b['pe']
+    def unload(self, skip=()):
+        """Copies of the buffers not named in `skip`."""
+        return {k: v.clone() for k, v in self.buffers.items() if k not in skip}
 
     def step(self, body):
         """Advance the buffers one step: body(self), or the graph's replay."""

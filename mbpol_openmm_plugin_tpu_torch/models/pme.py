@@ -30,11 +30,13 @@ import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.ops import elec_direct
 from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
 from mbpol_openmm_plugin_tpu_torch.ops.bspline import ORDER, bspline5, bspline_moduli
+from mbpol_openmm_plugin_tpu_torch.system import box_tensor
 from mbpol_openmm_plugin_tpu_torch.utils import units
 from mbpol_openmm_plugin_tpu_torch.utils.consts import cached, device_const
 
@@ -77,11 +79,11 @@ def _spline_matrices(setup: PmeSetup, positions, box):
     """Separable one-hot spline matrices (Sx [N, nx, 3], Sy [N, ny, 3],
     Sz [N, nz, 3]) in the box `box` (a tuple): S[n, g, d] = d-th derivative
     coefficient of site n's B-spline at grid line g (zero outside its
-    5-point support)."""
+    5-point support). A tensor box stays differentiable."""
     dt, dev = positions.dtype, positions.device
     dims_i = device_const(setup.grid, device=dev)
     dims = dims_i.to(dt)
-    box = device_const(box, dtype=dt, device=dev)
+    box = box_tensor(box, positions)
     pos = positions - torch.floor(positions / box + 0.5) * box
     fr = dims * (pos / box + 0.5)
     ifr = torch.floor(fr)
@@ -141,30 +143,54 @@ def _eterm_static(setup: PmeSetup):
     return tuple(mvec(n) for n in setup.grid) + (1.0 / b,)
 
 
+def _eterm_of(setup: PmeSetup, b):
+    """Reciprocal convolution kernel on the grid for the box tensor b [3]
+    (differentiable in b), in b's dtype and on its device."""
+    mx, my, mz, binv = (device_const(a, dtype=b.dtype, device=b.device)
+                        for a in _eterm_static(setup))
+    m2 = ((mx / b[0])[:, None, None] ** 2 + (my / b[1])[None, :, None] ** 2
+          + (mz / b[2])[None, None, :] ** 2)
+    expfac = np.pi * np.pi / (setup.alpha * setup.alpha)
+    scale = 1.0 / (np.pi * b[0] * b[1] * b[2])
+    m2safe = torch.where(m2 > 0, m2, 1.0)
+    return torch.where(m2 > 0, scale * torch.exp(-expfac * m2safe) / m2safe * binv, 0.0)
+
+
 def _eterm(setup: PmeSetup, box, dtype, device):
-    """Reciprocal convolution kernel on the grid for the box `box` (a
-    tuple; float64 host math, then cast). Cached per box (utils/consts.py):
-    under a barostat the box changes only on an accepted move, and a move
-    evaluates the old and the trial box."""
+    """`_eterm_of` the box `box` (a tuple) in float64 on the host, then
+    cast. Cached per box (utils/consts.py): under a barostat the box
+    changes only on an accepted move, and a move evaluates the old and the
+    trial box."""
     def build():
-        mx, my, mz, binv = _eterm_static(setup)
-        b = np.asarray(box)
-        m2 = ((mx / b[0])[:, None, None] ** 2 + (my / b[1])[None, :, None] ** 2
-              + (mz / b[2])[None, None, :] ** 2)
-        expfac = np.pi * np.pi / (setup.alpha * setup.alpha)
-        scale = 1.0 / (np.pi * b[0] * b[1] * b[2])
-        m2safe = np.where(m2 > 0, m2, 1.0)
-        et = np.where(m2 > 0, scale * np.exp(-expfac * m2safe) / m2safe * binv, 0.0)
-        return torch.as_tensor(et, dtype=dtype, device=device)
+        b = torch.as_tensor(np.asarray(box, np.float64))
+        return _eterm_of(setup, b).to(dtype=dtype, device=device)
     return cached(('eterm', setup, tuple(box), dtype, torch.device(device)), build)
 
 
 def _convolve(setup: PmeSetup, grid, box):
     """Forward FFT, eterm multiply, unnormalized backward FFT (ifftn * Ntot,
-    the reference fftpack convention)."""
+    the reference fftpack convention). box: a tuple, or a tensor (then
+    differentiable)."""
     ntot = grid.numel()
-    gk = torch.fft.fftn(grid) * _eterm(setup, box, grid.dtype, grid.device)
+    et = (_eterm_of(setup, box) if isinstance(box, torch.Tensor)
+          else _eterm(setup, box, grid.dtype, grid.device))
+    gk = torch.fft.fftn(grid) * et
     return torch.real(torch.fft.ifftn(gk) * ntot)
+
+
+def _dipole_phi(setup: PmeSetup, mu, pscale, S, box):
+    """Reciprocal phi10 [N, 10] of the dipoles mu [N, 3] on the spline
+    matrices S = (Sx, Sy, Sz); the three derivative sources spread as one
+    concatenated matmul."""
+    Sx, Sy, Sz = S
+    sx0, sy0, sz0 = Sx[..., 0], Sy[..., 0], Sz[..., 0]
+    sx1, sy1, sz1 = Sx[..., 1], Sy[..., 1], Sz[..., 1]
+    smu = mu * pscale[None, :]
+    wx = torch.cat([smu[:, 0:1] * sx1, smu[:, 1:2] * sx0, smu[:, 2:3] * sx0], dim=0)
+    sy = torch.cat([sy0, sy1, sy0], dim=0)
+    sz = torch.cat([sz0, sz0, sz1], dim=0)
+    g = _spread_separable(setup, wx, sy, sz)
+    return _readback_phi10(_convolve(setup, g, box), Sx, Sy, Sz)
 
 
 def block_info(site_perm, capacity, device, line_capacity=None):
@@ -270,10 +296,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
 
     # ---- grid machinery ----
     Sx, Sy, Sz = _spline_matrices(setup, positions, box)
-    sx0, sy0, sz0 = Sx[..., 0], Sy[..., 0], Sz[..., 0]
-    sx1, sy1, sz1 = Sx[..., 1], Sy[..., 1], Sz[..., 1]
-
-    grid = _spread_separable(setup, charges[:, None] * sx0, sy0, sz0)
+    grid = _spread_separable(setup, charges[:, None] * Sx[..., 0], Sy[..., 0], Sz[..., 0])
     phi = _readback_phi10(_convolve(setup, grid, box), Sx, Sy, Sz)     # [N,10]
 
     # ---- fixed field: reciprocal + direct ----
@@ -282,19 +305,9 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     # ---- SCF ----
     self_term = (4.0 / 3.0) * alpha ** 3 / _SQRT_PI
 
-    def mu_recip_phi(mu):
-        """Reciprocal phi10 of the dipole grid; the three derivative sources
-        spread as one concatenated matmul."""
-        smu = mu * pscale[None, :]
-        wx = torch.cat([smu[:, 0:1] * sx1, smu[:, 1:2] * sx0, smu[:, 2:3] * sx0], dim=0)
-        sy = torch.cat([sy0, sy1, sy0], dim=0)
-        sz = torch.cat([sz0, sz0, sz1], dim=0)
-        g = _spread_separable(setup, wx, sy, sz)
-        return _readback_phi10(_convolve(setup, g, box), Sx, Sy, Sz)
-
     def field_fn(mu):
         f = direct_field(mu)
-        phid = mu_recip_phi(mu)
+        phid = _dipole_phi(setup, mu, pscale, (Sx, Sy, Sz), box)
         return f + (-pscale[None, :] * phid[:, 1:4] + self_term * mu)
 
     scf = elec.make_scf(params)
@@ -313,7 +326,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     pot = pot + phi[:, 0]
 
     # ---- reciprocal induced ----
-    phid = mu_recip_phi(mu)
+    phid = _dipole_phi(setup, mu, pscale, (Sx, Sy, Sz), box)
     smu = mu * pscale[None, :]
     e_recip_ind = 0.5 * torch.sum(smu * phi[:, 1:4])
     hess = device_const(_HESS, device=dev)
@@ -333,3 +346,72 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     energy = f_elec * (e_direct + e_recip_fixed + e_recip_ind + e_self)
     return energy, forces, dict(**diag, charges=charges, induced_dipoles=mu,
                                 site_potential=pot)
+
+
+def _direct_variational_rows(sites, mu, c, r0, r1):
+    """Rows r0:r1 of the direct space's share of `pme_variational_energy`
+    (Coulomb units): the plain formulas of K1 and K2 (ops/elec_direct.py)
+    between those sites and all sites, with c.box possibly a tensor."""
+    n = sites.shape[0]
+    rows = torch.arange(r0, r1, device=sites.device)
+    notself = rows[:, None] != torch.arange(n, device=sites.device)[None, :]
+    srow, mrow = sites[r0:r1], mu[r0:r1]
+    t = elec_direct._pair_terms(srow, sites, notself, c, need_cc1=True)
+    kdir, s3, s5 = elec_direct._k1_pair(t)
+    q = sites[:, elec_direct._Q]
+    field = -torch.einsum('ij,j,ijd->id', kdir, q, t['delta'])
+    t_mu = elec.dipole_field(mu, s3, s5, t['delta'])
+    k1 = elec_direct._k2_pair(t, srow, sites, mrow, mu)['k1']
+    e_perm = 0.5 * torch.sum(srow[:, elec_direct._Q] * (k1 @ q))
+    return e_perm - torch.sum(mrow * field) - 0.5 * torch.sum(mrow * t_mu)
+
+
+def pme_variational_energy(params: elec.ElecParams, setup: PmeSetup, positions, mu, box,
+                           tables=None):
+    """The polarizable PME energy (kJ/mol) as a function of the induced
+    dipoles mu [N, 3]:
+        U(mu) = E_perm - mu . E_fixed + 1/2 mu . alpha^-1 mu - 1/2 mu . T mu
+    (T mu: the dipole field of `pme_electrostatics`' SCF, direct +
+    reciprocal + self). At the SCF's fixed point U equals the energy of
+    `pme_electrostatics` and is stationary in mu, so with mu held there
+    its derivative in positions or box is the total derivative of the
+    converged energy. positions: [N, 3] nm with M sites placed; box: three
+    floats or a tensor [3], differentiable with the positions. No kernel:
+    the direct space is the dense plain formula over rows of
+    elec_direct.TRI_CHUNK site pairs, each under activation checkpointing
+    (one chunk's intermediates in memory at a time). md/pressure.py takes
+    dU/dlambda through it."""
+    dt, dev = positions.dtype, positions.device
+    b = box_tensor(box if isinstance(box, torch.Tensor) else box_tuple(setup, box), positions)
+    alpha = setup.alpha
+    charges, _ = elec.assemble_charges(params, positions)
+    if tables is None:
+        tables = site_tables(params, dt, dev)
+    alpha_pol = tables['polarity']
+    mu = mu.detach()
+
+    # direct space, the box as a tensor in the constants
+    c = dataclasses.replace(elec_direct.DirectConsts.from_setup(setup, params.thole), box=b)
+    sites = elec_direct.pack_sites(positions, charges, tables['d16_inv'], tables['mol'],
+                                   tables['is_o'])
+    n = positions.shape[0]
+    step = max(1, elec_direct.TRI_CHUNK // n)
+    e = sum(checkpoint(_direct_variational_rows, sites, mu, c, r0, min(r0 + step, n),
+                       use_reentrant=False) for r0 in range(0, n, step))
+
+    # reciprocal space
+    pscale = device_const(setup.grid, dtype=dt, device=dev) / b
+    S = _spline_matrices(setup, positions, b)
+    grid = _spread_separable(setup, charges[:, None] * S[0][..., 0], S[1][..., 0], S[2][..., 0])
+    phi = _readback_phi10(_convolve(setup, grid, b), *S)
+    phid = _dipole_phi(setup, mu, pscale, S, b)
+    smu = mu * pscale[None, :]
+    e = e + 0.5 * torch.sum(charges * phi[:, 0]) + torch.sum(smu * phi[:, 1:4]) \
+        + 0.5 * torch.sum(smu * phid[:, 1:4])
+
+    # self terms and the polarization cost
+    e = e - (alpha / _SQRT_PI) * torch.sum(charges * charges) \
+        - 0.5 * (4.0 / 3.0) * alpha ** 3 / _SQRT_PI * torch.sum(mu * mu)
+    pol = torch.where(alpha_pol > 0, 1.0 / torch.where(alpha_pol > 0, alpha_pol, 1.0), 0.0)
+    e = e + 0.5 * torch.sum(pol[:, None] * mu * mu)
+    return units.ELECTRIC * e

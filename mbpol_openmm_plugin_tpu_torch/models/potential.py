@@ -310,6 +310,24 @@ class MBPol:
                                                     cfg.restraint_radius, cfg.restraint_k)
         return parts
 
+    def _lists(self, positions, box, nlists=None):
+        """(nlists, disp_pairs, diag) of an evaluation at whole positions in
+        `box` (host floats): the pair and triplet lists (`nlists` when
+        given), the dispersion water-pair list and their overflow flags."""
+        diag = {}
+        if nlists is None and self.use_neighbor_lists:
+            pl, tl, diag = self._neighbor_lists(positions, box)
+            nlists = (pl, tl)
+        disp_pairs = None
+        if self.disp_mode == 'pairs' and 'dispersion' in self.config.terms:
+            # water-pair list at cutoff + PAIR_MARGIN (+ skin), every evaluation
+            o_pos = oxygen_positions(self.system, positions)
+            mp, mp_mask, n_mp = neighbors.pair_list(o_pos, box, self.disp_pair_cut,
+                                                    self.disp_pair_cap)
+            diag = dict(diag, disp_pair_overflow=n_mp > self.disp_pair_cap)
+            disp_pairs = (mp, mp_mask)
+        return nlists, disp_pairs, diag
+
     def _energy_forces_impl(self, positions, mu0=None, nlists=None, box=None):
         """(total energy, forces, parts, diag). mu0: optional induced-dipole
         predictor/warm start; nlists: optional prebuilt lists from
@@ -323,20 +341,7 @@ class MBPol:
         box = sys_.box if box is None else np.asarray(box, np.float64)
         positions = make_molecules_whole(sys_, self.as_positions(positions).detach(), box)
 
-        diag = {}
-        if nlists is None and self.use_neighbor_lists:
-            pl, tl, diag = self._neighbor_lists(positions, box)
-            nlists = (pl, tl)
-
-        disp_pairs = None
-        if self.disp_mode == 'pairs' and 'dispersion' in self.config.terms:
-            # water-pair list at cutoff + PAIR_MARGIN (+ skin), every evaluation
-            o_pos = oxygen_positions(sys_, positions)
-            mp, mp_mask, n_mp = neighbors.pair_list(o_pos, box, self.disp_pair_cut,
-                                                    self.disp_pair_cap)
-            diag = dict(diag, disp_pair_overflow=n_mp > self.disp_pair_cap)
-            disp_pairs = (mp, mp_mask)
-
+        nlists, disp_pairs, diag = self._lists(positions, box, nlists)
         with torch.enable_grad():
             p = positions.clone().requires_grad_(True)
             parts = self._smooth_terms(p, nlists, disp_pairs, box)
@@ -445,20 +450,29 @@ def _redistribute_m_sites(system: System, f):
     return f
 
 
-def with_scf_method(pot: MBPol, method: str, aspc_n_corr: Optional[int] = None):
+def with_scf_method(pot: MBPol, method: str, aspc_n_corr: Optional[int] = None,
+                    target_epsilon: Optional[float] = None,
+                    scf_eps_floor: Optional[float] = None,
+                    max_iterations: Optional[int] = None):
     """A new MBPol over the same topology, device, lists, capacities and
     block layout with another SCF closure ('sor' | 'diis' | 'aspc') and,
-    when given, another ASPC corrector depth, as the JAX function of that
-    name. A cold single point converges to the same fixed point
-    under each, so only a trajectory changes: Simulation's scf='auto' runs
-    a SOR potential's dynamics under the ASPC closure."""
+    when given, another ASPC corrector depth, SCF target, float32 floor of
+    the target or iteration cap, as the JAX function of that name. A cold
+    single point converges to the same fixed point under each closure, so
+    only a trajectory changes: Simulation's scf='auto' runs a SOR
+    potential's dynamics under the ASPC closure, and md/pressure.py takes
+    its derivative at a tightly converged SOR point."""
     if pot.elec_params is None:
         return pot
     if method not in ('sor', 'diis', 'aspc'):
         raise ValueError(f'unknown scf_method {method!r}')
     changes = dict(scf_method=method)
-    if aspc_n_corr is not None:
-        changes['aspc_n_corr'] = int(aspc_n_corr)
+    for name, value, kind in (('aspc_n_corr', aspc_n_corr, int),
+                              ('target_epsilon', target_epsilon, float),
+                              ('scf_eps_floor', scf_eps_floor, float),
+                              ('max_iterations', max_iterations, int)):
+        if value is not None:
+            changes[name] = kind(value)
     new = object.__new__(MBPol)
     new.__dict__.update(pot.__dict__)
     new.config = dataclasses.replace(pot.config, **changes)

@@ -35,13 +35,12 @@ from __future__ import annotations
 import dataclasses
 import math
 
-import numpy as np
 import torch
 
 from mbpol_openmm_plugin_tpu_torch.models.electrostatics import (TCC, TCD, TDD,
                                                                  TDDHH, TDDOH,
                                                                  thole_scales)
-from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
+from mbpol_openmm_plugin_tpu_torch.system import box_tensor
 
 _X, _Y, _Z, _Q, _D16, _MOL, _ISO = range(7)
 NS = 8
@@ -113,7 +112,7 @@ def pair_delta(positions, box):
 def _delta(prow, pcol, box):
     """[..., I, J, 3] minimum-image displacements r_j - r_i between row
     positions [..., I, 3] and column positions [..., J, 3]."""
-    b = device_const(np.asarray(box, np.float64), dtype=prow.dtype, device=prow.device)
+    b = box_tensor(box, prow)
     d = pcol[..., None, :, :] - prow[..., :, None, :]
     return d - torch.floor(d / b + 0.5) * b
 

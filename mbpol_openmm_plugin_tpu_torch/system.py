@@ -143,7 +143,10 @@ def oxygen_positions(system: System, positions):
 
 def box_tensor(box, like):
     """The box (three floats) as a tensor in `like`'s dtype and device
-    (copied once per box)."""
+    (copied once per box). A tensor box is returned as it is: the
+    differentiable box of md/pressure.py."""
+    if isinstance(box, torch.Tensor):
+        return box
     return device_const(np.asarray(box, np.float64), dtype=like.dtype, device=like.device)
 
 

@@ -35,6 +35,9 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.ops.pip_fused_check',
     'mbpol_openmm_plugin_tpu_torch.ops._build',
     'mbpol_openmm_plugin_tpu_torch.md.integrators',
+    'mbpol_openmm_plugin_tpu_torch.md.pressure',
+    'mbpol_openmm_plugin_tpu_torch.md.remd',
+    'mbpol_openmm_plugin_tpu_torch.md.replicas',
     'mbpol_openmm_plugin_tpu_torch.md.rpmd',
     'mbpol_openmm_plugin_tpu_torch.md.simulation',
     'mbpol_openmm_plugin_tpu_torch.md.step_graph',
