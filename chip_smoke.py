@@ -3,16 +3,18 @@
 
 Drives the port's paths on one CUDA card, in float32, through the entry
 points a user calls (MBPol, tune_capacities, energy_forces, Simulation,
-PIMDSimulation, REMDSimulation, virial_pressure):
+PIMDSimulation, REMDSimulation, virial_pressure, the builder and app layer,
+the per-force API):
 MB-pol water256 bulk PME in the dense electrostatics mode, water4096 (the
 water256 fixture repeated 2 x 2 x 4, 16,384 sites) in the block-sparse
 mode that 'auto' picks above 2560 waters on a card, water256 again with
 the 2B/3B polynomials evaluated by each fused kernel
 (MBPolConfig.pip_impl), the cluster (NoCutoff) path on water clusters up
 to 256 waters, r-RESPA on water256 PME, path-integral MD (contracted,
-full-bead and NPT) and replica exchange. It builds the hand-written CUDA kernels from csrc/
-and holds each against its plain PyTorch twin at the shapes its path gives
-it.
+full-bead and NPT), replica exchange, and the app layer: every example
+INI rendered by the port's builder and run, and the per-force API. It
+builds the hand-written CUDA kernels from csrc/ and holds each against its
+plain PyTorch twin at the shapes its path gives it.
 
 Phases (any failure raises and the script exits non-zero):
   1. card identity (nvidia-smi name and power limit), TF32 off;
@@ -163,11 +165,30 @@ Phases (any failure raises and the script exits non-zero):
      run(1): finite, no list overflow, each block's walkers an even/odd
      involution of its accepts; one block after a checkpoint bit for bit;
      replica-steps/s, ladder efficiency, acceptance per pair.
+ 24. the app layer and the builder: every example INI (examples/
+     mbpol_config.ini and examples/example_ini/*.ini) rendered by the port's
+     builder (no --platform: the card) and run in-process in a temporary
+     directory, K1/K2 counted, on PDBs written from tests/fixtures/ by the
+     port's writer; the steps of the RESPA, PIMD and REMD INIs cut
+     (APP_RUNS, each cut logged). (a) the water256 bulk single point
+     (mbpol_bulk_energy.ini): the printed energy and the NetCDF forces
+     against the same INI rendered with --platform CPU (the port's float64)
+     within F32_BOUND_FACTOR x the JAX app's own float32 distance
+     (tools/app_reference.py); (b) NVE, NVT and NPT captured, their logs'
+     rows on the report grid and finite, trajectories written; 100 more app
+     steps of the NVE script timed beside phase 5's rate, with the share of
+     the report edges' converged evaluations; (c) NPT barostat moves
+     attempted, the pressure column finite; (d) the water14 NetCDF file in
+     AMBER conventions, minimization lowers the energy; (e) the PIMD and
+     REMD branches run (energies finite, acceptance per pair); (f) the
+     per-force API's PME electrostatics on the water256 fixture against
+     MBPol's term (API_REL), with_updated_params(thole) bit for bit a fresh
+     MBPol and back. K1/K2 launch in every bulk run and in (f).
 Each phase prints its wall time and the script its total.
-Phases 5, 8, 11, 13-15, 17 and 20-22 run each step as a replay of one CUDA
-graph (Simulation.captured, PIMDSimulation.captured; the kernel wrappers'
-launch counts include the replays); phases 18 (r-RESPA) and 23 (REMD) run
-eagerly.
+Phases 5, 8, 11, 13-15, 17, 20-22 and 24's NVE, NVT and NPT runs each step
+as a replay of one CUDA graph (Simulation.captured, PIMDSimulation.captured;
+the kernel wrappers' launch counts include the replays); phases 18
+(r-RESPA) and 23 (REMD) run eagerly.
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 
@@ -1979,6 +2000,344 @@ def phase_remd(torch, card):
         f'{rates[8] / (8 * rates[1]):.3f} ({card})')
 
 
+# phase 24: the app layer and the builder. The JAX app's own float32
+# distance on the app-layer water256 single point (mbpol_bulk_energy.ini:
+# -2374.9697 kcal/mol in float32, -2370.8889 in float64), |dE| in kcal/mol
+# and max |dF| / max |F| (tools/app_reference.py, JAX on the CPU); phase
+# 24 (a) holds the card against the port's CPU float64 at F32_BOUND_FACTOR
+# times these.
+APP_JAX_F32_DE_KCAL = 4.080772156066814
+APP_JAX_F32_DF_REL = 0.003716450562885187
+# the same tool's water256 fixture single point under SINGLE_POINT, total
+# kcal/mol in JAX float32 and float64 (phase 4's reading, beside them)
+FIXTURE_JAX_KCAL = {'float32': -2257.730108374163, 'float64': -2254.43185755652}
+# the PDBs the INIs name, written from tests/fixtures/ by the port's writer
+APP_PDBS = ('water14_cluster', 'water256_bulk', 'water3')
+EXAMPLES = os.path.join(REPO, 'examples')
+# each INI the phase runs, in order, with the steps cut to keep the phase
+# near two minutes: {(section, key): value}
+APP_RUNS = {
+    'mbpol_config.ini': {},
+    'example_ini/mbpol_cluster_energy.ini': {},
+    'example_ini/mbpol_cluster_minimization.ini': {},
+    'example_ini/mbpol_cluster_nve.ini': {},
+    'example_ini/mbpol_bulk_energy.ini': {},
+    'example_ini/mbpol_bulk_nve.ini': {},
+    'example_ini/mbpol_bulk_nvt.ini': {},
+    'example_ini/mbpol_bulk_npt.ini': {},
+    'example_ini/mbpol_bulk_nve_respa.ini': {('integrator', 'equilibration_steps'): 2,
+                                             ('integrator', 'production_steps'): 8,
+                                             ('logging', 'save_energy_every'): 5,
+                                             ('logging', 'save_positions_every'): 5},
+    'example_ini/mbpol_bulk_nve_respa3.ini': {('integrator', 'equilibration_steps'): 1,
+                                              ('integrator', 'production_steps'): 4,
+                                              ('logging', 'save_energy_every'): 2,
+                                              ('logging', 'save_positions_every'): 2},
+    'example_ini/mbpol_bulk_npt_pimd.ini': {('integrator', 'equilibration_steps'): 10,
+                                            ('integrator', 'production_steps'): 50,
+                                            ('logging', 'save_energy_every'): 25,
+                                            ('logging', 'save_positions_every'): 25},
+    'example_ini/mbpol_cluster_pimd.ini': {('integrator', 'equilibration_steps'): 10,
+                                           ('integrator', 'production_steps'): 40,
+                                           ('logging', 'save_energy_every'): 20,
+                                           ('logging', 'save_positions_every'): 20},
+    'example_ini/mbpol_cluster_remd.ini': {('integrator', 'equilibration_steps'): 0,
+                                           ('integrator', 'production_steps'): 50},
+    'example_ini/mbpol_bulk_remd.ini': {('integrator', 'equilibration_steps'): 0,
+                                        ('integrator', 'production_steps'): 25,
+                                        ('logging', 'save_positions_every'): 25},
+}
+APP_TIMED_STEPS = 100        # app steps timed after the NVE script, its reporters attached
+API_REL = 1e-5               # the per-force API's PME electrostatics against MBPol's term
+THOLE_SCALE = (1.0, 1.0, 1.1, 0.95, 1.0)
+
+
+def write_app_pdbs(directory):
+    """The PDBs of the example INIs from their fixtures, by the port's
+    writer (examples/make_inputs.py's job, without the JAX package)."""
+    from mbpol_openmm_plugin_tpu_torch.app.pdbfile import Atom, Topology, write_pdb_frame
+    for name in APP_PDBS:
+        with np.load(os.path.join(FIXTURES, name + '.npz')) as z:
+            atoms = [Atom(i, str(n), str(rn), int(ri)) for i, (n, rn, ri) in
+                     enumerate(zip(z['names'], z['resnames'], z['resids']))]
+            positions = np.array(z['positions'])
+        with open(os.path.join(directory, name + '.pdb'), 'w') as fh:
+            write_pdb_frame(fh, Topology(atoms), positions)
+
+
+def run_ini(torch, card, tmp, ini, cuts, platform=None):
+    """Render examples/<ini> (its steps cut as `cuts` says) with the port's
+    builder and run the script in-process in tmp, K1/K2 counts set to 0
+    just before. Returns (the script's globals, its standard output, K1/K2
+    launches, wall s)."""
+    import configparser
+    import io
+    import runpy
+
+    from mbpol_openmm_plugin_tpu_torch.app import builder
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    path = os.path.join(EXAMPLES, ini)
+    name = os.path.splitext(os.path.basename(ini))[0] + ('' if platform is None else '_cpu')
+    if cuts:
+        cfg = configparser.ConfigParser()
+        cfg.read(path)
+        for (section, key), value in cuts.items():
+            cfg[section][key] = str(value)
+        path = os.path.join(tmp, name + '.ini')
+        with open(path, 'w') as f:
+            cfg.write(f)
+    script = os.path.join(tmp, 'run_' + name + '.py')
+    with open(script, 'w') as f:
+        f.write(builder.render(path, platform=platform))
+    out = io.StringIO()
+    ED.reset_launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.chdir(tmp), contextlib.redirect_stdout(out):
+        g = runpy.run_path(script, run_name='__main__')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ED.KERNELS}
+    cut = ', '.join(f'[{sec}] {key} {value}' for (sec, key), value in cuts.items())
+    log(f'  {ini}{" --platform " + platform if platform else ""}'
+        f'{" (cut to " + cut + ")" if cut else ""}: wall {wall:.2f} s ({card}); K1/K2 launches '
+        f'{launches}')
+    return g, out.getvalue(), launches, wall
+
+
+def numeric_rows(path):
+    """The StateDataReporter log's header and its rows as floats (the
+    clock-format 'Time Remaining' column left out)."""
+    with open(path) as f:
+        lines = f.read().splitlines()
+    header = [h.strip('"') for h in lines[0].lstrip('#').split(',')]
+    keep = [i for i, h in enumerate(header) if h != 'Time Remaining']
+    rows = [[float(line.split(',')[i]) for i in keep] for line in lines[1:]]
+    return [header[i] for i in keep], np.asarray(rows)
+
+
+def printed_energy(text):
+    import re
+    return float(re.search(r'Potential energy: (\S+) kcal/mol', text).group(1))
+
+
+def netcdf_forces(path):
+    """The first frame's forces of an AMBER NetCDF file, kcal/mol/A."""
+    from scipy.io import netcdf_file
+    nc = netcdf_file(path, 'r', mmap=False)
+    f = np.array(nc.variables['forces'][0], np.float64)
+    nc.close()
+    return f
+
+
+def phase_app(torch, card, classical_rate):
+    """Phase 24: the example INIs rendered by the port's builder and run on
+    the card; the per-force API and with_updated_params."""
+    import tempfile
+
+    from scipy.io import netcdf_file
+
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    def k12(launches):
+        return min(launches.values())
+
+    with tempfile.TemporaryDirectory() as tmp:
+        write_app_pdbs(tmp)
+        runs = {}
+        for ini, cuts in APP_RUNS.items():
+            runs[ini] = g, text, launches, wall = run_ini(torch, card, tmp, ini, cuts)
+            name = os.path.splitext(os.path.basename(ini))[0]
+            if name in ('mbpol_bulk_nve', 'mbpol_bulk_nvt', 'mbpol_bulk_npt'):
+                captured = g['simulation']._core.captured
+                log(f'    captured {captured}')
+                assert captured, ini
+            if 'bulk' in name:
+                assert k12(launches) >= 1, (ini, launches)
+            if name.startswith('mbpol_bulk_n') and 'pimd' not in name:
+                log_name = g['simulation_name'] + '.log'
+                header, rows = numeric_rows(os.path.join(tmp, log_name))
+                every = next(r.reportInterval for r in g['simulation'].reporters
+                             if getattr(r, '_file', None) == log_name)
+                eq, n = g['equilibration_steps'], g['simulation_steps']
+                log(f'    {log_name}: steps '
+                    f'{rows[:, header.index("Step")].astype(int).tolist()}, last row '
+                    + ', '.join(f'{h} {v:.4f}' for h, v in zip(header, rows[-1])))
+                assert np.all(np.isfinite(rows)), rows
+                assert np.array_equal(rows[:, header.index('Step')],
+                                      [k for k in range(eq + 1, eq + n + 1) if k % every == 0])
+                traj = os.path.join(tmp, g['simulation_name'] + '_trajectory.pdb')
+                with open(traj) as f:
+                    n_models = f.read().count('MODEL')
+                assert n_models >= 1, traj
+            for line in text.splitlines():
+                if line.startswith(('slot,', 'step,', 'Potential energy')) or (
+                        line[:1].isdigit() and ('remd' in name or 'pimd' in name)):
+                    log(f'    | {line}')
+
+        # (a) the water256 app single point against the port's CPU float64
+        g, text, launches, _ = runs['example_ini/mbpol_bulk_energy.ini']
+        e_card = printed_energy(text)
+        f_card = netcdf_forces(os.path.join(tmp, 'bulk_energy.nc'))
+        g64, text64, _, wall64 = run_ini(torch, card, tmp, 'example_ini/mbpol_bulk_energy.ini',
+                                         {}, platform='CPU')
+        assert g64['simulation'].potential.dtype == torch.float64
+        e64 = printed_energy(text64)
+        f64 = netcdf_forces(os.path.join(tmp, 'bulk_energy.nc'))
+        de, df = abs(e_card - e64), float(np.max(np.abs(f_card - f64)) / np.max(np.abs(f64)))
+        b_e = F32_BOUND_FACTOR * APP_JAX_F32_DE_KCAL
+        b_f = F32_BOUND_FACTOR * APP_JAX_F32_DF_REL
+        log(f'  (a) water256 app single point: card {e_card:.4f}, CPU float64 {e64:.4f} kcal/mol: '
+            f'|dE| {de:.4f} (bound {b_e:.4f} = {F32_BOUND_FACTOR:g} x the JAX float32 '
+            f'distance); max |dF| / max |F| {df:.4e} (bound {b_f:.4e}); K1/K2 launches '
+            f'{launches}; the JAX fixture single point reads {FIXTURE_JAX_KCAL} kcal/mol')
+        assert de <= b_e and df <= b_f, (de, df)
+        assert k12(launches) >= 1, launches
+        del g, g64
+
+        # (b) NVE: app steps/s with its reporters, and the report edges' share
+        g = runs['example_ini/mbpol_bulk_nve.ini'][0]
+        sim = g['simulation']
+        core = sim._core
+        chunks = []
+        core_step = core.step
+
+        def counted(n, **kw):
+            chunks.append(n)
+            return core_step(n, **kw)
+        core.step = counted
+        ED.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.step(APP_TIMED_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        per_step = k12({k.__name__: k.launches for k in ED.KERNELS}) / APP_TIMED_STEPS
+        core.step = core_step
+        edge = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            core.potential._energy_forces_impl(core.state.positions, box=core.state.box)
+            torch.cuda.synchronize()
+            edge.append(time.perf_counter() - t1)
+        edge_s = float(np.median(edge))
+        rate = APP_TIMED_STEPS / wall
+        log(f'  (b) {APP_TIMED_STEPS} more app steps of the NVE script with its reporters: '
+            f'{wall:.3f} s = {rate:.2f} steps/s against phase 5\'s {classical_rate:.2f} ({card}); '
+            f'{len(chunks)} chunks {chunks} to the report boundaries, each opened and closed by '
+            f'a converged evaluation of {edge_s * 1e3:.1f} ms: the edges take '
+            f'{2 * len(chunks) * edge_s / wall:.1%} of the wall (not gated); K1/K2 launches per '
+            f'step {per_step:.2f}')
+        assert per_step >= 1.0, per_step
+        del g, sim, core
+
+        # (c) NPT: barostat moves and the pressure column
+        g = runs['example_ini/mbpol_bulk_npt.ini'][0]
+        scale, attempted, accepted = g['simulation']._core._baro
+        header, rows = numeric_rows(os.path.join(tmp, 'bulk_npt.log'))
+        p = rows[:, header.index('Pressure (bar)')]
+        log(f'  (c) NPT: barostat moves attempted {attempted}, accepted {accepted}; pressure '
+            f'(bar) {np.round(p, 2).tolist()}; volume (nm^3) '
+            f'{np.round(rows[:, header.index("Box Volume (nm^3)")], 4).tolist()}')
+        assert attempted >= 1 and np.all(np.isfinite(p)), (attempted, p)
+        del g
+
+        # (d) the water14 cluster: NetCDF conventions, minimization
+        nc = netcdf_file(os.path.join(tmp, 'water14_cluster.nc'), 'r', mmap=False)
+        shapes = {k: nc.variables[k].shape for k in ('coordinates', 'velocities', 'forces')}
+        finite = all(np.all(np.isfinite(nc.variables[k][:])) for k in shapes)
+        conventions = (nc.Conventions, nc.ConventionVersion)
+        nc.close()
+        e0 = printed_energy(runs['example_ini/mbpol_cluster_energy.ini'][1])
+        e_min = printed_energy(runs['example_ini/mbpol_cluster_minimization.ini'][1])
+        log(f'  (d) water14_cluster.nc: {conventions}, {shapes}, finite {finite}; cluster '
+            f'energy {e0:.4f} kcal/mol, after minimization {e_min:.4f}')
+        assert conventions == (b'AMBER', b'1.0') and finite, (conventions, finite)
+        assert all(v == (3, 56, 3) for v in shapes.values()), shapes
+        assert e_min <= e0, (e_min, e0)
+
+        # (e) PIMD and REMD branches
+        for ini, key in (('example_ini/mbpol_bulk_npt_pimd.ini', 'metrics'),
+                         ('example_ini/mbpol_cluster_pimd.ini', 'metrics'),
+                         ('example_ini/mbpol_cluster_remd.ini', 'out'),
+                         ('example_ini/mbpol_bulk_remd.ini', 'out')):
+            out = runs[ini][0][key]
+            pe = np.asarray(out['potential_energy'])
+            extra = (f', barostat moves {out["barostat_attempted"]} attempted, '
+                     f'{out["barostat_accepted"]} accepted' if 'barostat_attempted' in out
+                     and 'npt' in ini else '')
+            if 'acceptance' in out:
+                extra += f', acceptance per pair {np.round(out["acceptance"], 3).tolist()}'
+            log(f'  (e) {ini}: potential energy {np.round(pe, 2).tolist()} kJ/mol{extra}')
+            assert np.all(np.isfinite(pe)), (ini, pe)
+            if 'npt' in ini:
+                assert out['barostat_attempted'] >= 1, out
+        del runs
+    torch.cuda.empty_cache()
+    phase_api(torch, card)
+
+
+def phase_api(torch, card):
+    """Phase 24 (f): the per-force API's PME electrostatics and
+    with_updated_params on the water256 fixture, on the card."""
+    import dataclasses
+
+    from mbpol_openmm_plugin_tpu_torch import api
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    cfg = MBPolConfig(nonbonded_method='PME', cutoff=0.9, ewald_error_tolerance=1e-4)
+    pot = MBPol(system, cfg)
+    e, f, parts, _ = pot.energy_forces(pos)
+    ep = pot.elec_params
+    force = api.MBPolElectrostaticsForce()
+    for i in range(system.n_atoms):
+        force.addElectrostatics(float(ep.charges[i]), int(ep.mol_index[i]), int(ep.atom_type[i]),
+                                float(ep.damping[i]), float(ep.polarity[i]))
+    force.setNonbondedMethod(api.MBPolElectrostaticsForce.PME)
+    force.setCutoffDistance(cfg.cutoff)
+    force.setEwaldErrorTolerance(cfg.ewald_error_tolerance)
+    force.setPeriodicBox(system.box)
+    force.setMutualInducedTargetEpsilon(cfg.target_epsilon)
+    force.setMutualInducedMaxIterations(cfg.max_iterations)
+    assert force._pme_setup() == pot.pme, (force._pme_setup(), pot.pme)
+    ED.reset_launch_counts()
+    t0 = time.perf_counter()
+    e_api, f_api = force.computeForceAndEnergy(pos)
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ED.KERNELS}
+    e_el = float(parts['electrostatics'])
+    rel = abs(e_api - e_el) / abs(e_el)
+    log(f'  (f) MBPolElectrostaticsForce (PME) {e_api:.4f} kJ/mol, MBPol electrostatics '
+        f'{e_el:.4f}: relative {rel:.3e} (bound {API_REL:g}); forces finite '
+        f'{bool(np.all(np.isfinite(f_api)))}; wall {wall * 1e3:.1f} ms ({card}); K1/K2 '
+        f'launches {launches}')
+    assert rel <= API_REL and np.all(np.isfinite(f_api)), rel
+    assert min(launches.values()) >= 1, launches
+
+    th = np.asarray(ep.thole, np.float64) * np.asarray(THOLE_SCALE)
+    ED.reset_launch_counts()
+    new = pot.with_updated_params(thole=th)
+    got = new.energy_forces(pos)
+    fresh = MBPol(system, dataclasses.replace(cfg, thole=tuple(th))).energy_forces(pos)
+    back = new.with_updated_params(thole=ep.thole).energy_forces(pos)
+    launches = {k.__name__: k.launches for k in ED.KERNELS}
+
+    def same(a, b):
+        return (bool(torch.equal(a[0], b[0])) and bool(torch.equal(a[1], b[1]))
+                and all(bool(torch.equal(a[2][k], b[2][k])) for k in a[2]))
+    same_fresh, same_back = same(got, fresh), same(back, (e, f, parts))
+    log(f'  (f) with_updated_params(thole x {THOLE_SCALE}): electrostatics '
+        f'{float(got[2]["electrostatics"]):.4f} kJ/mol (was {e_el:.4f}); the same bits as a '
+        f'fresh MBPol with that thole: {same_fresh}; back to the original thole, the '
+        f'original bits: {same_back}; K1/K2 launches {launches}')
+    assert float(got[2]['electrostatics']) != e_el
+    assert same_fresh and same_back
+    assert min(launches.values()) >= 3, launches
+
+
 _PHASE = {}
 
 
@@ -2079,6 +2438,9 @@ def main():
     phase_pimd_npt(torch, card)
     begin_phase('== phase 23: REMD (water256 R = 1, 2; water14 cluster R = 1, 8)')
     phase_remd(torch, card)
+    begin_phase(f'== phase 24: app layer and builder (the {len(APP_RUNS)} example INIs on the card; '
+                f'the per-force API, with_updated_params)')
+    phase_app(torch, card, quad_steps_per_s)
     begin_phase(None)
     log(f'  steps/s: classical {quad_steps_per_s:.2f} (phase 5), PIMD contracted {pimd_rate:.2f},'
         f' 8 full beads {full_rate:.2f} ({card})')

@@ -430,6 +430,44 @@ class MBPol:
                                  min(max(int(margin * max_lines) + 2, 8), n_tiles))
         return self
 
+    def with_updated_params(self, thole=None, charges=None, damping=None, polarity=None,
+                            target_epsilon=None, max_iterations=None,
+                            include_charge_redistribution=None):
+        """updateParametersInContext parity, as the JAX method of that name:
+        a new MBPol with mutated electrostatics parameters for the same
+        topology, on the same device. List capacities, the PME setup, the
+        tuned list sizes and the block layout carry over (the clone of
+        `with_scf_method`); a particle-count mismatch raises.
+
+        Array arguments: per-particle [N] charges/damping/polarity, [5]
+        thole. Scalars: target_epsilon, max_iterations,
+        include_charge_redistribution. The config follows thole and
+        include_charge_redistribution, as in the JAX package."""
+        if self.elec_params is None:
+            raise ValueError('potential has no electrostatics term')
+        n = len(self.elec_params.damping)
+        changes = {}
+        for name, val in (('thole', thole), ('charges', charges),
+                          ('damping', damping), ('polarity', polarity)):
+            if val is not None:
+                val = np.asarray(val, np.float64)
+                want = 5 if name == 'thole' else n
+                if val.shape != (want,):
+                    raise ValueError(
+                        f'{name} must have shape ({want},), got {val.shape} (particle count '
+                        'must match the existing system, as in updateParametersInContext)')
+                changes[name] = val
+        if target_epsilon is not None:
+            changes['target_epsilon'] = float(target_epsilon)
+        if max_iterations is not None:
+            changes['max_iterations'] = int(max_iterations)
+        if include_charge_redistribution is not None:
+            changes['include_charge_redistribution'] = bool(include_charge_redistribution)
+        cfg_changes = {k: changes[k] for k in ('include_charge_redistribution',) if k in changes}
+        if 'thole' in changes:
+            cfg_changes['thole'] = tuple(changes['thole'])
+        return _clone(self, cfg_changes, changes)
+
 
 def _redistribute_m_sites(system: System, f):
     """Forces [natoms, 3] with each M-site row moved to its parents O, H1, H2
@@ -473,10 +511,18 @@ def with_scf_method(pot: MBPol, method: str, aspc_n_corr: Optional[int] = None,
                               ('max_iterations', max_iterations, int)):
         if value is not None:
             changes[name] = kind(value)
+    return _clone(pot, changes, changes)
+
+
+def _clone(pot: MBPol, config_changes, param_changes):
+    """A new MBPol sharing pot's topology, device, list capacities, PME
+    setup and block layout, with its config and electrostatics parameters
+    replaced by the given fields (the per-site tables are rebuilt from the
+    new parameters at first use, MBPol._site_tables)."""
     new = object.__new__(MBPol)
     new.__dict__.update(pot.__dict__)
-    new.config = dataclasses.replace(pot.config, **changes)
-    new.elec_params = dataclasses.replace(pot.elec_params, **changes)
+    new.config = dataclasses.replace(pot.config, **config_changes)
+    new.elec_params = dataclasses.replace(pot.elec_params, **param_changes)
     return new
 
 

@@ -18,7 +18,9 @@ device time of the kernel and the tile sum it launches (and of every
 kernel in the trace), divided by the kernel's launches in the trace, and
 back to back between CUDA events, beside the device time of an empty
 kernel launch (the card's floor per launch) and the kernel's bound
-(`dense_bounds`, as chip_smoke.py phase 3 computes it). K2 takes dipoles
+(`dense_bounds`, as chip_smoke.py phase 3 computes it), and the bound of
+the same functions' full-grid form (each ordered in-cutoff pair's chain,
+the TPU kernels #3/#4). K2 takes dipoles
 of realistic size: polarity times K1's field. Exits non-zero when a check
 fails or a device time reads below its bound (a miscount, not a speed).
 Prints the card's name and power limit and one JSON object as the last
@@ -209,6 +211,15 @@ def probe_size(waters, args, card, rate, failures):
                          bound_ms=bound_ms, bound_by=by)
         if below:
             failures.append(f'{tag}.{name}.device_time')
+    # the full-grid form of the same functions (the TPU kernels
+    # _fixed_field_kernel / _pair_force_kernel, which the JAX package runs
+    # under a mesh): the chain of each ordered in-cutoff pair, the same bytes
+    full = dense_bounds(n, n_in, rate)
+    print('  full-grid form (each ordered in-cutoff pair\'s chain): bound '
+          + ', '.join(f'{name} {ms:.4f} ms ({by})' for name, (ms, by) in full.items()),
+          flush=True)
+    for name, (ms, by) in full.items():
+        out[name].update(full_grid_bound_ms=ms, full_grid_bound_by=by)
     return out
 
 

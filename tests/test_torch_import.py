@@ -43,6 +43,15 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.md.step_graph',
     'mbpol_openmm_plugin_tpu_torch.utils.consts',
     'mbpol_openmm_plugin_tpu_torch.tools.step_breakdown',
+    'mbpol_openmm_plugin_tpu_torch.app',
+    'mbpol_openmm_plugin_tpu_torch.app.units_compat',
+    'mbpol_openmm_plugin_tpu_torch.app.pdbfile',
+    'mbpol_openmm_plugin_tpu_torch.app.forcefield',
+    'mbpol_openmm_plugin_tpu_torch.app.netcdf',
+    'mbpol_openmm_plugin_tpu_torch.app.simulation',
+    'mbpol_openmm_plugin_tpu_torch.app.builder',
+    'mbpol_openmm_plugin_tpu_torch.api',
+    'mbpol_openmm_plugin_tpu_torch.analysis',
 ]
 
 SCRIPT = f"""
@@ -86,4 +95,21 @@ def test_parameter_tables_are_the_jax_packages_bytes(name):
     with open(os.path.join(_data.DATA_DIR, name + '.npz'), 'rb') as f:
         ours = f.read()
     with open(os.path.join(REPO, 'mbpol_openmm_plugin_tpu', 'data', name + '.npz'), 'rb') as f:
+        assert ours == f.read()
+
+
+XML_FILES = ('mbpol.xml', 'customdispersion.xml',
+             'mbpol_no_custom_dispersion_no_charge_redistribution.xml')
+
+
+@pytest.mark.parametrize('name', XML_FILES)
+def test_force_field_files_are_the_jax_packages_bytes(name):
+    """The port's app/ reads its own force-field XML copies, byte for byte
+    the JAX package's."""
+    from mbpol_openmm_plugin_tpu_torch.app.forcefield import mbpol_xml_path
+    here = os.path.dirname(mbpol_xml_path())
+    assert here == os.path.join(REPO, 'mbpol_openmm_plugin_tpu_torch', 'app')
+    with open(os.path.join(here, name), 'rb') as f:
+        ours = f.read()
+    with open(os.path.join(REPO, 'mbpol_openmm_plugin_tpu', 'app', name), 'rb') as f:
         assert ours == f.read()
