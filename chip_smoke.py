@@ -11,8 +11,11 @@ mode that 'auto' picks above 2560 waters on a card, water256 again with
 the 2B/3B polynomials evaluated by each fused kernel
 (MBPolConfig.pip_impl), the cluster (NoCutoff) path on water clusters up
 to 256 waters, r-RESPA on water256 PME, path-integral MD (contracted,
-full-bead and NPT), replica exchange, and the app layer: every example
-INI rendered by the port's builder and run, and the per-force API. It
+full-bead and NPT), replica exchange, the app layer (every example INI
+rendered by the port's builder and run, and the per-force API), and the
+large-box path: the sparse electrostatics at water4096, list compaction,
+the reference triplets, water8192 through the capacity planner and the
+site-chunked PME grid, and the compensated drift tool. It
 builds the hand-written CUDA kernels from csrc/ and holds each against its
 plain PyTorch twin at the shapes its path gives it.
 
@@ -184,8 +187,48 @@ Phases (any failure raises and the script exits non-zero):
      per-force API's PME electrostatics on the water256 fixture against
      MBPol's term (API_REL), with_updated_params(thole) bit for bit a fresh
      MBPol and back. K1/K2 launch in every bulk run and in (f).
+ 25. sparse electrostatics (the water-pair list mode, plain PyTorch): (a)
+     the water256 single point in 'sparse' against phase 4's dense one,
+     each term, the total and max |dF| / max |F| within F32_BOUND_FACTOR x
+     the JAX package's own float32 sparse-vs-dense distance
+     (SPARSE_JAX_F32, tools/large_n_reference.py); (b) water4096 sparse
+     after tune_capacities (PME grid x 2 x 2 x 4) against the water256
+     sparse single point x 16 under phase 7's bounds, with its peak device
+     memory; (c) 20 captured water4096 NVE steps under
+     for_dynamics(electrostatics_mode='sparse'): finite, healthy, no pair
+     overflow; steps/s beside phase 8's block rate;
+ 26. list compaction and the reference triplets at water256 dense: single
+     points under compact_eval True and 'rebuild', with the default 'quad'
+     and with 'quad_bf16' (kernel #10 on the compacted batches), each term,
+     the total and the forces against the uncompacted evaluation within
+     F32_BOUND_FACTOR x the JAX float32 compacted-vs-plain distance
+     (COMPACT_JAX_F32); kernel #10 against its twin on the compacted 2B/3B
+     variables and its time; the rows kept; ms per captured step without
+     compaction, with True and with 'rebuild' (200 'rebuild' steps from
+     rest under phase 5's conservation gate); triplet_semantics='reference':
+     the triplet count equal to the port's CPU float64 count at the same
+     positions, the three-body energy within F32_BOUND_FACTOR x the JAX
+     float32-vs-float64 distance (REFERENCE_3B_JAX_F32) of the CPU float64
+     one;
+ 27. water8192 (the fixture x 2 x 4 x 4, 32,768 sites, block mode):
+     plan_capacities from the positions (native counts; its caps equal to
+     the port's torch counts on the card, as integers), MBPol(plan=plan)
+     with the PME grid x 2 x 4 x 4; the chunk sizes of the spread and the
+     read-back; K1-bs, K3-bs and K2-bs against their twins at this size
+     and their device times; the single point against water256 x 32 under
+     phase 7's bounds; the spread and read-back unchunked against chunked
+     (CHUNK_REL of max) with both peaks of memory; the plan's
+     mem_per_device_mb beside torch.cuda.max_memory_allocated; 20 captured
+     NVE steps under for_dynamics through a plan: finite, healthy, no
+     tile, line, pair or triplet overflow, the block kernels every step;
+     steps/s;
+ 28. compensated accumulation: the port's drift tool
+     (tools/nve_drift.py) on water256, for_dynamics, 2000 steps plain and
+     --kahan from Maxwell-Boltzmann velocities at 300 K: each arm's fitted
+     drift over 100 steps finite and within phase 5's bound; both fits and
+     both rates printed.
 Each phase prints its wall time and the script its total.
-Phases 5, 8, 11, 13-15, 17, 20-22 and 24's NVE, NVT and NPT runs each step
+Phases 5, 8, 11, 13-15, 17, 20-22, 24's NVE, NVT and NPT runs and 25-28's MD each step
 as a replay of one CUDA graph (Simulation.captured, PIMDSimulation.captured;
 the kernel wrappers' launch counts include the replays); phases 18
 (r-RESPA) and 23 (REMD) run eagerly.
@@ -756,6 +799,7 @@ def phase_md4096(torch, card, record, pot, pos):
     assert all(n >= MD4096_STEPS for n in launches.values()), launches
     for name, n in launches.items():
         record[name]['launches'] = n
+    return MD4096_STEPS / wall
 
 
 def pip_variables(torch):
@@ -2338,6 +2382,479 @@ def phase_api(torch, card):
     assert min(launches.values()) >= 3, launches
 
 
+# phases 25-28: the large-box path. Bounds from the JAX package's own
+# float32 readings at the water256 fixture (tools/large_n_reference.py, JAX
+# on the CPU): sparse against dense under SINGLE_POINT, compact_eval (True
+# and 'rebuild', the larger reading of the two per quantity) against no
+# compaction under for_dynamics(target_epsilon=1e-4), the reference
+# triplets' three-body energy in float32 against float64 (kJ/mol; forces
+# as max |dF| / max |F|). Each is held at F32_BOUND_FACTOR x the reading.
+SPARSE_JAX_F32 = {'one_body': 0.0, 'two_body': 0.0, 'three_body': 0.0,
+                  'dispersion': 0.0029296875, 'electrostatics': 0.1025390625,
+                  'total': 0.10546875, 'forces_rel': 1.2412495281228016e-05}
+COMPACT_JAX_F32 = {'one_body': 0.0, 'two_body': 0.0009765625, 'three_body': 9.1552734375e-05,
+                   'dispersion': 0.0, 'electrostatics': 0.0, 'total': 0.0009765625,
+                   'forces_rel': 0.0}
+REFERENCE_3B_JAX_F32 = 4.035246254075105
+SPARSE_REPS = REPS                # water4096 sparse = water256 x 2 x 2 x 4
+SPARSE_MD_STEPS = 20
+COMPACT_MD_STEPS = 200
+COMPACT_TIMED_STEPS = 100
+REPS8192 = (2, 4, 4)              # water8192 = water256 x 2 x 4 x 4
+N_COPIES8192 = int(np.prod(REPS8192))
+MD8192_STEPS = 20
+CHUNK_REL = 1e-6
+DRIFT_STEPS, DRIFT_SEG = 2000, 100
+
+
+def load_replicated(torch, reps):
+    """The water256 fixture repeated reps times, on the card, float32."""
+    from mbpol_openmm_plugin_tpu_torch.system import compute_virtual_sites, replicate
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    big, pos = replicate(system, pos, reps)
+    return big, compute_virtual_sites(big, pos)
+
+
+def term_distances(torch, a, b):
+    """{term: |dE| kJ/mol, 'total', 'forces_rel': max |dF| / max |F|} of two
+    evaluations (E, F, parts, diag)."""
+    out = {k: abs(float(a[2][k]) - float(b[2][k])) for k in b[2]}
+    out['total'] = abs(float(a[0]) - float(b[0]))
+    out['forces_rel'] = float((a[1] - b[1]).abs().max() / b[1].abs().max())
+    return out
+
+
+def within_readings(name, got, readings, failures):
+    """Log each distance beside F32_BOUND_FACTOR x its JAX reading; a
+    distance over its bound is a failure."""
+    for k, v in got.items():
+        bound_k = F32_BOUND_FACTOR * readings[k]
+        ok = v <= bound_k
+        log(f'    {name:28s} {k:14s} {v:.6e} (bound {bound_k:.6e} = {F32_BOUND_FACTOR} x JAX '
+            f'{readings[k]:.6e}) {"ok" if ok else "FAIL"}')
+        if not ok:
+            failures.append(f'{name}.{k}')
+
+
+@contextlib.contextmanager
+def dense_twins_on_the_card():
+    """Inside the block the dense mode's direct space runs the plain twins
+    of K1/K2 on the card (float32 plain PyTorch, as the JAX package's XLA
+    path on the CPU) instead of the kernels."""
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    saved = ED.fixed_field_and_scf_factors, ED.direct_energy_force_pot
+    ED.fixed_field_and_scf_factors = ED.fixed_field_and_scf_factors_plain
+    ED.direct_energy_force_pot = ED.direct_energy_force_pot_plain
+    try:
+        yield
+    finally:
+        ED.fixed_field_and_scf_factors, ED.direct_energy_force_pot = saved
+
+
+def run_md(torch, sim, steps):
+    """(out, wall s) of sim.step(steps), synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = sim.step(steps)
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_sparse(torch, card, pot256, e256, f256, parts256, block_rate):
+    """Phase 25: the sparse electrostatics on the card: (a) water256 against
+    phase 4's dense single point; (b) water4096 against water256 x 16;
+    (c) 20 captured NVE steps at water4096."""
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+
+    failures = []
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    sp = MBPol(system, MBPolConfig(electrostatics_mode='sparse', **SINGLE_POINT))
+    t0 = time.perf_counter()
+    e_s, f_s, parts_s, diag = sp.energy_forces(pos)
+    torch.cuda.synchronize()
+    log(f'  (a) water256 sparse/{sp.disp_mode}: E {float(e_s):.4f} kJ/mol (dense {e256:.4f}), '
+        f'SCF iterations {int(diag["iterations"])}, water-pair capacity {sp.elec_pair_cap}, '
+        f'wall {(time.perf_counter() - t0) * 1e3:.1f} ms ({card})')
+    assert bool(diag['converged']) and not bool(diag['elec_pair_overflow'])
+    # the JAX reading compares two plain float32 routes; so does the gate:
+    # the dense mode with K1/K2's plain twins on the card
+    with dense_twins_on_the_card():
+        plain = MBPol(system, MBPolConfig(**SINGLE_POINT)).energy_forces(pos)
+    within_readings('sparse vs dense (twins)', term_distances(torch, (e_s, f_s, parts_s), plain),
+                    SPARSE_JAX_F32, failures)
+    kern = term_distances(torch, (e256, f256, parts256), plain)
+    vs4 = term_distances(torch, (e_s, f_s, parts_s), (e256, f256, parts256))
+    log(f'  against phase 4 (dense, K1/K2): electrostatics {vs4["electrostatics"]:.3e} kJ/mol, '
+        f'forces {vs4["forces_rel"]:.3e} of max |F|; the kernels\' share, dense K1/K2 against '
+        f'dense twins: {kern["electrostatics"]:.3e} kJ/mol, forces {kern["forces_rel"]:.3e} '
+        f'(bounds nothing; phase 3 holds the kernels to their twins)')
+
+    # (b) the replicated box
+    grid = tuple(g * r for g, r in zip(pot256.pme.grid, SPARSE_REPS))
+    big, pos_b = load_replicated(torch, SPARSE_REPS)
+    torch.cuda.reset_peak_memory_stats()
+    pot = MBPol(big, MBPolConfig(pme_grid=grid, electrostatics_mode='sparse', **SINGLE_POINT))
+    pot.tune_capacities(pos_b)
+    t0 = time.perf_counter()
+    e, f, _, diag = pot.energy_forces(pos_b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    e_rel = abs(float(e) / N_COPIES - float(e_s)) / abs(float(e_s))
+    f_rel = float((f.reshape(N_COPIES, -1, 3) - f_s[None]).abs().max() / f_s.abs().max())
+    terms = dict(SINGLE_POINT, terms=('electrostatics', 'dispersion'), electrostatics_mode='sparse')
+    fs = MBPol(system, MBPolConfig(**terms)).energy_forces(pos)[1]
+    fb = MBPol(big, MBPolConfig(pme_grid=grid, **terms)).tune_capacities(pos_b).energy_forces(
+        pos_b)[1]
+    fs_rel = float((fb.reshape(N_COPIES, -1, 3) - fs[None]).abs().max() / fs.abs().max())
+    log(f'  (b) water4096 sparse/{pot.disp_mode} after tune_capacities (water-pair capacity '
+        f'{pot.elec_pair_cap}), PME grid {grid}: E per copy {float(e) / N_COPIES:.5f} vs '
+        f'{float(e_s):.5f}, relative {e_rel:.3e} (bound {REPLICA_E_REL}); forces electrostatics '
+        f'+ dispersion {fs_rel:.3e} (bound {REPLICA_F_REL}), whole {f_rel:.3e} (bound '
+        f'{REPLICA_F_WHOLE}); SCF iterations {int(diag["iterations"])}; wall {wall * 1e3:.1f} ms; '
+        f'peak device memory {peak:.2f} GiB ({card})')
+    assert bool(diag['converged'])
+    assert not any(bool(v) for k, v in diag.items() if k.endswith('_overflow')), diag
+    for name, v, b in (('e_rel', e_rel, REPLICA_E_REL), ('fs_rel', fs_rel, REPLICA_F_REL),
+                       ('f_rel', f_rel, REPLICA_F_WHOLE)):
+        if not v <= b:
+            failures.append(f'replication.{name}')
+    del pot, e, f, fb
+    torch.cuda.empty_cache()
+
+    # (c) captured NVE steps
+    md = MBPol(big, MBPolConfig.for_dynamics(electrostatics_mode='sparse')).tune_capacities(pos_b)
+    sim = Simulation(md, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    assert sim.captured
+    sim.set_positions(pos_b)
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = run_md(torch, sim, SPARSE_MD_STEPS)   # raises on NaN, overflow or a failed SCF
+    e_tot = out['step_total_energy']
+    log(f'  (c) water4096 sparse MD: {SPARSE_MD_STEPS} steps in {wall:.3f} s = '
+        f'{SPARSE_MD_STEPS / wall:.3f} steps/s (block/pairs, phase 8: {block_rate:.3f}), '
+        f'including the two converged evaluations and the capture '
+        f'({sim.capture_ms[0]:.1f} ms); E_tot {e_tot[0]:.4f} -> {e_tot[-1]:.4f} kJ/mol; list '
+        f'rebuilds {sim.list_rebuilds}; peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB ({card})')
+    assert np.all(np.isfinite(e_tot))
+    del sim, md
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f'phase 25: {failures}')
+
+
+def timed_md(torch, pot, pos, steps):
+    """(out, sim, ms per step) of captured NVE steps from the fixture at
+    rest: 20 steps (the capture), then `steps` from rest (out), then 20 from
+    rest again; ms per step is the difference of the last two walls over
+    steps - 20 (each call's converged edges cancel)."""
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    assert sim.captured
+    runs = []
+    for n in (20, steps, 20):
+        sim.set_positions(pos)
+        runs.append(run_md(torch, sim, n))
+    return runs[1][0], sim, (runs[1][1] - runs[2][1]) / (steps - 20) * 1e3
+
+
+def phase_compact(torch, card, record, quad_steps_per_s):
+    """Phase 26: list compaction and the reference triplets at water256 dense."""
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.models.three_body import three_body_variables
+    from mbpol_openmm_plugin_tpu_torch.models.two_body import two_body_variables
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused as PF
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused_check as check
+
+    failures = []
+    system, pos = load_water256(torch, torch.device('cuda'), torch.float32)
+    cfg = dict(target_epsilon=1e-4)
+    for impl in ('quad', 'quad_bf16'):
+        plain = MBPol(system, MBPolConfig.for_dynamics(pip_impl=impl, **cfg)).energy_forces(pos)
+        for ce in (True, 'rebuild'):
+            ED.reset_launch_counts()
+            PF.reset_launch_counts()
+            pot = MBPol(system, MBPolConfig.for_dynamics(pip_impl=impl, compact_eval=ce, **cfg))
+            got = pot.energy_forces(pos)
+            torch.cuda.synchronize()
+            diag = got[3]
+            rows = (f'2B {int(diag["n_pairs_active"])} of {int(diag["n_pairs"])} built, '
+                    f'3B {int(diag["n_triplets_active"])} of {int(diag["n_triplets"])}'
+                    if ce is True else f'2B {int(diag["n_pairs"])} / 3B '
+                    f'{int(diag["n_triplets"])} within cutoff + skin')
+            launches = {k.__name__: k.launches for k in ED.KERNELS + PF.KERNELS if k.launches}
+            log(f'  {impl} compact_eval={ce!r}: eval rows {pot.pair_eval_cap} / '
+                f'{pot.trip_eval_cap} of {pot.pair_cap} / {pot.trip_cap} ({rows}); launches '
+                f'{launches}')
+            assert not any(bool(v) for k, v in diag.items() if k.endswith('_overflow')), diag
+            assert launches.get('fixed_field_and_scf_factors', 0) >= 1
+            if impl == 'quad_bf16':
+                assert launches.get('pip_quad_product_energy_grad', 0) >= 2, launches
+            dist = term_distances(torch, got, plain)
+            if impl == 'quad_bf16':
+                within_readings(f'{impl} {ce!r} vs plain', dist, COMPACT_JAX_F32, failures)
+            else:
+                # cuBLAS's float32 GEMM rounds a row differently with the
+                # batch length, which the JAX reading (XLA on the CPU, each
+                # row the same at any length) does not see: held to phase
+                # 7's list-length rows (energy per term 1e-4 relative, forces
+                # REPLICA_F_WHOLE), the JAX reading logged beside
+                for k, v in dist.items():
+                    b = (REPLICA_F_WHOLE if k == 'forces_rel'
+                         else REPLICA_E_REL * abs(float(plain[0] if k == 'total'
+                                                       else plain[2][k])))
+                    ok = v <= b
+                    log(f'    {impl} {ce!r} vs plain {k:14s} {v:.6e} (bound {b:.6e}; JAX '
+                        f'float32 {COMPACT_JAX_F32[k]:.6e}) {"ok" if ok else "FAIL"}')
+                    if not ok:
+                        failures.append(f'{impl}.{ce}.{k}')
+
+    # kernel #10 on the compacted batches against its twin, and its time
+    pot = MBPol(system, MBPolConfig.for_dynamics(compact_eval=True))
+    (pl, tl), _ = pot.build_neighbor_lists(pos)
+    (pl, tl), _ = pot._compact_lists(pos, (pl, tl), system.box)
+    with torch.no_grad():
+        xs = {'poly2b': two_body_variables(system, pos, pl[0], pl[1]).contiguous(),
+              'poly3b': three_body_variables(system, pos, tl[0], tl[1]).contiguous()}
+    wrapper = PF.pip_quad_product_energy_grad
+    for poly, x in xs.items():
+        rows, err = check.kernel_rows(wrapper, poly, x, physical=True)
+        for row in rows:
+            log(f'  {wrapper.__name__:28s} {poly} compacted [{x.shape[0]:5d}] {row}')
+            if not row.ok:
+                failures.append(f'kernel10.{poly}.{row.output}.{row.measure}')
+        ms, plain_ms = time_kernel(torch, card, wrapper.__name__, lambda: wrapper(poly, x),
+                                   lambda: PF.PLAIN[wrapper](poly, x), N_TIMING_TWIN_BS)
+        log(f'  {wrapper.__name__:28s} {poly} compacted [{x.shape[0]}, {x.shape[1]}]: kernel '
+            f'{ms:.4f} ms, twin {plain_ms:.4f} ms, max |err| {err:.3e} ({card})')
+
+    # MD: 200 captured 'rebuild' steps under phase 5's gate; ms per step
+    # with and without compaction
+    ms = {}
+    for ce, steps in ((None, COMPACT_TIMED_STEPS), (True, COMPACT_TIMED_STEPS),
+                      ('rebuild', COMPACT_MD_STEPS)):
+        pot = MBPol(system, MBPolConfig.for_dynamics(compact_eval=ce))
+        ED.reset_launch_counts()
+        out, sim, ms[ce] = timed_md(torch, pot, pos, steps)
+        launches = {k.__name__: k.launches for k in ED.KERNELS}
+        log(f'  MD compact_eval={ce!r}: {ms[ce]:.3f} ms per step (captured, the difference of '
+            f'{steps} and 20 steps; phase 5 reads {1e3 / quad_steps_per_s:.3f} ms per step with '
+            f'the edges); list rebuilds {sim.list_rebuilds}; K1/K2 {launches} ({card})')
+        if ce == 'rebuild':
+            e_tot = out['step_total_energy']
+            fit = second_half_fit(e_tot)
+            log(f'  rebuild MD: E_tot {e_tot[0]:.4f} -> {e_tot[-1]:.4f} kJ/mol, fitted change '
+                f'over the second half {fit:+.4f} kJ/mol (bound |fit| <= {MD_FIT_TOL_KJ})')
+            assert np.all(np.isfinite(e_tot)) and abs(fit) <= MD_FIT_TOL_KJ, fit
+            assert all(n >= steps for n in launches.values()), launches
+        del sim
+    log(f'  compaction per step: True {ms[True] - ms[None]:+.3f} ms, rebuild '
+        f'{ms["rebuild"] - ms[None]:+.3f} ms against {ms[None]:.3f} ms uncompacted ({card})')
+
+    # the reference triplets: the card's float32 against the CPU float64
+    cfg_ref = dict(triplet_semantics='reference', **SINGLE_POINT)
+    got = MBPol(system, MBPolConfig(**cfg_ref)).energy_forces(pos)
+    sys64, _ = load_water256(torch, torch.device('cpu'), torch.float64)
+    ref = MBPol(sys64, MBPolConfig(terms=('three_body',), **cfg_ref), device='cpu').energy_forces(
+        pos.cpu().double())
+    n_t, n_t64 = int(got[3]['n_triplets']), int(ref[3]['n_triplets'])
+    d3 = abs(float(got[2]['three_body']) - float(ref[2]['three_body']))
+    bound3 = F32_BOUND_FACTOR * REFERENCE_3B_JAX_F32
+    log(f'  reference triplets: {n_t} (CPU float64 at the same positions: {n_t64}); three-body '
+        f'{float(got[2]["three_body"]):.6f} vs {float(ref[2]["three_body"]):.6f} kJ/mol, |d| '
+        f'{d3:.6e} (bound {bound3:.6e} = {F32_BOUND_FACTOR} x JAX {REFERENCE_3B_JAX_F32:.6e})')
+    if n_t != n_t64 or not d3 <= bound3:
+        failures.append('reference_triplets')
+    if failures:
+        raise AssertionError(f'phase 26: {failures}')
+
+
+def phase_water8192(torch, card):
+    """Phase 27: water8192 through the planner, the block kernels and the
+    chunked PME grid."""
+    from mbpol_openmm_plugin_tpu_torch.models import pme as P
+    from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
+    from mbpol_openmm_plugin_tpu_torch.models import potential as MP
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as BS
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_check as check
+    from mbpol_openmm_plugin_tpu_torch.parallel.plan import plan_capacities
+    from mbpol_openmm_plugin_tpu_torch.system import oxygen_positions
+
+    failures = []
+    sys256, pos256 = load_water256(torch, torch.device('cuda'), torch.float32)
+    pot256 = MP.MBPol(sys256, MP.MBPolConfig(**SINGLE_POINT))
+    e256, f256, _, _ = pot256.energy_forces(pos256)
+    system, pos = load_replicated(torch, REPS8192)
+    grid = tuple(g * r for g, r in zip(pot256.pme.grid, REPS8192))
+    cfg_sp = MP.MBPolConfig(pme_grid=grid, **SINGLE_POINT)
+    t0 = time.perf_counter()
+    plan = plan_capacities(system.n_waters, system.box, config=cfg_sp, positions=pos)
+    t_plan = time.perf_counter() - t0
+    log(f'  water8192: {system.n_waters} waters, {pos.shape[0]} sites, box '
+        f'{tuple(round(float(b), 5) for b in system.box)} nm; plan_capacities from the positions '
+        f'(native counts) {t_plan:.2f} s:')
+    for line in plan.describe().splitlines():
+        log('    ' + line)
+    # the plan's caps against the port's torch counts on the card
+    counts = MP.ListCounts(oxygen_positions(system, pos), system.box)
+    caps = MP.list_capacities(counts, cfg_sp, system.n_waters, 1.15, plan.elec_mode,
+                              plan.disp_pair_cap is not None)
+    same = {k: (getattr(plan, k), v) for k, v in caps.items()}
+    log(f'  plan vs torch counts: {same}')
+    if any(a != b for a, b in same.values()):
+        failures.append('plan_counts')
+    assert plan.elec_mode == 'block', plan.elec_mode
+    torch.cuda.reset_peak_memory_stats()
+    pot = MP.MBPol(system, cfg_sp, plan=plan)
+    assert pot._block_info['tile_pair_capacity'] == plan.tile_pair_capacity
+    n = pos.shape[0]
+    nx, ny, nz = grid
+    log(f'  PME grid {grid}: site chunks of {P._sep_chunk(n, ny * nz)} (spread; dipoles '
+        f'{P._sep_chunk(3 * n, ny * nz)} of {3 * n} rows) and {P._sep_chunk(n, 3 * nx * ny)} '
+        f'(read-back) of {n} sites (_SEP_CHUNK_ELEMS {P._SEP_CHUNK_ELEMS})')
+
+    # the block kernels against their twins at this size
+    params, block = pot.elec_params, pot._block_info
+    charges, _ = elec.assemble_charges(params, pos)
+    sites, tiles = P.block_sites(params, pot.pme, pos, charges, block)
+    polarity = torch.as_tensor(params.polarity[block['site_perm']], dtype=pos.dtype,
+                               device=pos.device)
+    consts = ED.DirectConsts.from_setup(pot.pme, params.thole)
+    checks = check.block_kernel_rows(sites, polarity, tiles, n, consts, block['line_capacity'])
+    torch.cuda.synchronize()
+    for kname, (rows, _) in checks.items():
+        for row in rows:
+            log(f'  {kname:28s} {row}')
+            if not row.ok:
+                failures.append(f'{kname}.{row.output}.{row.entries}.{row.measure}')
+    field, lines = BS.fixed_field_and_scf_lines(sites, n, tiles, consts, block['line_capacity'])
+    mu = (polarity[:, None] * field).contiguous()
+    mu_pad = BS.pad_rows(mu, sites.shape[0])
+    log(f'  tile pairs {int(tiles.n_act)} of capacity {tiles.capacity}; s3/s5 lines: capacity '
+        f'{block["line_capacity"]}, max per slab {int(lines.count.max())}, overflow '
+        f'{bool(lines.overflow())}, {lines.nbytes() / 1e9:.4f} GB')
+    assert not bool(lines.overflow())
+    for kname, kern in (
+            ('fixed_field_and_scf_lines',
+             lambda: BS.fixed_field_and_scf_lines(sites, n, tiles, consts,
+                                                  block['line_capacity'])),
+            ('scf_dipole_field_bs',
+             lambda: BS.scf_dipole_field_bs(sites, lines, mu_pad, tiles, n, consts)),
+            ('direct_energy_force_pot_bs',
+             lambda: BS.direct_energy_force_pot_bs(sites, mu, n, tiles, consts))):
+        dev = kernel_device_ms(kern, KERNELS[kname][0], N_TIMING, HELPER_KERNELS.get(kname, ()))
+        log(f'  {kname:28s} water8192 device time '
+            f'{"not in the trace" if dev.ms is None else f"{dev.ms:.4f} ms"} per launch '
+            f'({dev.launches} launches traced) ({card})')
+    del field, lines, mu, mu_pad, checks
+    torch.cuda.empty_cache()
+
+    # the single point against water256 x 32
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e, f, _, diag = pot.energy_forces(pos)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e6
+    e_rel = abs(float(e) / N_COPIES8192 - float(e256)) / abs(float(e256))
+    f_rel = float((f.reshape(N_COPIES8192, -1, 3) - f256[None]).abs().max() / f256.abs().max())
+    terms = dict(SINGLE_POINT, terms=('electrostatics', 'dispersion'))
+    fs256 = MP.MBPol(sys256, MP.MBPolConfig(**terms)).energy_forces(pos256)[1]
+    cfg_t = MP.MBPolConfig(pme_grid=grid, **terms)
+    fs = MP.MBPol(system, cfg_t, plan=plan_capacities(system.n_waters, system.box, config=cfg_t,
+                                                      positions=pos)).energy_forces(pos)[1]
+    fs_rel = float((fs.reshape(N_COPIES8192, -1, 3) - fs256[None]).abs().max()
+                   / fs256.abs().max())
+    log(f'  single point: E per copy {float(e) / N_COPIES8192:.5f} vs {float(e256):.5f} kJ/mol, '
+        f'relative {e_rel:.3e} (bound {REPLICA_E_REL}); forces electrostatics + dispersion '
+        f'{fs_rel:.3e} (bound {REPLICA_F_REL}), whole {f_rel:.3e} (bound {REPLICA_F_WHOLE}); SCF '
+        f'iterations {int(diag["iterations"])}; wall {wall * 1e3:.1f} ms; '
+        f'mem_per_device_mb {plan.mem_per_device_mb:.1f} MB (the plan) vs '
+        f'torch.cuda.max_memory_allocated {peak:.1f} MB ({card})')
+    assert bool(diag['converged'])
+    assert not any(bool(v) for k, v in diag.items() if k.endswith('_overflow')), diag
+    for name, v, b in (('e_rel', e_rel, REPLICA_E_REL), ('fs_rel', fs_rel, REPLICA_F_REL),
+                       ('f_rel', f_rel, REPLICA_F_WHOLE)):
+        if not v <= b:
+            failures.append(f'replication.{name}')
+    del f, fs
+    torch.cuda.empty_cache()
+
+    # the spread and the read-back unchunked against chunked
+    box = P.box_tuple(pot.pme)
+    S = P._spline_matrices(pot.pme, pos, box)
+    charges, _ = elec.assemble_charges(params, pos)
+    wx = charges[:, None] * S[0][..., 0]
+    out = {}
+    chunk = P._SEP_CHUNK_ELEMS
+    for name, elems in (('chunked', chunk), ('unchunked', 1 << 62)):
+        P._SEP_CHUNK_ELEMS = elems
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        g = P._spread_separable(pot.pme, wx, S[1][..., 0], S[2][..., 0])
+        phi = P._readback_phi10(g, *S)
+        torch.cuda.synchronize()
+        out[name] = (g, phi, (torch.cuda.max_memory_allocated() - base) / 2 ** 30)
+    P._SEP_CHUNK_ELEMS = chunk
+    g_rel = float((out['chunked'][0] - out['unchunked'][0]).abs().max()
+                  / out['unchunked'][0].abs().max())
+    p_rel = float((out['chunked'][1] - out['unchunked'][1]).abs().max()
+                  / out['unchunked'][1].abs().max())
+    log(f'  spread / read-back chunked vs unchunked: {g_rel:.3e} / {p_rel:.3e} of max (bound '
+        f'{CHUNK_REL}); peak memory above the inputs {out["chunked"][2]:.3f} GiB chunked, '
+        f'{out["unchunked"][2]:.3f} GiB unchunked ({card})')
+    if not (g_rel <= CHUNK_REL and p_rel <= CHUNK_REL):
+        failures.append('chunked_grid')
+    del out, S, wx, pot
+    torch.cuda.empty_cache()
+
+    # 20 captured NVE steps under for_dynamics through a plan
+    cfg_md = MP.MBPolConfig.for_dynamics(pme_grid=grid)
+    plan_md = plan_capacities(system.n_waters, system.box, config=cfg_md, positions=pos)
+    md = MP.MBPol(system, cfg_md, plan=plan_md)
+    sim = Simulation(md, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    assert sim.captured
+    sim.set_positions(pos)
+    BS.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out, wall = run_md(torch, sim, MD8192_STEPS)   # raises on NaN, overflow or a failed SCF
+    launches = {k.__name__: k.launches for k in BS.KERNELS}
+    e_tot = out['step_total_energy']
+    log(f'  water8192 MD: {MD8192_STEPS} steps in {wall:.3f} s = {MD8192_STEPS / wall:.3f} '
+        f'steps/s including the converged edges and the capture ({sim.capture_ms[0]:.1f} ms); '
+        f'E_tot {e_tot[0]:.4f} -> {e_tot[-1]:.4f} kJ/mol; launches {launches}; peak device memory '
+        f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB (plan: '
+        f'{plan_md.mem_per_device_mb:.1f} MB) ({card})')
+    assert np.all(np.isfinite(e_tot))
+    assert all(v >= MD8192_STEPS for v in launches.values()), launches
+    del sim, md
+    torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f'phase 27: {failures}')
+
+
+def phase_drift(torch, card):
+    """Phase 28: the drift tool (tools/nve_drift.py) on water256,
+    for_dynamics, plain and --kahan."""
+    from mbpol_openmm_plugin_tpu_torch.tools import nve_drift
+    for kahan in (False, True):
+        out = nve_drift.run(steps=DRIFT_STEPS, therm=0, seg=DRIFT_SEG, kahan=kahan, echo=False)
+        # phase 5's bound on the fitted change over 100 steps of 0.2 fs
+        fit100 = out['drift_kJmol_per_ns'] * 1e-3 * 100 * 0.2e-3
+        log(f'  {"kahan" if kahan else "plain"}: {DRIFT_STEPS} steps at '
+            f'{out["steps_per_second"]:.2f} steps/s, T {out["temperature_K"]:.1f} K, drift '
+            f'{out["drift_kJmol_per_ns"]:+.2f} kJ/mol/ns = {out["drift_K_per_ns"]:+.2f} K/ns over '
+            f'{out["window_ps"]:.2f} ps, the fit per 100 steps {fit100:+.4f} kJ/mol (bound '
+            f'{MD_FIT_TOL_KJ}) ({card})')
+        assert np.isfinite(fit100) and not out['nan'] and not out['neighbor_overflow'], out
+        assert abs(fit100) <= MD_FIT_TOL_KJ, fit100
+
+
 _PHASE = {}
 
 
@@ -2394,7 +2911,7 @@ def main():
     begin_phase(f'== phase 8: MD (water4096, for_dynamics, block/pairs, {MD4096_STEPS} Verlet steps '
         f'at 0.2 fs)')
     torch.cuda.reset_peak_memory_stats()
-    phase_md4096(torch, card, record, pot4096, pos4096)
+    block_rate = phase_md4096(torch, card, record, pot4096, pos4096)
     del pot4096, pos4096
     torch.cuda.empty_cache()
     begin_phase('== phase 9: fused PIP kernels vs twins (water256 lists and seeded rows, float32)')
@@ -2441,6 +2958,18 @@ def main():
     begin_phase(f'== phase 24: app layer and builder (the {len(APP_RUNS)} example INIs on the card; '
                 f'the per-force API, with_updated_params)')
     phase_app(torch, card, quad_steps_per_s)
+    begin_phase(f'== phase 25: sparse electrostatics (water256 vs dense; water4096 vs water256 x '
+                f'{N_COPIES}; {SPARSE_MD_STEPS} captured water4096 steps)')
+    phase_sparse(torch, card, pot256, e256, f256, parts256, block_rate)
+    begin_phase('== phase 26: list compaction and the reference triplets (water256 dense, K1/K2, '
+                'kernel #10 on the compacted batches)')
+    phase_compact(torch, card, record, quad_steps_per_s)
+    begin_phase(f'== phase 27: water8192 (planner, block kernels, chunked PME grid, '
+                f'{MD8192_STEPS} captured steps)')
+    phase_water8192(torch, card)
+    begin_phase(f'== phase 28: compensated accumulation (the drift tool, water256, {DRIFT_STEPS} '
+                f'steps plain and --kahan)')
+    phase_drift(torch, card)
     begin_phase(None)
     log(f'  steps/s: classical {quad_steps_per_s:.2f} (phase 5), PIMD contracted {pimd_rate:.2f},'
         f' 8 full beads {full_rate:.2f} ({card})')

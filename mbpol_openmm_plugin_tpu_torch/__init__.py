@@ -12,7 +12,12 @@ electrostatics modes, with the 2B/3B polynomials in plain PyTorch or, as
 dynamics, minimization and two- and three-level r-RESPA; and the cluster (NoCutoff)
 path: polarizable electrostatics of non-periodic systems under SOR, DIIS or
 ASPC, system moments, the potential on a grid, the flat-bottom restraint,
-water + Cl- systems without electrostatics and any site layout. The
+water + Cl- systems without electrostatics and any site layout; and the
+large-box pieces: the sparse (water-pair list) electrostatics the CPU
+takes above 512 waters, list compaction, the reference's triplet
+enumeration, the site-chunked PME grid, the host voxel-hash lists
+(``ops/native.py``), single-device capacity plans (``parallel/plan.py``)
+and compensated accumulation (``utils/compensated.py``). The
 direct-space electrostatics pair work of PME and the fused polynomials run
 in hand-written CUDA kernels on CUDA float32 tensors
 (``ops/elec_direct.py``, ``ops/elec_direct_bs.py``, ``ops/pip_fused.py``;

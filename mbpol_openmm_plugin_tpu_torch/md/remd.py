@@ -214,7 +214,7 @@ class REMDSimulation:
 
     R = 1 is a valid ladder (no exchange candidates), the single-replica
     baseline of a ladder's efficiency. mesh= (replicas over devices) raises:
-    parallel/ is not ported."""
+    meshes (parallel/mesh.py) are not ported."""
 
     def __init__(self, potential, temperatures, config: Optional[REMDConfig] = None,
                  seed: int = 0, mesh=None):

@@ -459,7 +459,8 @@ class PIMDSimulation:
     steps). It needs lists, a skin, and no barostat. A list, tile or pair
     overflow anywhere in a chunk raises at its end.
 
-    mesh= (beads over devices) raises: parallel/ is not ported.
+    mesh= (beads over devices) raises: meshes (parallel/mesh.py) are not
+    ported.
     """
 
     def __init__(self, potential: MBPol, n_beads, dt=1e-4, temperature=300.0, tau0=0.1,

@@ -253,7 +253,11 @@ class Simulation:
         are built every call and selected with the trigger, a 0-d bool on
         the device compared in float64 as the host compared float(2 disp)
         with 0.5 skin. nl_carry = (lists, build positions, overflow flag); a
-        rebuild's overflow ORs into the flag. Returns (nl_carry', trigger)."""
+        rebuild's overflow ORs into the flag. Under compact_eval='rebuild'
+        the build compacts its lists to the eval capacities, as it did for
+        the carried ones, so both sides of the select have one shape (the
+        compaction runs in every step, not once per rebuild). Returns
+        (nl_carry', trigger)."""
         ((pairs, pmask), (trips, tmask)), pb, ovf = nl_carry
         o_p, o_b = oxygen_positions(self.system, p), oxygen_positions(self.system, pb)
         disp = torch.max(torch.linalg.norm(o_p - o_b, dim=-1))

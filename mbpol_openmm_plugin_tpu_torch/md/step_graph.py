@@ -15,6 +15,7 @@ falls back to the eager step.
 """
 from __future__ import annotations
 
+import contextlib
 import time
 
 import numpy as np
@@ -23,6 +24,23 @@ import torch
 from mbpol_openmm_plugin_tpu_torch.utils import consts
 
 LIST_KEYS = ('pairs', 'pmask', 'trips', 'tmask')
+
+_BODY_DEPTH = [0]
+
+
+def in_step():
+    """True while a step body runs (eagerly or being recorded): host work,
+    such as the native neighbor lists, refuses to run there."""
+    return _BODY_DEPTH[0] > 0
+
+
+@contextlib.contextmanager
+def _body_running():
+    _BODY_DEPTH[0] += 1
+    try:
+        yield
+    finally:
+        _BODY_DEPTH[0] -= 1
 
 
 def kernel_wrappers():
@@ -114,7 +132,8 @@ class StepGraph:
     def step(self, body):
         """Advance the buffers one step: body(self), or the graph's replay."""
         if not self.capture:
-            body(self)
+            with _body_running():
+                body(self)
         elif self.graph is not None:
             self.graph.replay()
             self.ledger.replayed()
@@ -127,14 +146,14 @@ class StepGraph:
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream(device=cur.device)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
+        with torch.cuda.stream(side), _body_running():
             body(self)
         cur.wait_stream(side)
         t0 = time.perf_counter()
         graph = torch.cuda.CUDAGraph()
         self.ledger.begin_capture()
         try:
-            with consts.recording() as pinned, torch.cuda.graph(graph):
+            with consts.recording() as pinned, torch.cuda.graph(graph), _body_running():
                 body(self)
         finally:
             self.ledger.end_capture()

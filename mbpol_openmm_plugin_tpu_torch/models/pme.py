@@ -1,10 +1,13 @@
 """PME electrostatics, dense and block-sparse direct space
 (port of the single-device dense and block branches of
-mbpol_openmm_plugin_tpu/models/pme.py).
+mbpol_openmm_plugin_tpu/models/pme.py; the sparse direct space is
+models/pme_sparse.py, over the grid pieces of this module).
 
 - order-5 B-spline spreading onto a 3D grid through separable one-hot
   spline matrices, FFT convolution with the B-spline moduli and
   exp(-pi^2 m^2/alpha^2), read-back of the potential and its derivatives;
+  above _SEP_CHUNK_ELEMS elements per temporary the spread and the
+  read-back run over chunks of sites in a fixed order;
 - direct-space pair work in ops/elec_direct (dense: [N, N] SCF factor
   matrices) or ops/elec_direct_bs (block: sites sorted by a static
   permutation, s3/s5 kept only for the live (water, 32-site cluster)
@@ -20,8 +23,7 @@ grid scale, the minimum images and the tile-pair list follow it, and the
 direct-space kernels take it by value, so a barostat's volume move needs no
 rebuild. The grid dimensions and alpha stay at their construction values.
 
-Not ported yet: the site-chunked grid pieces for very large N, the sparse
-direct-space mode and meshes (see ROADMAP.md).
+Not ported yet: meshes (see ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -99,11 +101,35 @@ def _spline_matrices(setup: PmeSetup, positions, box):
     return tuple(out)
 
 
+# The separable pieces materialize [rows, ny*nz] (spread) and
+# [rows, 3, nx*ny] (read-back) temporaries: megabytes at water256, but at
+# 32,768 sites on a ~106^3 grid 1.5-4.4 GB each. Above this element budget
+# (2^26 float32 elements, 256 MB per temporary) the site dimension is
+# chunked: the spread accumulates chunk by chunk into one grid, in a fixed
+# order, and the read-back concatenates the chunks' rows.
+_SEP_CHUNK_ELEMS = 1 << 26
+
+
+def _sep_chunk(n, per_site_elems):
+    """Rows per chunk for n rows of per_site_elems temporary elements each
+    (n: no chunking)."""
+    if n * per_site_elems <= _SEP_CHUNK_ELEMS:
+        return n
+    return min(max(_SEP_CHUNK_ELEMS // per_site_elems, 256), n)
+
+
 def _spread_separable(setup, wx, sy, sz):
-    """grid[g,h,k] = sum_n wx[n,g] sy[n,h] sz[n,k] as one matmul."""
+    """grid[g,h,k] = sum_n wx[n,g] sy[n,h] sz[n,k] as one matmul, or as one
+    per chunk of rows added into the grid in row order."""
     nx, ny, nz = setup.grid
-    a = torch.einsum('nh,nk->nhk', sy, sz).reshape(-1, ny * nz)
-    return (wx.T @ a).reshape(nx, ny, nz)
+    n = wx.shape[0]
+    c = _sep_chunk(n, ny * nz)
+    grid = None
+    for r0 in range(0, n, c):
+        a = torch.einsum('nh,nk->nhk', sy[r0:r0 + c], sz[r0:r0 + c]).reshape(-1, ny * nz)
+        part = wx[r0:r0 + c].T @ a
+        grid = part if grid is None else grid + part
+    return grid.reshape(nx, ny, nz)
 
 
 # phi component layout of the reference (cpp:1800-1819):
@@ -117,15 +143,24 @@ _HESS = [[4, 7, 8], [7, 5, 9], [8, 9, 6]]
 def _readback_phi10(grid, Sx, Sy, Sz):
     """phi10[n, q] = sum_{ghk} grid[g,h,k] Sx[n,g,a_q] Sy[n,h,b_q] Sz[n,k,c_q]:
     the z contraction as [n, nz] @ [nz, nx*ny] matmuls, then multiply-reduces
-    over y and x."""
-    m = Sx.shape[0]
+    over y and x; over chunks of sites above the temporary budget."""
+    n = Sx.shape[0]
     nx, ny, nz = grid.shape
     gz = grid.reshape(nx * ny, nz).T
-    t1 = [(Sz[:, :, c] @ gz).reshape(m, nx, ny) for c in range(_NDERIV)]
-    t2 = {(b, c): torch.sum(t1[c] * Sy[:, None, :, b], dim=-1)
-          for (b, c) in sorted({(b, c) for _, b, c in _PHI_COMP})}
-    return torch.stack([torch.sum(t2[(b, c)] * Sx[:, :, a], dim=-1)
-                        for a, b, c in _PHI_COMP], dim=-1)
+    pairs = sorted({(b, c) for _, b, c in _PHI_COMP})
+
+    def block(Sxc, Syc, Szc):
+        m = Sxc.shape[0]
+        t1 = [(Szc[:, :, c] @ gz).reshape(m, nx, ny) for c in range(_NDERIV)]
+        t2 = {(b, c): torch.sum(t1[c] * Syc[:, None, :, b], dim=-1) for (b, c) in pairs}
+        return torch.stack([torch.sum(t2[(b, c)] * Sxc[:, :, a], dim=-1)
+                            for a, b, c in _PHI_COMP], dim=-1)
+
+    c = _sep_chunk(n, _NDERIV * nx * ny)
+    if c >= n:
+        return block(Sx, Sy, Sz)
+    return torch.cat([block(Sx[r0:r0 + c], Sy[r0:r0 + c], Sz[r0:r0 + c])
+                      for r0 in range(0, n, c)])
 
 
 @functools.lru_cache(maxsize=None)

@@ -10,17 +10,21 @@ Accepted here: PME boxes and NoCutoff clusters (the cluster electrostatics
 of models/electrostatics.py); water-only systems, water + Cl- systems
 without the electrostatics term (the force field defines no ion
 electrostatics), and layouts other than the stride-4 OHHM block;
-electrostatics_mode 'auto', 'dense' or 'block' (block-sparse direct space
-for large PME boxes); dispersion_mode 'auto', 'dense' or 'pairs';
-scf_method 'sor', 'diis' or 'aspc'; the flat-bottom restraint of clusters
-(restraint_radius); analytic list capacities or capacities tuned from a
-configuration (`tune_capacities`). 'auto' resolves as the JAX package does:
-dense up to 2560 waters where the CUDA kernels run (the potential's device
-is a card), 512 otherwise; above that 'block' with the kernels and 'sparse'
-without, and 'pairs' dispersion whenever the electrostatics leave 'dense'.
-'sparse' raises NotImplementedError (see ROADMAP.md). The box is an
-argument of each evaluation (`box`, default the system's), for the
-barostat.
+electrostatics_mode 'auto', 'dense', 'block' (block-sparse direct space
+for large PME boxes, with the CUDA kernels) or 'sparse' (the water-pair
+list direct space of models/pme_sparse.py, plain PyTorch);
+dispersion_mode 'auto', 'dense' or 'pairs'; scf_method 'sor', 'diis' or
+'aspc'; the flat-bottom restraint of clusters (restraint_radius); list
+compaction (compact_eval) and the reference's triplet enumeration
+(triplet_semantics); analytic list capacities, capacities tuned from a
+configuration (`tune_capacities`, from the port's own counts or the host
+voxel hash of ops/native.py) or a `parallel.plan.CapacityPlan` for one
+device (`plan=`). 'auto' resolves as the JAX package does: dense up to
+2560 waters where the CUDA kernels run (the potential's device is a card),
+512 otherwise; above that 'block' with the kernels and 'sparse' without,
+and 'pairs' dispersion whenever the electrostatics leave 'dense'. The box
+is an argument of each evaluation (`box`, default the system's), for the
+barostat. Not ported: meshes (see ROADMAP.md).
 
 The potential lives on one device (`device`, default 'cuda'; the tests
 pass 'cpu'): its entry points take numpy arrays or tensors and move them
@@ -37,6 +41,7 @@ import torch
 from mbpol_openmm_plugin_tpu_torch import ROADMAP_HINT, _data
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.models import pme as pme_mod
+from mbpol_openmm_plugin_tpu_torch.models import pme_sparse
 from mbpol_openmm_plugin_tpu_torch.models.dispersion import (PAIR_MARGIN, dispersion_energy,
                                                               dispersion_energy_pairs)
 from mbpol_openmm_plugin_tpu_torch.models.one_body import one_body_energy
@@ -61,8 +66,18 @@ DENSE_LIMIT = 512
 @dataclasses.dataclass(frozen=True)
 class MBPolConfig:
     """Static evaluation options: the JAX package's MBPolConfig fields that
-    the port uses, with the same defaults (list compaction and the
-    reference triplet semantics are not ported).
+    the port uses, with the same defaults.
+
+    `compact_eval` shrinks the skin-inflated 2B/3B batches before the
+    polynomials (exact: the dropped entries have zero switch weight or sit
+    inside the r < 2 A early exit): None or False (off), True (every
+    evaluation, to the physical cutoffs) or 'rebuild' (at each list build,
+    to cutoff + skin / 2, exact under the displacement trigger; the
+    port builds its lists in every MD step and selects them with the
+    trigger, so the compaction runs in every step too). `triplet_semantics`
+    is 'complete' (every triplet with >= 2 O-O edges) or 'reference' (the
+    reference's ascending chains, ops/neighbors.py); compaction is off under
+    'reference', whose list depends on the numbering.
 
     `pip_impl` picks the evaluator of the 2B/3B polynomials, `pip_basis`
     the basis construction of the 'quad' impl (ops/polyeval.pip_apply):
@@ -79,6 +94,8 @@ class MBPolConfig:
     use_neighbor_lists: Optional[bool] = None   # default: n_waters > 24
     neighbor_capacity_factor: float = 1.5
     nlist_skin: float = 0.0
+    compact_eval: Optional[object] = None
+    triplet_semantics: str = 'complete'
     include_charge_redistribution: bool = True
     ewald_error_tolerance: float = 1e-4
     ewald_alpha: Optional[float] = None
@@ -138,6 +155,8 @@ def _check_config(system: System, config: MBPolConfig):
     polyeval._pip_impl_choice(config.pip_impl, config.pip_basis)   # raises on unknown values
     if config.scf_method not in ('sor', 'diis', 'aspc'):
         raise ValueError(f'unknown scf_method {config.scf_method!r}')
+    if config.triplet_semantics not in ('complete', 'reference'):
+        raise ValueError(f'unknown triplet_semantics {config.triplet_semantics!r}')
 
 
 def resolve_modes(system: System, config: MBPolConfig, has_pme, kernels):
@@ -168,10 +187,12 @@ class MBPol:
     `positions` are [natoms, 3] nm including M-site slots (overwritten by
     the virtual-site placement), as a numpy array or a tensor; they are
     moved to `device` in its dtype (float32 on a card, where the kernels
-    run, float64 on the CPU).
+    run, float64 on the CPU). `plan`: a parallel.plan.CapacityPlan for one
+    device, whose capacities (and block layout) the potential takes.
     """
 
-    def __init__(self, system: System, config: MBPolConfig = MBPolConfig(), device='cuda'):
+    def __init__(self, system: System, config: MBPolConfig = MBPolConfig(), device='cuda',
+                 plan=None):
         _check_config(system, config)
         self.device = torch.device(device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
@@ -201,29 +222,41 @@ class MBPol:
         self.elec_mode, self.disp_mode = resolve_modes(
             system, config, self.pme is not None, kernels=self.device.type == 'cuda')
         self._block_info = None
-        if self.elec_mode == 'sparse':
-            raise _not_ported(f"{system.n_waters} waters: electrostatics_mode='sparse' (the "
-                              'large-box mode without the CUDA kernels)')
-        if self.elec_mode == 'block':
+        if self.elec_mode in ('block', 'sparse'):
             if self.pme is None:
-                raise ValueError('block electrostatics requires PME')
+                raise ValueError(f'{self.elec_mode} electrostatics requires PME')
             if not _standard_layout(system):
-                raise ValueError('block electrostatics requires the stride-4 water layout')
+                raise ValueError(f'{self.elec_mode} electrostatics requires the stride-4 water '
+                                 'layout')
+        if self.elec_mode == 'block':
             # identity permutation until tune_capacities sees real positions;
             # correctness never depends on the sort (only the tile-pair count)
             n_sites = 4 * system.n_waters
             self._set_block_perm(np.arange(n_sites),
                                  bs.tile_pair_capacity(n_sites, system.box, config.cutoff))
-        self.disp_pair_cut = self.disp_pair_cap = None
+        # one water-pair list at cutoff + PAIR_MARGIN (+ skin) serves the
+        # sparse electrostatics and the 'pairs' dispersion
+        self.water_pair_cut = config.cutoff + PAIR_MARGIN + config.nlist_skin
+        self.elec_pair_cap = self.disp_pair_cap = None
+        if self.elec_mode == 'sparse':
+            self.elec_pair_cap = neighbors.pair_capacity(
+                system.n_waters, system.box, self.water_pair_cut,
+                factor=config.neighbor_capacity_factor)
         if self.disp_mode == 'pairs':
             if not system.periodic or system.n_ions:
                 raise ValueError("dispersion_mode='pairs' requires a periodic water-only system")
-            self.disp_pair_cut = config.cutoff + PAIR_MARGIN + config.nlist_skin
-            self.disp_pair_cap = neighbors.pair_capacity(
-                system.n_waters, system.box, self.disp_pair_cut,
-                factor=config.neighbor_capacity_factor)
+            if self.elec_mode != 'sparse':      # else the electrostatics' list
+                self.disp_pair_cap = neighbors.pair_capacity(
+                    system.n_waters, system.box, self.water_pair_cut,
+                    factor=config.neighbor_capacity_factor)
         use_nl = config.use_neighbor_lists
         self.use_neighbor_lists = system.n_waters > 24 if use_nl is None else use_nl
+        ce = False if config.compact_eval is None else config.compact_eval
+        if not (self.use_neighbor_lists and config.triplet_semantics == 'complete'):
+            ce = False
+        if ce not in (False, True, 'rebuild'):
+            raise ValueError(f"compact_eval must be False, True or 'rebuild', got {ce!r}")
+        self.compact_eval = ce
         # triplet-build shape parameters (None = analytic bound)
         self.nlist_k_max = None
         self.nlist_kt = None
@@ -233,6 +266,45 @@ class MBPol:
                 system.n_waters, box, config.cutoff_2b + config.nlist_skin, factor=f)
             self.trip_cap = neighbors.triplet_capacity(
                 system.n_waters, box, config.cutoff_3b + config.nlist_skin, factor=f)
+            # the compacted batches: at the physical cutoffs, or at cutoff +
+            # skin / 2 for compaction at the list build
+            half = self._compact_half()
+            self.pair_eval_cap = neighbors.pair_capacity(
+                system.n_waters, box, config.cutoff_2b + half, factor=f)
+            self.trip_eval_cap = neighbors.triplet_capacity(
+                system.n_waters, box, config.cutoff_3b + half, factor=f)
+        if plan is not None:
+            self._apply_plan(plan)
+
+    def _compact_half(self):
+        """The radius added to the physical cutoffs for the compacted
+        batches: skin / 2 under 'rebuild', else 0."""
+        return 0.5 * self.config.nlist_skin if self.compact_eval == 'rebuild' else 0.0
+
+    def _apply_plan(self, plan):
+        """Take a parallel.plan.CapacityPlan's capacities (and block layout),
+        as the JAX MBPol's constructor does. One device only."""
+        if plan.n_devices != 1:
+            raise _not_ported(f'a CapacityPlan for {plan.n_devices} devices (meshes)')
+        if self.system.n_waters != plan.n_waters:
+            raise ValueError('plan/potential water count mismatch')
+        if not self.use_neighbor_lists:
+            return
+        self.pair_cap, self.trip_cap = plan.pair_cap, plan.trip_cap
+        if self.compact_eval and self.config.nlist_skin > 0:
+            self.pair_eval_cap, self.trip_eval_cap = plan.pair_eval_cap, plan.trip_eval_cap
+        else:
+            self.pair_eval_cap, self.trip_eval_cap = self.pair_cap, self.trip_cap
+        self.nlist_k_max, self.nlist_kt = plan.nlist_k_max, plan.nlist_kt
+        if plan.elec_pair_cap and self.elec_mode == 'sparse':
+            self.elec_pair_cap = plan.elec_pair_cap
+        if plan.disp_pair_cap and self.disp_pair_cap is not None:
+            self.disp_pair_cap = plan.disp_pair_cap
+        if plan.tile_pair_capacity and self.elec_mode == 'block':
+            info = self._block_info
+            self._set_block_perm(info['site_perm'] if plan.site_perm is None else plan.site_perm,
+                                 plan.tile_pair_capacity,
+                                 plan.line_capacity or info['line_capacity'])
 
     def _set_block_perm(self, site_perm, cap, line_cap=None):
         self._block_info = pme_mod.block_info(site_perm, cap, self.device, line_cap)
@@ -253,33 +325,96 @@ class MBPol:
     def _neighbor_lists(self, positions, box=None):
         """Padded pair/triplet lists from the O positions, cutoffs + skin, in
         `box` (default the system's; the capacities and the triplet build's
-        shape stay those of the construction box or tune_capacities).
-        Returns ((pairs, pmask), (trips, tmask), diag with overflow flags)."""
-        sys_ = self.system
+        shape stay those of the construction box or tune_capacities); under
+        compact_eval='rebuild' compacted to cutoff + skin / 2 at the eval
+        capacities (exact under the displacement trigger: between builds no
+        pair distance moves by more than skin / 2), the compaction's
+        overflow folded into the list's. Returns ((pairs, pmask), (trips,
+        tmask), diag with overflow flags)."""
+        sys_, cfg = self.system, self.config
         o_pos = oxygen_positions(sys_, positions)
         box = sys_.box if box is None else box
-        skin = self.config.nlist_skin
-        pairs, pmask, n_p = neighbors.pair_list(o_pos, box,
-                                                self.config.cutoff_2b + skin, self.pair_cap)
+        skin = cfg.nlist_skin
+        pairs, pmask, n_p = neighbors.pair_list(o_pos, box, cfg.cutoff_2b + skin, self.pair_cap)
         k_max = self.nlist_k_max
         if k_max is None:
-            k_max = neighbors.max_neighbors(sys_.n_waters, sys_.box,
-                                            self.config.cutoff_3b + skin)
+            k_max = neighbors.max_neighbors(sys_.n_waters, sys_.box, cfg.cutoff_3b + skin)
         trips, tmask, n_t = neighbors.triplet_list(
-            o_pos, box, self.config.cutoff_3b + skin, self.trip_cap,
-            k_max=k_max, kt=self.nlist_kt)
-        diag = dict(n_pairs=n_p, n_triplets=n_t,
-                    pair_overflow=n_p > self.pair_cap,
-                    triplet_overflow=n_t > self.trip_cap)
+            o_pos, box, cfg.cutoff_3b + skin, self.trip_cap, k_max=k_max, kt=self.nlist_kt,
+            semantics=cfg.triplet_semantics)
+        pair_ovf, trip_ovf = n_p > self.pair_cap, n_t > self.trip_cap
+        if self.compact_eval == 'rebuild':
+            half = self._compact_half()
+            b = box if sys_.periodic else None
+            rmin = 0.2 - half       # the 2 A early exit, less the drift
+            pairs, pmask, n_pc = neighbors.compact_pairs(o_pos, b, pairs, pmask,
+                                                         cfg.cutoff_2b + half, rmin,
+                                                         self.pair_eval_cap)
+            trips, tmask, n_tc = neighbors.compact_triplets(o_pos, b, trips, tmask,
+                                                            cfg.cutoff_3b + half, rmin,
+                                                            self.trip_eval_cap)
+            pair_ovf = pair_ovf | (n_pc > self.pair_eval_cap)
+            trip_ovf = trip_ovf | (n_tc > self.trip_eval_cap)
+        diag = dict(n_pairs=n_p, n_triplets=n_t, pair_overflow=pair_ovf,
+                    triplet_overflow=trip_ovf)
         return (pairs, pmask), (trips, tmask), diag
 
-    def build_neighbor_lists(self, positions, box=None):
-        """Lists for reuse across MD steps (pair with nlist_skin > 0), built
-        on the potential's device in `box` (default the system's). Returns
-        ((pl, tl), diag)."""
-        pl, tl, diag = self._neighbor_lists(
-            make_molecules_whole(self.system, self.as_positions(positions), box), box)
+    def _compact_lists(self, positions, nlists, box):
+        """Compaction of the (skin-inflated) lists to the entries inside the
+        physical cutoffs and above the 2 A early exit, at the eval
+        capacities (compact_eval=True, every evaluation). Exact; index only.
+        Returns (nlists, diag with the active counts and overflow flags)."""
+        sys_, cfg = self.system, self.config
+        (pairs, pmask), (trips, tmask) = nlists
+        o_pos = oxygen_positions(sys_, positions)
+        b = box if sys_.periodic else None
+        pairs, pmask, n_p = neighbors.compact_pairs(o_pos, b, pairs, pmask, cfg.cutoff_2b, 0.2,
+                                                    self.pair_eval_cap)
+        trips, tmask, n_t = neighbors.compact_triplets(o_pos, b, trips, tmask, cfg.cutoff_3b,
+                                                       0.2, self.trip_eval_cap)
+        diag = dict(n_pairs_active=n_p, n_triplets_active=n_t,
+                    pair_eval_overflow=n_p > self.pair_eval_cap,
+                    triplet_eval_overflow=n_t > self.trip_eval_cap)
+        return ((pairs, pmask), (trips, tmask)), diag
+
+    def build_neighbor_lists(self, positions, box=None, use_native=False):
+        """Lists for reuse across MD steps (pair with nlist_skin > 0) in
+        `box` (default the system's). Returns ((pl, tl), diag). Built on the
+        potential's device, or with use_native=True by the host voxel hash
+        of ops/native.py ('complete' triplets only; the lists padded to the
+        capacities and copied to the device once; host work, so never
+        inside an MD step, where it raises)."""
+        pos = make_molecules_whole(self.system, self.as_positions(positions), box)
+        if use_native:
+            return self._native_neighbor_lists(pos, box)
+        pl, tl, diag = self._neighbor_lists(pos, box)
         return (pl, tl), diag
+
+    def _native_neighbor_lists(self, positions, box):
+        from mbpol_openmm_plugin_tpu_torch.md.step_graph import in_step
+        from mbpol_openmm_plugin_tpu_torch.ops import native
+        if in_step():
+            raise RuntimeError('the native neighbor lists are host work; build them outside '
+                               'the MD step')
+        cfg = self.config
+        if cfg.triplet_semantics != 'complete':
+            raise ValueError("the native triplet list is the 'complete' set")
+        sys_ = self.system
+        box = sys_.box if box is None else box
+        o = oxygen_positions(sys_, positions).detach().cpu().numpy()
+        out, diag = [], {}
+        for name, fn, cut, cap in (('pair', native.pair_list, cfg.cutoff_2b, self.pair_cap),
+                                   ('triplet', native.triplet_list, cfg.cutoff_3b,
+                                    self.trip_cap)):
+            found_list, found = fn(o, box if sys_.periodic else None, cut + cfg.nlist_skin,
+                                   capacity=cap)
+            padded = np.zeros((cap, found_list.shape[1]), np.int64)
+            padded[:len(found_list)] = found_list
+            out.append((torch.as_tensor(padded, device=self.device),
+                        torch.as_tensor(np.arange(cap) < found, device=self.device)))
+            diag[f'n_{name}s'] = torch.tensor(found, device=self.device)
+            diag[f'{name}_overflow'] = torch.tensor(found > cap, device=self.device)
+        return tuple(out), diag
 
     def _smooth_terms(self, positions, nlists=None, disp_pairs=None, box=None):
         """Closed-form terms (1b/2b/3b/dispersion) in `box` (default the
@@ -311,22 +446,30 @@ class MBPol:
         return parts
 
     def _lists(self, positions, box, nlists=None):
-        """(nlists, disp_pairs, diag) of an evaluation at whole positions in
-        `box` (host floats): the pair and triplet lists (`nlists` when
-        given), the dispersion water-pair list and their overflow flags."""
+        """(nlists, water_pairs, diag) of an evaluation at whole positions
+        in `box` (host floats): the pair and triplet lists (`nlists` when
+        given; compacted here under compact_eval=True), the water-pair list
+        of the sparse electrostatics and the 'pairs' dispersion (one list,
+        built once, None when neither needs it) and their overflow flags."""
         diag = {}
         if nlists is None and self.use_neighbor_lists:
             pl, tl, diag = self._neighbor_lists(positions, box)
             nlists = (pl, tl)
-        disp_pairs = None
-        if self.disp_mode == 'pairs' and 'dispersion' in self.config.terms:
-            # water-pair list at cutoff + PAIR_MARGIN (+ skin), every evaluation
-            o_pos = oxygen_positions(self.system, positions)
-            mp, mp_mask, n_mp = neighbors.pair_list(o_pos, box, self.disp_pair_cut,
-                                                    self.disp_pair_cap)
-            diag = dict(diag, disp_pair_overflow=n_mp > self.disp_pair_cap)
-            disp_pairs = (mp, mp_mask)
-        return nlists, disp_pairs, diag
+        if nlists is not None and self.compact_eval is True:
+            nlists, c_diag = self._compact_lists(positions, nlists, box)
+            diag = dict(diag, **c_diag)
+        water_pairs = None
+        disp = self.disp_mode == 'pairs' and 'dispersion' in self.config.terms
+        if disp or self.elec_mode == 'sparse':
+            cap = self.elec_pair_cap if self.elec_mode == 'sparse' else self.disp_pair_cap
+            mp, mp_mask, n_mp = neighbors.pair_list(oxygen_positions(self.system, positions),
+                                                    box, self.water_pair_cut, cap)
+            water_pairs = (mp, mp_mask)
+            if disp:
+                diag['disp_pair_overflow'] = n_mp > cap
+            if self.elec_mode == 'sparse':
+                diag['elec_pair_overflow'] = n_mp > cap
+        return nlists, water_pairs, diag
 
     def _energy_forces_impl(self, positions, mu0=None, nlists=None, box=None):
         """(total energy, forces, parts, diag). mu0: optional induced-dipole
@@ -341,7 +484,8 @@ class MBPol:
         box = sys_.box if box is None else np.asarray(box, np.float64)
         positions = make_molecules_whole(sys_, self.as_positions(positions).detach(), box)
 
-        nlists, disp_pairs, diag = self._lists(positions, box, nlists)
+        nlists, water_pairs, diag = self._lists(positions, box, nlists)
+        disp_pairs = water_pairs if self.disp_mode == 'pairs' else None
         with torch.enable_grad():
             p = positions.clone().requires_grad_(True)
             parts = self._smooth_terms(p, nlists, disp_pairs, box)
@@ -359,6 +503,10 @@ class MBPol:
                 if self.pme is None:
                     e_elec, f_elec, ediag = elec.cluster_electrostatics(self.elec_params, pos_v,
                                                                         mu0=mu0)
+                elif self.elec_mode == 'sparse':
+                    e_elec, f_elec, ediag = pme_sparse.pme_electrostatics_sparse(
+                        self.elec_params, self.pme, pos_v, *water_pairs, mu0=mu0, box=box,
+                        tables=self._site_tables())
                 else:
                     e_elec, f_elec, ediag = pme_mod.pme_electrostatics(
                         self.elec_params, self.pme, pos_v, mu0=mu0, block=self._block_info,
@@ -376,58 +524,38 @@ class MBPol:
         in another box than the system's."""
         return self._energy_forces_impl(positions, mu0=mu0, box=box)
 
-    def tune_capacities(self, positions, margin=1.15):
+    def tune_capacities(self, positions, margin=1.15, native=False):
         """Size the padded lists from the exact neighbor counts of a
         representative configuration, with a safety margin for density
-        fluctuations, as the JAX MBPol.tune_capacities does (the port's own
-        torch counts in place of the native voxel hash): pair_cap,
-        trip_cap, nlist_k_max, nlist_kt, disp_pair_cap, and in block mode
-        the serpentine site sort, the tile-pair capacity and the s3/s5 line
+        fluctuations, as the JAX MBPol.tune_capacities does: pair_cap,
+        trip_cap, nlist_k_max, nlist_kt, the compacted batches' eval caps,
+        elec_pair_cap (sparse), disp_pair_cap, and in block mode the
+        serpentine site sort, the tile-pair capacity and the s3/s5 line
         capacity (from the most live lines of one (row water, cluster)
-        slab, at most the number of column tiles). Overflow later
-        in a run still shows in diag['*_overflow']. Returns self."""
+        slab, at most the number of column tiles). The counts are the
+        port's own torch counts on the potential's device, or with
+        native=True the host voxel hash of ops/native.py (the same
+        integers). Overflow later in a run still shows in
+        diag['*_overflow']. Returns self."""
         if not self.use_neighbor_lists:
             return self
-        sys_, cfg = self.system, self.config
+        sys_ = self.system
         pos = make_molecules_whole(sys_, self.as_positions(positions))
-        o = oxygen_positions(sys_, pos)
-        box, skin, n_w = sys_.box, cfg.nlist_skin, sys_.n_waters
-        n_p, _, _ = neighbors.neighbor_counts(o, box, cfg.cutoff_2b + skin)
-        _, degree, per_center = neighbors.neighbor_counts(o, box, cfg.cutoff_3b + skin,
-                                                          triplets=True)
-        n_t = int(torch.sum(per_center))
-        self.pair_cap = max(int(margin * n_p) + 16, 64)
-        self.trip_cap = max(int(margin * n_t) + 32, 128)
-        # per-center triplet-build shape parameters from the actual counts;
-        # the factors scale with the margin as the global caps do
-        max_nbr = int(torch.max(degree)) if n_w else 0
-        f_k, f_kt = max(1.3, float(margin)), max(1.4, float(margin))
-        self.nlist_k_max = min(max(int(np.ceil(f_k * max_nbr)) + 2, 8), max(n_w - 1, 1))
-        max_ct = int(torch.max(per_center)) if n_w else 0
-        self.nlist_kt = min(int(np.ceil(f_kt * max_ct)) + 8,
-                            self.nlist_k_max * (self.nlist_k_max - 1) // 2)
-        if self.disp_mode == 'pairs':
-            n_d, _, _ = neighbors.neighbor_counts(o, box, self.disp_pair_cut)
-            self.disp_pair_cap = max(int(margin * n_d) + 16, 64)
+        counts = ListCounts(oxygen_positions(sys_, pos), sys_.box, native)
+        caps = list_capacities(counts, self.config, sys_.n_waters, margin, self.elec_mode,
+                               self.disp_pair_cap is not None)
+        self.pair_cap, self.trip_cap = caps['pair_cap'], caps['trip_cap']
+        self.nlist_k_max, self.nlist_kt = caps['nlist_k_max'], caps['nlist_kt']
+        if self.compact_eval and self.config.nlist_skin > 0:
+            self.pair_eval_cap, self.trip_eval_cap = caps['pair_eval_cap'], caps['trip_eval_cap']
+        else:
+            self.pair_eval_cap, self.trip_eval_cap = self.pair_cap, self.trip_cap
+        if self.elec_mode == 'sparse':
+            self.elec_pair_cap = caps['elec_pair_cap']
+        if self.disp_pair_cap is not None:
+            self.disp_pair_cap = caps['disp_pair_cap']
         if self.elec_mode == 'block':
-            mol_perm = bs.molecule_sort_permutation(o.detach().cpu().numpy(), box)
-            site_perm = (4 * mol_perm[:, None] + np.arange(4)[None, :]).reshape(-1)
-            # count the active tile pairs at the sorted layout with a list
-            # that holds every tile pair
-            n_sites = 4 * n_w
-            n_tiles = bs.padded(n_sites) // bs.TILE
-            pos_s = bs.pad_rows(pos[torch.as_tensor(site_perm, device=pos.device)],
-                                bs.padded(n_sites))
-            full = bs.active_tile_pairs(pos_s, n_sites, box, cfg.cutoff, n_tiles * n_tiles)
-            n_act = int(full.n_act)
-            # and the live s3/s5 lines per (row water, cluster) slab, at the
-            # sites' positions with the M sites placed
-            pos_v = bs.pad_rows(compute_virtual_sites(sys_, pos)[
-                torch.as_tensor(site_perm, device=pos.device)], bs.padded(n_sites))
-            _, count = bs.line_slots(bs.live_lines(pos_v, n_sites, full, box, cfg.cutoff), full)
-            max_lines = int(torch.max(count))
-            self._set_block_perm(site_perm, max(int(margin * n_act) + 8, 16),
-                                 min(max(int(margin * max_lines) + 2, 8), n_tiles))
+            self._set_block_perm(*block_layout(sys_, pos, sys_.box, self.config.cutoff, margin))
         return self
 
     def with_updated_params(self, thole=None, charges=None, damping=None, polarity=None,
@@ -467,6 +595,102 @@ class MBPol:
         if 'thole' in changes:
             cfg_changes['thole'] = tuple(changes['thole'])
         return _clone(self, cfg_changes, changes)
+
+
+class ListCounts:
+    """Exact neighbor-list counts of O positions o [n, 3] in `box` (None: a
+    cluster), for capacity tuning: from the port's own edge matrices on
+    o's device (ops/neighbors.neighbor_counts), or with native=True from
+    the host voxel hash (ops/native.py). Both give the same integers."""
+
+    def __init__(self, o, box, native=False):
+        self.o, self.box, self.native = o, box, native
+        self.n = o.shape[0]
+        if native:
+            self.o_host = o.detach().cpu().numpy().astype(np.float64)
+
+    def _native(self, fn, cutoff):
+        from mbpol_openmm_plugin_tpu_torch.ops import native
+        found_list, found = getattr(native, fn)(self.o_host, self.box, cutoff)
+        if found > len(found_list):          # the default capacity was short
+            found_list, found = getattr(native, fn)(self.o_host, self.box, cutoff,
+                                                    capacity=found)
+        return found_list, found
+
+    def pairs(self, cutoff):
+        """Pairs i < j within the cutoff."""
+        if self.native:
+            return self._native('pair_list', cutoff)[1]
+        return neighbors.neighbor_counts(self.o, self.box, cutoff)[0]
+
+    def max_degree(self, cutoff):
+        """The most neighbors of one molecule within the cutoff."""
+        if self.native:
+            pairs = self._native('pair_list', cutoff)[0]
+            return int(np.bincount(pairs.ravel(), minlength=self.n).max()) if len(pairs) else 0
+        degree = neighbors.neighbor_counts(self.o, self.box, cutoff)[1]
+        return int(torch.max(degree)) if self.n else 0
+
+    def triplets(self, cutoff):
+        """('complete' triplets within the cutoff, the most of one center)."""
+        if self.native:
+            trips, found = self._native('triplet_list', cutoff)
+            return found, (int(np.bincount(trips[:, 1], minlength=self.n).max())
+                           if len(trips) else 0)
+        per_center = neighbors.neighbor_counts(self.o, self.box, cutoff, triplets=True)[2]
+        return int(torch.sum(per_center)), (int(torch.max(per_center)) if self.n else 0)
+
+
+def list_capacities(counts: ListCounts, config: MBPolConfig, n_waters, margin, elec_mode,
+                    disp_pairs):
+    """The tuned capacities of the JAX tune_capacities from exact counts:
+    pair_cap, trip_cap, nlist_k_max, nlist_kt (the per-center factors
+    scale with the margin as the global caps do), the compacted batches'
+    pair_eval_cap / trip_eval_cap (at the physical cutoffs, or + skin / 2
+    under compact_eval='rebuild'; at most the list caps), elec_pair_cap
+    (elec_mode 'sparse') and disp_pair_cap (disp_pairs: a dispersion list
+    of its own), each None where it does not apply."""
+    skin = config.nlist_skin
+    out = dict(pair_cap=max(int(margin * counts.pairs(config.cutoff_2b + skin)) + 16, 64))
+    n_t, max_ct = counts.triplets(config.cutoff_3b + skin)
+    out['trip_cap'] = max(int(margin * n_t) + 32, 128)
+    f_k, f_kt = max(1.3, float(margin)), max(1.4, float(margin))
+    k_max = min(max(int(np.ceil(f_k * counts.max_degree(config.cutoff_3b + skin))) + 2, 8),
+                max(n_waters - 1, 1))
+    out['nlist_k_max'] = k_max
+    out['nlist_kt'] = min(int(np.ceil(f_kt * max_ct)) + 8, k_max * (k_max - 1) // 2)
+    half = 0.5 * skin if config.compact_eval == 'rebuild' else 0.0
+    out['pair_eval_cap'] = min(max(int(margin * counts.pairs(config.cutoff_2b + half)) + 16, 64),
+                               out['pair_cap'])
+    out['trip_eval_cap'] = min(max(int(margin * counts.triplets(config.cutoff_3b + half)[0])
+                                   + 32, 128), out['trip_cap'])
+    out['elec_pair_cap'] = out['disp_pair_cap'] = None
+    if elec_mode == 'sparse' or disp_pairs:
+        cap = max(int(margin * counts.pairs(config.cutoff + PAIR_MARGIN + skin)) + 16, 64)
+        out['elec_pair_cap' if elec_mode == 'sparse' else 'disp_pair_cap'] = cap
+    return out
+
+
+def block_layout(system: System, pos, box, cutoff, margin):
+    """Block mode's layout from whole positions pos [N, 3] (a tensor on the
+    potential's device): (the serpentine site sort, the tile-pair capacity
+    from the active tile pairs at the sorted layout, the s3/s5 line
+    capacity from the most live lines of one (row water, cluster) slab at
+    the sites' positions with the M sites placed, at most the number of
+    column tiles)."""
+    o = oxygen_positions(system, pos)
+    mol_perm = bs.molecule_sort_permutation(o.detach().cpu().numpy(), box)
+    site_perm = (4 * mol_perm[:, None] + np.arange(4)[None, :]).reshape(-1)
+    n_sites = 4 * system.n_waters
+    n_tiles = bs.padded(n_sites) // bs.TILE
+    perm = torch.as_tensor(site_perm, device=pos.device)
+    # a list that holds every tile pair counts the active ones
+    full = bs.active_tile_pairs(bs.pad_rows(pos[perm], bs.padded(n_sites)), n_sites, box,
+                                cutoff, n_tiles * n_tiles)
+    pos_v = bs.pad_rows(compute_virtual_sites(system, pos)[perm], bs.padded(n_sites))
+    _, count = bs.line_slots(bs.live_lines(pos_v, n_sites, full, box, cutoff), full)
+    return (site_perm, max(int(margin * int(full.n_act)) + 8, 16),
+            min(max(int(margin * int(torch.max(count))) + 2, 8), n_tiles))
 
 
 def _redistribute_m_sites(system: System, f):
@@ -531,8 +755,8 @@ def inherit_capacities(src: MBPol, dst: MBPol):
     layout (both over the same topology), as the JAX function of that name:
     the term-subset potentials of r-RESPA keep the parent's tune_capacities
     operating point instead of the analytic bounds. Returns dst."""
-    for attr in ('pair_cap', 'trip_cap', 'nlist_k_max', 'nlist_kt', 'disp_pair_cap',
-                 '_block_info'):
+    for attr in ('pair_cap', 'trip_cap', 'pair_eval_cap', 'trip_eval_cap', 'nlist_k_max',
+                 'nlist_kt', 'elec_pair_cap', 'disp_pair_cap', '_block_info'):
         if hasattr(src, attr):
             setattr(dst, attr, getattr(src, attr))
     return dst

@@ -4,13 +4,20 @@
 Fixed-capacity index lists from masked distance matrices: static shapes,
 no host sync inside the build, overflow surfaced through `n_found`.
 
-Triplet semantics ('complete'): all unordered triplets with >= 2 O-O edges
-(the full support of the 3-body switch product), each enumerated once via
-its center j: candidate (i, j, k) with i < k both neighbors of j is kept
-unless it is a triangle whose smallest vertex is not j.
+Triplet semantics: 'complete' (the default) is all unordered triplets with
+>= 2 O-O edges (the full support of the 3-body switch product), each
+enumerated once via its center j: candidate (i, j, k) with i < k both
+neighbors of j is kept unless it is a triangle whose smallest vertex is
+not j. 'reference' is the reference's enumeration
+(ReferenceThreeNeighborList.cpp:215-225): only the middle-centred ascending
+chains i < j < k with edges (i, j) and (j, k), which misses the two-edge
+triplets centred on their smallest or largest index, so the energy depends
+on the molecule numbering.
 
-Not ported yet: the 'reference' triplet semantics and the compact_* list
-compaction (see ROADMAP.md).
+`compact_pairs` / `compact_triplets` move the entries of a (skin-inflated)
+list that lie inside the physical support to the front of a smaller
+fixed-capacity buffer (a stable argsort: no host read, so a compacted list
+can be built inside a captured MD step).
 """
 from __future__ import annotations
 
@@ -75,10 +82,10 @@ def pair_list(o_pos, box, cutoff, capacity):
     return torch.stack([flat // n, flat % n], dim=1), mask, n_found
 
 
-def _triplet_candidates(edge, k_max):
+def _triplet_candidates(edge, k_max, semantics='complete'):
     """Per-center candidate block: (order [n, K], the K first neighbors of
     each center j in ascending index order; keep [n, K, K], the kept
-    triplets (order[j, p], j, order[j, q]) with p < q)."""
+    triplets (order[j, p], j, order[j, q]) with p < q under `semantics`)."""
     n, dev = edge.shape[0], edge.device
     order = torch.argsort((~edge).to(torch.int8), dim=1, stable=True)[:, :k_max]
     valid = torch.gather(edge, 1, order)                            # [n, K]
@@ -89,6 +96,10 @@ def _triplet_candidates(edge, k_max):
     ar = torch.arange(k_max, device=dev)
     pq_upper = (ar[:, None] < ar[None, :])[None]
     cand = valid[:, :, None] & valid[:, None, :] & pq_upper         # i < k
+    if semantics == 'reference':
+        return order, cand & (i_idx < centers) & (centers < k_idx)
+    if semantics != 'complete':
+        raise ValueError(f'unknown triplet semantics {semantics!r}')
     ik_edge = edge[i_idx, k_idx]
     return order, cand & (~ik_edge | (centers < i_idx))
 
@@ -108,8 +119,9 @@ def neighbor_counts(o_pos, box, cutoff, triplets=False):
     return int(torch.sum(degree)) // 2, degree, per_center
 
 
-def triplet_list(o_pos, box, cutoff, capacity, k_max=None, kt=None):
-    """Padded 'complete' triplet list (see module docstring).
+def triplet_list(o_pos, box, cutoff, capacity, k_max=None, kt=None, semantics='complete'):
+    """Padded triplet list under `semantics`, 'complete' or 'reference'
+    (see module docstring).
 
     Two-stage selection as in the JAX package: stage 1 compacts each
     center's [K, K] candidate block to `kt` slots, stage 2 places every
@@ -129,7 +141,7 @@ def triplet_list(o_pos, box, cutoff, capacity, k_max=None, kt=None):
                 torch.zeros((), dtype=torch.int64, device=dev))
     kt = max_kt if kt is None else min(int(kt), max_kt)
     edge = _edge_matrix(o_pos, box, cutoff)
-    order, keep = _triplet_candidates(edge, k_max)
+    order, keep = _triplet_candidates(edge, k_max, semantics)
 
     # stage 1: per-center compaction (kept (p, q) flat offsets, ascending)
     flat = keep.reshape(n, k_max * k_max)
@@ -160,3 +172,47 @@ def triplet_list(o_pos, box, cutoff, capacity, k_max=None, kt=None):
                               torch.clamp_min(n_found, capacity + 1), n_found)
     mask = torch.arange(capacity, device=dev) < torch.clamp_max(n_found, capacity)
     return trip, mask, n_found
+
+
+# ----------------------------------------------------------------------
+# Active-set compaction. Lists built with a skin stay valid across MD
+# steps but inflate the PIP batches (the triplet count grows ~(r + skin)^6
+# / r^6). The switch functions vanish beyond the physical cutoffs and the
+# reference physics exits early below r = 2 A, so only the entries inside
+# that support contribute; they go to the front of a smaller buffer.
+# ----------------------------------------------------------------------
+
+def _min_image_dist2(o_pos, box, idx_a, idx_b):
+    d = minimum_image(o_pos[idx_a] - o_pos[idx_b], box)
+    return torch.sum(d * d, dim=-1)
+
+
+def _compact(items, active, capacity):
+    """Stable compaction of the active rows of items [P, k] to the front of
+    a [capacity] buffer: (items [capacity, k], mask [capacity], n_active).
+    n_active stays a device tensor and may exceed capacity (overflow, for
+    the caller's health flag); unused rows hold 0."""
+    take, mask, n = _first_true(active, capacity)
+    return torch.where(mask[:, None], items[take], 0), mask, n
+
+
+def compact_pairs(o_pos, box, pairs, mask, cutoff, rmin, capacity):
+    """Keep the pairs with rmin < r_OO < cutoff (the support of the 2-body
+    term; box None: no periodic image) in a [capacity] buffer."""
+    r2 = _min_image_dist2(o_pos, box, pairs[:, 0], pairs[:, 1])
+    active = mask & (r2 < cutoff * cutoff) & (r2 > rmin * rmin)
+    return _compact(pairs, active, capacity)
+
+
+def compact_triplets(o_pos, box, trips, mask, cutoff, rmin, capacity):
+    """Keep the triplets with >= 2 O-O edges inside the cutoff and every
+    edge above rmin (the support of the 3-body switch product) in a
+    [capacity] buffer."""
+    r2ab = _min_image_dist2(o_pos, box, trips[:, 0], trips[:, 1])
+    r2bc = _min_image_dist2(o_pos, box, trips[:, 1], trips[:, 2])
+    r2ac = _min_image_dist2(o_pos, box, trips[:, 0], trips[:, 2])
+    c2, m2 = cutoff * cutoff, rmin * rmin
+    n_in = ((r2ab < c2).to(torch.int32) + (r2bc < c2).to(torch.int32)
+            + (r2ac < c2).to(torch.int32))
+    active = mask & (n_in >= 2) & (r2ab > m2) & (r2bc > m2) & (r2ac > m2)
+    return _compact(trips, active, capacity)

@@ -1,14 +1,16 @@
 """Where the time of an MD step goes, on one CUDA card.
 
     python -m mbpol_openmm_plugin_tpu_torch.tools.step_breakdown [--waters 256 4096]
-        [--pip-impl IMPL] [--reps 10] [--steps 20] [--out FILE]
+        [--pip-impl IMPL] [--compact-eval {none,true,rebuild}] [--reps 10] [--steps 20]
+        [--out FILE]
 
 At the production operating point (MBPolConfig.for_dynamics(), float32)
 on the tests/fixtures water256 box (analytic list capacities, dense
 electrostatics) or on water4096, that box repeated 2 x 2 x 4 (after
 tune_capacities; 'auto' picks block electrostatics and pair dispersion),
 with the 2B/3B polynomials evaluated by --pip-impl (MBPolConfig.pip_impl;
-default: the plain 'quad' evaluator), it reports:
+default: the plain 'quad' evaluator) on the lists compacted as
+--compact-eval says (MBPolConfig.compact_eval; default none), it reports:
 
 1. pieces of one warm evaluation, each the median of --reps calls timed on
    the host clock around a synchronized call: the whole evaluation with
@@ -101,7 +103,7 @@ def pieces(pot, pos, reps):
 
     if pot.disp_mode == 'pairs':
         def disp_list():
-            return neighbors.pair_list(o_pos, sys_.box, pot.disp_pair_cut, pot.disp_pair_cap)
+            return neighbors.pair_list(o_pos, sys_.box, pot.water_pair_cut, pot.disp_pair_cap)
         mp, mp_mask, _ = disp_list()
         disp = ('dispersion fwd+bwd (pairs)', _fwd_bwd(
             lambda p: dispersion_energy_pairs(sys_, compute_virtual_sites(sys_, p), mp, mp_mask,
@@ -235,7 +237,7 @@ def list_build_ms(pot, pos, reps):
             sum(c for c, _ in ker.values()) / reps)
 
 
-def breakdown(waters, pip_impl, reps, n, card):
+def breakdown(waters, pip_impl, reps, n, card, compact_eval=None):
     from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
     from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
     from mbpol_openmm_plugin_tpu_torch.system import (System, compute_virtual_sites,
@@ -248,11 +250,11 @@ def breakdown(waters, pip_impl, reps, n, card):
     if waters == 4096:
         system, pos = replicate(system, pos, (2, 2, 4))
     pos = compute_virtual_sites(system, pos)
-    pot = MBPol(system, MBPolConfig.for_dynamics(pip_impl=pip_impl))
+    pot = MBPol(system, MBPolConfig.for_dynamics(pip_impl=pip_impl, compact_eval=compact_eval))
     if waters == 4096:
         pot.tune_capacities(pos)
     print(f'water{system.n_waters}: electrostatics {pot.elec_mode}, dispersion {pot.disp_mode}, '
-          f'pip_impl {pip_impl or "quad"}')
+          f'pip_impl {pip_impl or "quad"}, compact_eval {compact_eval!r}')
 
     ms = pieces(pot, pos, reps)
     print(f'pieces of one evaluation, median of {reps} synchronized calls ({card}):')
@@ -298,7 +300,8 @@ def breakdown(waters, pip_impl, reps, n, card):
     for r in steps.values():
         r['top'] = [dict(name=k[:120], count=cnt, ms=us / 1e3) for k, (cnt, us) in r['top']]
     return dict(waters=system.n_waters, elec_mode=pot.elec_mode, disp_mode=pot.disp_mode,
-                pip_impl=pip_impl or 'quad', reps=reps, steps=n, pieces_ms=ms,
+                pip_impl=pip_impl or 'quad', compact_eval=compact_eval, reps=reps, steps=n,
+                pieces_ms=ms,
                 step=steps, list_build_device_ms=build_dev_ms,
                 list_build_kernels=build_kernels,
                 # the earlier keys, of the captured step
@@ -312,6 +315,8 @@ def main(argv=None):
     ap.add_argument('--pip-impl', default=None,
                     help="MBPolConfig.pip_impl: 'quad' (default), 'monomial', 'pallas', "
                          "'quad_pallas', 'quad_bf16' or 'vech_pallas'")
+    ap.add_argument('--compact-eval', default='none', choices=('none', 'true', 'rebuild'),
+                    help='MBPolConfig.compact_eval: none (default), true or rebuild')
     ap.add_argument('--reps', type=int, default=10)
     ap.add_argument('--steps', type=int, default=20)
     ap.add_argument('--out', default=None)
@@ -319,7 +324,9 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit('step_breakdown needs a CUDA card')
     card = card_line()
-    rows = [breakdown(w, args.pip_impl, args.reps, args.steps, card) for w in args.waters]
+    compact = {'none': None, 'true': True, 'rebuild': 'rebuild'}[args.compact_eval]
+    rows = [breakdown(w, args.pip_impl, args.reps, args.steps, card, compact)
+            for w in args.waters]
     result = dict(card=card, runs=rows)
     line = json.dumps(result)
     if args.out:

@@ -21,6 +21,7 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.models.dispersion',
     'mbpol_openmm_plugin_tpu_torch.models.electrostatics',
     'mbpol_openmm_plugin_tpu_torch.models.pme',
+    'mbpol_openmm_plugin_tpu_torch.models.pme_sparse',
     'mbpol_openmm_plugin_tpu_torch.models.potential',
     'mbpol_openmm_plugin_tpu_torch.models.restraint',
     'mbpol_openmm_plugin_tpu_torch.ops.gather',
@@ -34,6 +35,11 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.ops.pip_fused',
     'mbpol_openmm_plugin_tpu_torch.ops.pip_fused_check',
     'mbpol_openmm_plugin_tpu_torch.ops._build',
+    'mbpol_openmm_plugin_tpu_torch.ops.native',
+    'mbpol_openmm_plugin_tpu_torch.parallel',
+    'mbpol_openmm_plugin_tpu_torch.parallel.plan',
+    'mbpol_openmm_plugin_tpu_torch.utils.compensated',
+    'mbpol_openmm_plugin_tpu_torch.tools.nve_drift',
     'mbpol_openmm_plugin_tpu_torch.md.integrators',
     'mbpol_openmm_plugin_tpu_torch.md.pressure',
     'mbpol_openmm_plugin_tpu_torch.md.remd',

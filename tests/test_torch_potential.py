@@ -6,8 +6,8 @@ carried across by convert.from_jax_arrays. Bounds: |dE| <= 1e-6 kJ/mol per
 term, max |dF| <= 1e-6 kJ/mol/nm, equal SCF iteration counts; plus the
 reference golden totals of test_potential_pme.py. Also: tune_capacities
 gives the JAX tuned fields on water256, 'auto' resolves the modes as JAX
-does on both sides of 512 and 2560 waters, and 'sparse' (the option
-outside the port) raises.
+does on both sides of 512 and 2560 waters (the CPU's 'sparse' included),
+and a plan for a mesh (outside the port) raises.
 """
 
 import numpy as np
@@ -109,14 +109,19 @@ def test_golden_total(evaluated):
 
 
 def test_not_ported_options_raise():
-    sys_ = System.waters(3, box=[1.9] * 3)
+    """What stays outside the port raises: a capacity plan for a mesh (more
+    than one device), from the planner and at the constructor."""
+    from mbpol_openmm_plugin_tpu_torch.parallel.plan import CapacityPlan, plan_capacities
+    sys_ = System.waters(64, box=[_side(64)] * 3)
+    cfg = MBPolConfig(nonbonded_method='PME')
     with pytest.raises(NotImplementedError, match='ROADMAP'):
-        MBPol(sys_, MBPolConfig(nonbonded_method='PME', electrostatics_mode='sparse'),
-              device='cpu')
-    # above the CPU's dense limit 'auto' picks the sparse mode, not ported
+        plan_capacities(64, sys_.box, n_devices=2, config=cfg, device='cpu')
+    plan = plan_capacities(64, sys_.box, config=cfg, device='cpu')
+    with pytest.raises(NotImplementedError, match='ROADMAP'):
+        MBPol(sys_, cfg, device='cpu', plan=CapacityPlan(**dict(vars(plan), n_devices=2)))
+    # above the CPU's dense limit 'auto' picks the sparse mode, now ported
     big = System.waters(600, box=[_side(600)] * 3)
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        MBPol(big, MBPolConfig(nonbonded_method='PME'), device='cpu')
+    assert MBPol(big, MBPolConfig(nonbonded_method='PME'), device='cpu').elec_mode == 'sparse'
 
 
 def test_default_device_needs_a_card():
@@ -167,11 +172,7 @@ def test_auto_modes_match_jax(n_waters, kernels, monkeypatch):
                       else 'block' if kernels else 'sparse')
     assert got[1] == ('dense' if got[0] == 'dense' else 'pairs')
     if not kernels:
-        if got[0] == 'sparse':
-            with pytest.raises(NotImplementedError, match='ROADMAP'):
-                MBPol(tsys, MBPolConfig(**cfg), device='cpu')
-        else:
-            assert MBPol(tsys, MBPolConfig(**cfg), device='cpu').elec_mode == got[0]
+        assert MBPol(tsys, MBPolConfig(**cfg), device='cpu').elec_mode == got[0]
 
 
 def test_tune_capacities_matches_jax():
