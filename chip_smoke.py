@@ -15,7 +15,8 @@ full-bead and NPT), replica exchange, the app layer (every example INI
 rendered by the port's builder and run, and the per-force API), and the
 large-box path: the sparse electrostatics at water4096, list compaction,
 the reference triplets, water8192 through the capacity planner and the
-site-chunked PME grid, and the compensated drift tool. It
+site-chunked PME grid, and the compensated drift tool; and the device
+mesh (parallel/mesh.py) with four shards on the one card. It
 builds the hand-written CUDA kernels from csrc/ and holds each against its
 plain PyTorch twin at the shapes its path gives it.
 
@@ -227,8 +228,33 @@ Phases (any failure raises and the script exits non-zero):
      --kahan from Maxwell-Boltzmann velocities at 300 K: each arm's fitted
      drift over 100 steps finite and within phase 5's bound; both fits and
      both rates printed.
+ 29. the device mesh: make_mesh(devices=[cuda:0] x 4) (torch.cuda.device_count()
+     printed). (a) the full-grid row kernels #3/#4 (fixed_field_rows_kernel,
+     direct_efp_rows_kernel, with the tile sum) shard by shard against their
+     twins at water256 (1024 sites) and water2048 (8192), on the entry sets of
+     ops/elec_direct_check.py, and over all rows against K1/K2 (triangular);
+     ms per launch of one shard's rows beside the bound, the twin and K1/K2;
+     (b) water256 dense, 4 shards, against the unmeshed single point, SCF at
+     DIIS_EPS on both sides: electrostatics within F32_BOUND_FACTOR x the JAX
+     float32 distance, the other terms TERM_REL, forces REPLICA_F_WHOLE; under
+     'quad_bf16' the 2B/3B energies compared bit for bit (why not, printed);
+     (c) water4096 block, 4 shards of 16 row tiles: each shard's K1-bs/K3-bs/
+     K2-bs against their twins on its local list, the per-shard tile pairs,
+     no overflow, the single point against the unmeshed block one (bits
+     printed); (d) 200 captured water256 NVE steps meshed under phase 5's
+     gate, the row kernels 4 times a step (their launch counts in the
+     summary), steps/s beside phase 5's, 10 steps eager against captured
+     bit for bit; (e) water4096 sparse and water8192
+     block through plan_capacities(n_devices=4) against one-device plans'
+     single points under the replication rows, the per-device fields; (f) 8
+     full beads over the 4 shards, 10 captured steps, and the water14 REMD
+     ladder R = 8 over them, one block of 3 steps, each bit for bit the
+     unmeshed run: each shard's beads or slots run through its own copy of
+     the potential (MBPol.to_device), so on one card (f) checks
+     the copies and the bead/slot routing, not a transfer between cards.
+     With more than one card visible, (b) also over distinct cards.
 Each phase prints its wall time and the script its total.
-Phases 5, 8, 11, 13-15, 17, 20-22, 24's NVE, NVT and NPT runs and 25-28's MD each step
+Phases 5, 8, 11, 13-15, 17, 20-22, 24's NVE, NVT and NPT runs, 25-28's MD and 29 (d), (f) each step
 as a replay of one CUDA graph (Simulation.captured, PIMDSimulation.captured;
 the kernel wrappers' launch counts include the replays); phases 18
 (r-RESPA) and 23 (REMD) run eagerly.
@@ -238,6 +264,7 @@ The last two lines are a JSON summary of the kernels and
 Usage: python3 chip_smoke.py     (needs one CUDA card; no arguments)
 """
 import contextlib
+import dataclasses
 import json
 import os
 import sys
@@ -249,8 +276,8 @@ from mbpol_openmm_plugin_tpu_torch.tools.dense_probe import (OPS_K1, OPS_K2, OPS
                                                            TRANS_K2, dense_bounds)
 from mbpol_openmm_plugin_tpu_torch.tools.timing import (BF16_TENSOR_FLOPS, FP32_FLOPS, HBM_BPS,
                                                         MUFU_PER_CLOCK_PER_SM, bound, card_line,
-                                                        kernel_device_ms, loop_ms, median_ms,
-                                                        transcendental_rate)
+                                                        graph_ms, kernel_device_ms, loop_ms,
+                                                        median_ms, transcendental_rate)
 REPO = os.path.dirname(os.path.abspath(__file__))
 FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'water256_integration_test.npz')
 BOX = 19.3996888399961804 / 10.0
@@ -274,6 +301,7 @@ REPLICA_F_REL = 1e-3
 # float64; PERF.md)
 REPLICA_F_WHOLE = 6e-3
 N_TIMING = 20
+PROFILER_TRIES = 3
 N_TIMING_TWIN_BS = 3              # the block twins take ~0.1-1 s per call
 # the peaks, the operations per pair of the chain (OPS_TEST, OPS_K1,
 # OPS_K2, TRANS_K1, TRANS_K2) and the dense kernels' bounds are those of
@@ -295,6 +323,8 @@ BS_MS_BEFORE = {'fixed_field_and_scf_lines': 1.1152, 'scf_dipole_field_bs': 0.22
 # culling test)
 HELPER_KERNELS = {'fixed_field_and_scf_factors': ('tile_sum_kernel',),
                   'direct_energy_force_pot': ('tile_sum_kernel',),
+                  'fixed_field_and_scf_factors_rows': ('tile_sum_kernel',),
+                  'direct_energy_force_pot_rows': ('tile_sum_kernel',),
                   'fixed_field_and_scf_lines': ('cluster_boxes_kernel',),
                   'direct_energy_force_pot_bs': ('cluster_boxes_kernel',)}
 SOURCE = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct.cu'
@@ -319,6 +349,10 @@ KERNELS = {   # wrapper name: (CUDA kernel name, source, the TPU kernel it repla
         'pip_quad_product_kernel', SOURCE_PIP, 'mbpol_openmm_plugin_tpu/ops/pip_pallas.py:250'),
     'pip_vech_energy_grad': (
         'pip_quad_vech_kernel', SOURCE_PIP, 'mbpol_openmm_plugin_tpu/ops/pip_pallas.py:317'),
+    'fixed_field_and_scf_factors_rows': (
+        'fixed_field_rows_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:179'),
+    'direct_energy_force_pot_rows': (
+        'direct_efp_rows_kernel', SOURCE, 'mbpol_openmm_plugin_tpu/ops/elec_pallas.py:213'),
 }
 # The kernel/twin bounds are in mbpol_openmm_plugin_tpu_torch/ops/elec_direct_check.py and
 # ops/pip_fused_check.py.
@@ -374,33 +408,51 @@ def log(*a):
     print(*a, flush=True)
 
 
-def kernel_record(name, max_abs, ms, plain_ms, bound_ms_by, library_ms=None):
+def kernel_record(name, max_abs, timing, bound_ms_by, library_ms=None):
+    """The kernels line's record of one kernel; timing: time_kernel's
+    (ms, plain_ms, ms_source)."""
     cuda_name, source, replaces = KERNELS[name]
+    ms, plain_ms, ms_source = timing
     assert ms >= bound_ms_by[0], (name, ms, bound_ms_by)    # faster than the bound: a wrong count
     return dict(name=name, route='cuda', source=source, replaces=replaces,
-                max_abs_err=max_abs, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms_by[0],
-                bound_by=bound_ms_by[1], library_ms=library_ms)
+                max_abs_err=max_abs, ms=ms, ms_source=ms_source, plain_ms=plain_ms,
+                bound_ms=bound_ms_by[0], bound_by=bound_ms_by[1], library_ms=library_ms)
 
 
 def time_kernel(torch, card, name, kern, plain, n_plain=N_TIMING):
-    """(device ms per launch from torch.profiler, or the back-to-back call
-    time when the trace has none; the twin's ms per call), logged."""
+    """(device ms per launch, the twin's ms per call, ms_source), logged.
+    The device time is torch.profiler's (ms_source 'profiler': the kernel's
+    and its helper kernels' device time per traced launch); when
+    PROFILER_TRIES traces hold none of the kernel's events it is one CUDA
+    graph replay of the calls (ms_source 'graph': the wrapper's zero-fills,
+    helper kernels and the gaps between them included, so it reads higher
+    than the profiler's)."""
     cuda_name = KERNELS[name][0]
     helpers = HELPER_KERNELS.get(name, ())
-    dev = kernel_device_ms(kern, cuda_name, N_TIMING, helpers)
-    dev_ms = dev.ms
-    if helpers and dev_ms is not None:
-        log(f'    {cuda_name}: {dev.kernel_ms:.4f} ms, {"/".join(helpers)}: '
-            f'{dev.helper_ms:.4f} ms per launch ({dev.launches} launches traced)')
+    dev_ms, source = None, 'profiler'
+    for k in range(PROFILER_TRIES):
+        dev = kernel_device_ms(kern, cuda_name, N_TIMING, helpers)
+        if dev.ms is not None:
+            dev_ms = dev.ms
+            log(f'    {cuda_name}: {dev.kernel_ms:.4f} ms'
+                + (f', {"/".join(helpers)}: {dev.helper_ms:.4f} ms' if helpers else '')
+                + f' per launch ({dev.launches} of {N_TIMING} launches traced, try {k + 1})')
+            break
+        log(f'    {cuda_name}: no event in profiler trace {k + 1} of {N_TIMING} calls; '
+            f'{len(dev.each)} other kernels in it, {dev.launches} launches of it')
+    if dev_ms is None:
+        dev_ms, source = graph_ms(kern, N_TIMING), 'graph'
+        log(f'    {cuda_name}: no device time in {PROFILER_TRIES} profiler traces; one CUDA '
+            f'graph replay of {N_TIMING} calls: {dev_ms:.4f} ms per call (ms_source graph: '
+            f'the graph\'s gaps between kernels included)')
     kern_loop = loop_ms(kern, N_TIMING)
     plain_loop = loop_ms(plain, n_plain)
     call_ms = median_ms(kern, N_TIMING)
-    log(f'  {name:28s} kernel device time '
-        f'{"not in the profiler trace" if dev_ms is None else f"{dev_ms:.4f} ms"}; '
+    log(f'  {name:28s} kernel device time {dev_ms:.4f} ms; '
         f'back-to-back per call: kernel {kern_loop:.4f} ms, twin {plain_loop:.4f} ms '
         f'({n_plain} calls); synchronized wrapper call (median): kernel {call_ms:.4f} ms '
         f'({card})')
-    return (dev_ms if dev_ms is not None else kern_loop), plain_loop
+    return dev_ms, plain_loop, source
 
 
 def load_water256(torch, device, dtype):
@@ -507,9 +559,10 @@ def phase_kernels(torch, card, record):
                   if size == 'water256' else ED.direct_energy_force_pot_tri_plain(sites, mu,
                                                                                   consts)))
         for kname, kern, plain in timed:
-            ms, plain_ms = time_kernel(torch, card, kname, kern, plain,
-                                       N_TIMING if size == 'water256' else N_TIMING_TWIN_BS)
-            rec = kernel_record(kname, max_abs[kname], ms, plain_ms, bounds[kname])
+            timing = time_kernel(torch, card, kname, kern, plain,
+                                 N_TIMING if size == 'water256' else N_TIMING_TWIN_BS)
+            ms = timing[0]
+            rec = kernel_record(kname, max_abs[kname], timing, bounds[kname])
             if size == 'water256':
                 record[kname] = rec
             log(f'  {size} {kname:28s} {ms:.4f} ms'
@@ -639,7 +692,7 @@ def phase_block_kernels(torch, card, record, pot, pos):
 
     params, block = pot.elec_params, pot._block_info
     charges, _ = elec.assemble_charges(params, pos)
-    sites, tiles = pme.block_sites(params, pot.pme, pos, charges, block)
+    sites, (tiles,) = pme.block_sites(params, pot.pme, pos, charges, block)
     n, np_ = pos.shape[0], sites.shape[0]
     polarity = torch.as_tensor(params.polarity[block['site_perm']], dtype=pos.dtype,
                                device=pos.device)
@@ -709,8 +762,9 @@ def phase_block_kernels(torch, card, record, pot, pos):
               lambda: BS.direct_energy_force_pot_bs(sites, mu, n, tiles, consts),
               lambda: BS.direct_energy_force_pot_bs_plain(sites, mu, n, tiles, consts)))
     for kname, kern, plain in timed:
-        ms, plain_ms = time_kernel(torch, card, kname, kern, plain, N_TIMING_TWIN_BS)
-        record[kname] = kernel_record(kname, checks[kname][1], ms, plain_ms, bounds[kname])
+        timing = time_kernel(torch, card, kname, kern, plain, N_TIMING_TWIN_BS)
+        ms = timing[0]
+        record[kname] = kernel_record(kname, checks[kname][1], timing, bounds[kname])
         log(f'  {kname:28s} {ms:.4f} ms (before the live-line layout {BS_MS_BEFORE[kname]} ms), '
             f'bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}), kernel / bound '
             f'{ms / bounds[kname][0]:.2f}')
@@ -880,8 +934,9 @@ def phase_pip_kernels(torch, card, record):
         for wrapper in PF.KERNELS:
             kname = wrapper.__name__
             lib = library.get(wrapper, polyeval.pip_quad_energy_and_grad)
-            ms, plain_ms = time_kernel(torch, card, kname, lambda: wrapper(poly, x),
-                                       lambda: PF.PLAIN[wrapper](poly, x), N_TIMING_TWIN_BS)
+            timing = time_kernel(torch, card, kname, lambda: wrapper(poly, x),
+                                 lambda: PF.PLAIN[wrapper](poly, x), N_TIMING_TWIN_BS)
+            ms, plain_ms, _ = timing
             lib_ms = loop_ms(lambda: lib(x, poly), N_TIMING)
             log(f'  {kname:28s} {poly} [{p}, {v}]: bound {bounds[kname][0]:.4f} ms '
                 f'({bounds[kname][1]}); {lib.__name__} on the same variables '
@@ -908,8 +963,8 @@ def phase_pip_kernels(torch, card, record):
                     f'{waves:.2f} waves of {PF.MONO_BLOCKS_PER_SM} x {n_sms} ({card})')
             assert ms >= bounds[kname][0], (kname, poly, ms, bounds[kname])
             if poly == 'poly3b':       # the record holds the larger polynomial's shape
-                record[kname] = kernel_record(kname, max_abs[kname], ms, plain_ms,
-                                              bounds[kname], lib_ms)
+                record[kname] = kernel_record(kname, max_abs[kname], timing, bounds[kname],
+                                              lib_ms)
     if failures:
         raise AssertionError(f'PIP kernel/twin mismatch: {failures}')
 
@@ -1682,9 +1737,9 @@ PRESSURE_JAX_F64_BAR = 10775.311913214635
 PRESSURE_F64_REL = 1e-6
 PIMD_PRESSURE_STEPS, PIMD_PRESSURE_REPORT = 20, 10
 # phase 23: REMD, thermalization + timed blocks, cut from bench.py's 4 + 4
-# (water256) and 40 + 40 (water14) to keep the script within half its time
-# limit
-REMD_BLOCKS = {'water256': (2, 4), 'water14': (2, 4)}
+# (water256) and 40 + 40 (water14) to keep the script near two thirds of
+# its time limit (2 + 4 until phase 29 was added)
+REMD_BLOCKS = {'water256': (1, 3), 'water14': (1, 3)}
 
 
 def pimd_potential(torch):
@@ -2625,8 +2680,8 @@ def phase_compact(torch, card, record, quad_steps_per_s):
             log(f'  {wrapper.__name__:28s} {poly} compacted [{x.shape[0]:5d}] {row}')
             if not row.ok:
                 failures.append(f'kernel10.{poly}.{row.output}.{row.measure}')
-        ms, plain_ms = time_kernel(torch, card, wrapper.__name__, lambda: wrapper(poly, x),
-                                   lambda: PF.PLAIN[wrapper](poly, x), N_TIMING_TWIN_BS)
+        ms, plain_ms, _ = time_kernel(torch, card, wrapper.__name__, lambda: wrapper(poly, x),
+                                      lambda: PF.PLAIN[wrapper](poly, x), N_TIMING_TWIN_BS)
         log(f'  {wrapper.__name__:28s} {poly} compacted [{x.shape[0]}, {x.shape[1]}]: kernel '
             f'{ms:.4f} ms, twin {plain_ms:.4f} ms, max |err| {err:.3e} ({card})')
 
@@ -2720,7 +2775,7 @@ def phase_water8192(torch, card):
     # the block kernels against their twins at this size
     params, block = pot.elec_params, pot._block_info
     charges, _ = elec.assemble_charges(params, pos)
-    sites, tiles = P.block_sites(params, pot.pme, pos, charges, block)
+    sites, (tiles,) = P.block_sites(params, pot.pme, pos, charges, block)
     polarity = torch.as_tensor(params.polarity[block['site_perm']], dtype=pos.dtype,
                                device=pos.device)
     consts = ED.DirectConsts.from_setup(pot.pme, params.thole)
@@ -2855,6 +2910,428 @@ def phase_drift(torch, card):
         assert abs(fit100) <= MD_FIT_TOL_KJ, fit100
 
 
+# phase 29: the device mesh on the one card, MESH_SHARDS shards on cuda:0
+# (parallel/mesh.py; a mesh may name a device more than once). The full-grid
+# row kernels (#3/#4) launch once per shard; their ms per launch is read at
+# one shard's rows of water256 (what the meshed main path launches); (b)
+# holds the meshed single point to phase 4's settings with the SCF at
+# DIIS_EPS on both sides, the electrostatics within F32_BOUND_FACTOR x the
+# JAX float32 distance of this input (JAX_F32_DISTANCE['water256_pme'])
+MESH_SHARDS = 4
+MESH_MD_STEPS = 200
+MESH_EAGER_STEPS = 10
+MESH_PIMD_STEPS = 10
+MESH_REMD_R, MESH_REMD_INTERVAL = 8, 3
+ROW_KERNELS = ('fixed_field_and_scf_factors_rows', 'direct_energy_force_pot_rows')
+TERM_REL = 1e-4
+
+
+def card_mesh(torch, k=MESH_SHARDS, devices=None):
+    from mbpol_openmm_plugin_tpu_torch.parallel.mesh import make_mesh
+    if devices is None:
+        return make_mesh(devices=[torch.device('cuda', 0)] * k)
+    return make_mesh(devices)
+
+
+def rel_rows(name, kern, ref, bound_rel):
+    """(ok, max |kern - ref| / max |ref|), logged."""
+    d = float((kern - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+    ok = d <= bound_rel
+    log(f'    {name:40s} max |d| / max |ref| {d:.3e} (bound {bound_rel:g}) '
+        f'{"ok" if ok else "FAIL"}')
+    return ok, d
+
+
+def phase_mesh_kernels(torch, card, record, mesh):
+    """Phase 29 (a): the full-grid row kernels #3/#4 shard by shard against
+    their twins, and over the whole row range against K1/K2 (triangular),
+    at water256 and water2048."""
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_check as check
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    from mbpol_openmm_plugin_tpu_torch.tools.dense_probe import dense_inputs
+
+    rate = transcendental_rate()
+    failures = []
+    for size, reps in DENSE_REPS.items():
+        sites, polarity, consts = dense_inputs(reps)
+        n = sites.shape[0]
+        n_pad = M.padded_for_mesh(n, mesh.size)
+        ranges = M.row_ranges(n_pad, mesh)
+        tri1 = ED.fixed_field_and_scf_factors(sites, consts)
+        mu = (polarity[:, None] * tri1[0]).contiguous()
+        tri2 = ED.direct_energy_force_pot(sites, mu, consts)
+        torch.cuda.synchronize()
+        log(f'  {size}: {n} sites, padded {n_pad}, {mesh.size} shards of {n_pad // mesh.size} '
+            f'rows x {n_pad} columns')
+        max_abs = {k: 0.0 for k in ROW_KERNELS}
+        outs1, outs2, n_in = [], [], []
+        for k, (lo, hi) in enumerate(ranges):
+            k1 = ED.fixed_field_and_scf_factors_rows(sites, lo, hi, consts, n_pad)
+            t1 = ED.fixed_field_and_scf_factors_rows_plain(sites, lo, hi, consts, n_pad)
+            t1_64 = ED.fixed_field_and_scf_factors_rows_plain(sites.double(), lo, hi, consts,
+                                                              n_pad)
+            k2 = ED.direct_energy_force_pot_rows(sites, mu, lo, hi, consts)
+            t2 = ED.direct_energy_force_pot_rows_plain(sites, mu, lo, hi, consts)
+            torch.cuda.synchronize()
+            rows = [('fixed_field_and_scf_factors_rows', r)
+                    for r in check.k1_rows_range(sites, polarity, lo, hi, k1, t1, t1_64)]
+            rows += [('direct_energy_force_pot_rows', r) for r in check.k2_rows(
+                (k2[0].sum(), k2[1], k2[2]), (t2[0].sum(), t2[1], t2[2]))]
+            for kname, row in rows:
+                if k in (0, mesh.size - 1) or not row.ok:
+                    log(f'  {size} shard {k} {kname:32s} {row}')
+                if not row.ok:
+                    failures.append(f'{size}.{k}.{kname}.{row.output}.{row.entries}')
+            log(f'  {size} shard {k}: {sum(r.ok for _, r in rows)} of {len(rows)} twin rows ok')
+            max_abs['fixed_field_and_scf_factors_rows'] = max(
+                max_abs['fixed_field_and_scf_factors_rows'],
+                max(float((a - b).abs().max()) for a, b in zip(k1, t1)))
+            max_abs['direct_energy_force_pot_rows'] = max(
+                max_abs['direct_energy_force_pot_rows'],
+                max(float((a - b).abs().max()) for a, b in zip(k2, t2)))
+            n_in.append(n_in_cutoff((k1[1], k1[2])))
+            outs1.append(k1)
+            outs2.append(k2)
+            del t1, t1_64, t2
+        # the whole row range against K1/K2 (triangular) within the same rows
+        log(f'  {size}: the row kernels over all {n_pad} rows against K1/K2 (triangular):')
+        whole1 = [torch.cat(x)[:n] for x in zip(*outs1)]
+        for name, a, b, rel in (('field', whole1[0], tri1[0], check.REL_O),
+                                ('s3', whole1[1][:, :n], tri1[1], check.REL_M),
+                                ('s5', whole1[2][:, :n], tri1[2], check.REL_M)):
+            ok, _ = rel_rows(f'fixed_field_and_scf_factors_rows {name}', a, b, rel)
+            failures += [] if ok else [f'{size}.whole.{name}']
+        whole2 = [torch.cat(x)[:n] for x in zip(*outs2)]
+        for row in check.k2_rows((whole2[0].sum(), whole2[1], whole2[2]), tri2):
+            log(f'    direct_energy_force_pot_rows vs K2 {row}')
+            failures += [] if row.ok else [f'{size}.whole.k2.{row.output}']
+        del outs1, outs2, whole1, tri1
+        # one shard's launch: time, twin, bound; K1/K2's time beside it
+        lo, hi = ranges[0]
+        rows_n = hi - lo
+        bounds = {
+            'fixed_field_and_scf_factors_rows': bound(
+                n * 32 + rows_n * 12 + 2 * rows_n * n_pad * 4, n_in[0] * (OPS_TEST + OPS_K1),
+                n_transcendental=n_in[0] * TRANS_K1, transcendental_rate=rate),
+            'direct_energy_force_pot_rows': bound(
+                n * 32 + n * 12 + rows_n * 20, n_in[0] * (OPS_TEST + OPS_K2),
+                n_transcendental=n_in[0] * TRANS_K2, transcendental_rate=rate)}
+        log(f'  {size}: shard 0 holds {n_in[0]} ordered in-cutoff pairs of {rows_n * n} '
+            f'({n_in[0] / (rows_n * n):.4%}); all shards {sum(n_in)} (twice the unordered '
+            f'pairs K1/K2 run)')
+        timed = (('fixed_field_and_scf_factors_rows',
+                  lambda: ED.fixed_field_and_scf_factors_rows(sites, lo, hi, consts, n_pad),
+                  lambda: ED.fixed_field_and_scf_factors_rows_plain(sites, lo, hi, consts, n_pad),
+                  'fixed_field_and_scf_factors'),
+                 ('direct_energy_force_pot_rows',
+                  lambda: ED.direct_energy_force_pot_rows(sites, mu, lo, hi, consts),
+                  lambda: ED.direct_energy_force_pot_rows_plain(sites, mu, lo, hi, consts),
+                  'direct_energy_force_pot'))
+        for kname, kern, plain, tri in timed:
+            timing = time_kernel(torch, card, kname, kern, plain,
+                                 N_TIMING if size == 'water256' else N_TIMING_TWIN_BS)
+            ms, plain_ms, _ = timing
+            rec = kernel_record(kname, max_abs[kname], timing, bounds[kname])
+            tri_ms = (record[tri]['ms'] if size == 'water256' else None)
+            if size == 'water256':
+                record[kname] = rec
+            log(f'  {size} {kname:32s} {ms:.4f} ms per launch ({rows_n} rows), x {mesh.size} '
+                f'shards {ms * mesh.size:.4f} ms; bound {bounds[kname][0]:.4f} ms '
+                f'({bounds[kname][1]}), kernel / bound {ms / bounds[kname][0]:.2f}; twin '
+                f'{plain_ms:.4f} ms'
+                + ('' if tri_ms is None else f'; {tri} (triangular, all rows) {tri_ms:.4f} ms')
+                + f' ({card})')
+        del sites, mu, tri2
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f'row kernel mismatch: {failures}')
+
+
+def phase_mesh_single_point(torch, card, mesh, tag='(b)'):
+    """Phase 29 (b): water256 dense under the mesh against the unmeshed
+    single point, the SCF at DIIS_EPS on both sides; under 'quad_bf16' the
+    2B and 3B energies compared bit for bit."""
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    system, pos = load_water256(torch, torch.device(mesh.lead), torch.float32)
+    failures = []
+    for impl in (None, 'quad_bf16'):
+        cfg = MBPolConfig(**dict(SINGLE_POINT, target_epsilon=DIIS_EPS, scf_eps_floor=DIIS_EPS,
+                                 pip_impl=impl))
+        ref = MBPol(system, cfg, device=mesh.lead).energy_forces(pos)
+        ED.reset_launch_counts()
+        pot = MBPol(system, cfg, mesh=mesh)
+        got = pot.energy_forces(pos)
+        torch.cuda.synchronize()
+        launches = {k.__name__: k.launches for k in ED.KERNELS + ED.ROW_KERNELS}
+        log(f'  {tag} pip_impl {impl}: meshed E {float(got[0]):.6f} kJ/mol, unmeshed '
+            f'{float(ref[0]):.6f}; SCF iterations {int(got[3]["iterations"])} / '
+            f'{int(ref[3]["iterations"])}; launches {launches}')
+        assert pot.elec_mode == 'dense' and bool(got[3]['converged'])
+        assert all(launches[k] == mesh.size for k in ROW_KERNELS), launches
+        assert all(k.launches == 0 for k in ED.KERNELS), launches
+        d_el = abs(float(got[2]['electrostatics']) - float(ref[2]['electrostatics']))
+        b_el = F32_BOUND_FACTOR * JAX_F32_DISTANCE['water256_pme']['terms']['electrostatics']
+        ok = d_el <= b_el
+        log(f'    electrostatics |dE| {d_el:.6e} kJ/mol (bound {b_el:.6e}) '
+            f'{"ok" if ok else "FAIL"}')
+        failures += [] if ok else [f'{impl}.electrostatics']
+        for k in got[2]:
+            if k == 'electrostatics':
+                continue
+            a, b = float(got[2][k]), float(ref[2][k])
+            rel = abs(a - b) / max(abs(b), 1e-30)
+            same = bool(torch.equal(got[2][k], ref[2][k]))
+            log(f'    {k:14s} rel {rel:.3e} (bound {TERM_REL}), bits equal {same}')
+            failures += [] if rel <= TERM_REL else [f'{impl}.{k}']
+            if impl == 'quad_bf16' and k in ('two_body', 'three_body') and not same:
+                log(f'      {k}: not bit for bit: kernel #10 gives each row the same bits, but '
+                    f'the energy is the sum of {mesh.size} per-shard sums, added on the lead in '
+                    f'shard order, where the unmeshed path sums the whole batch at once')
+        f_rel = float((got[1] - ref[1]).abs().max() / ref[1].abs().max())
+        log(f'    forces max |dF| / max |F| {f_rel:.3e} (bound {REPLICA_F_WHOLE})')
+        failures += [] if f_rel <= REPLICA_F_WHOLE else [f'{impl}.forces']
+    if failures:
+        raise AssertionError(f'meshed single point: {failures}')
+
+
+def phase_mesh_block(torch, card, mesh):
+    """Phase 29 (c): water4096 block under the mesh: each shard's kernels
+    against their twins on its local list, the per-shard tile pairs, and
+    the single point against the unmeshed block one."""
+    from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
+    from mbpol_openmm_plugin_tpu_torch.models import pme
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as BS
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_check as check
+
+    big, pos = load_water4096(torch)
+    cfg = MBPolConfig(**dict(SINGLE_POINT, electrostatics_mode='block', dispersion_mode='pairs'))
+    ref_pot = MBPol(big, cfg).tune_capacities(pos)
+    pot = MBPol(big, cfg, mesh=mesh).tune_capacities(pos)
+    block, params = pot._block_info, pot.elec_params
+    charges, _ = elec.assemble_charges(params, pos)
+    sites, tiles = pme.block_sites(params, pot.pme, pos, charges, block, mesh=mesh)
+    n, consts = pos.shape[0], ED.DirectConsts.from_setup(pot.pme, params.thole)
+    polarity = torch.as_tensor(params.polarity[block['site_perm']], dtype=pos.dtype,
+                               device=pos.device)
+    field, _ = BS.fixed_field_and_scf_lines_sharded(sites, n, tiles, consts,
+                                                    block['line_capacity'], mesh)
+    mu = (polarity[:, None] * field).contiguous()
+    log(f'  sorted sites {tuple(sites.shape)}, {sites.shape[0] // BS.TILE} row tiles, '
+        f'{tiles[0].n_row_tiles} per shard; local list capacity '
+        f'{block["tile_pair_capacity_local"]} (global {block["tile_pair_capacity"]}); active '
+        f'pairs per shard {[int(t.n_act) for t in tiles]}')
+    failures = []
+    for k, t in enumerate(tiles):
+        assert 0 < int(t.n_act) <= t.capacity, (k, int(t.n_act), t.capacity)
+        checks = check.block_kernel_rows(sites, polarity, t, n, consts, block['line_capacity'],
+                                         mu=mu)
+        bad = [f'{kn}.{r.output}.{r.entries}' for kn, (rows, _) in checks.items()
+               for r in rows if not r.ok]
+        log(f'  shard {k}: rows {t.row_tile0 * BS.TILE}..{(t.row_tile0 + t.n_row_tiles) * BS.TILE}'
+            f', K1-bs/K3-bs/K2-bs twin rows ok: {not bad}; max |kernel - twin| '
+            f'{ {kn: f"{v[1]:.2e}" for kn, v in checks.items()} }')
+        failures += [f'shard{k}.{b}' for b in bad]
+    BS.reset_launch_counts()
+    got = pot.energy_forces(pos)
+    launches = {k.__name__: k.launches for k in BS.KERNELS}
+    ref = ref_pot.energy_forces(pos)
+    torch.cuda.synchronize()
+    d = got[3]
+    log(f'  single point meshed {float(got[0]):.6f} / unmeshed {float(ref[0]):.6f} kJ/mol; '
+        f'elec_tile_pairs {int(d["elec_tile_pairs"])} (unmeshed {int(ref[3]["elec_tile_pairs"])})'
+        f', tile overflow {bool(d["elec_tile_overflow"])}, line overflow '
+        f'{bool(d["elec_line_overflow"])}; block launches {launches}')
+    assert not bool(d['elec_tile_overflow']) and not bool(d['elec_line_overflow'])
+    assert int(d['elec_tile_pairs']) == int(ref[3]['elec_tile_pairs'])
+    assert all(v >= mesh.size for v in launches.values()), launches
+    e_rel = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+    f_rel = float((got[1] - ref[1]).abs().max() / ref[1].abs().max())
+    same = {k: bool(torch.equal(got[2][k], ref[2][k])) for k in ref[2]}
+    log(f'    energy rel {e_rel:.3e} (bound {REPLICA_E_REL}), forces {f_rel:.3e} (bound '
+        f'{REPLICA_F_WHOLE}); per-term bits equal {same}, forces bits equal '
+        f'{bool(torch.equal(got[1], ref[1]))} (the PME grid is the sum of {mesh.size} partial '
+        f'grids, and each term the sum of per-shard sums)')
+    failures += [] if e_rel <= REPLICA_E_REL and f_rel <= REPLICA_F_WHOLE else ['single_point']
+    if failures:
+        raise AssertionError(f'meshed block path: {failures}')
+
+
+def phase_mesh_md(torch, card, record, mesh, classical_rate):
+    """Phase 29 (d): water256 dense MD under the mesh, captured: phase 5's
+    gate, the row kernels once per shard and step; the main path of the
+    row kernels' launch counts."""
+    from mbpol_openmm_plugin_tpu_torch.md.simulation import Simulation, SimulationConfig
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+
+    system, pos = load_water256(torch, torch.device(mesh.lead), torch.float32)
+    pot = MBPol(system, MBPolConfig.for_dynamics(), mesh=mesh)
+    sim = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'))
+    assert sim.captured
+    sim.set_positions(pos)
+    torch.cuda.synchronize()
+    ED.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = sim.step(MESH_MD_STEPS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k.__name__: k.launches for k in ED.KERNELS + ED.ROW_KERNELS}
+    e_tot = out['step_total_energy']
+    fit = second_half_fit(e_tot)
+    rate = MESH_MD_STEPS / wall
+    log(f'  {MESH_MD_STEPS} captured steps, {mesh.size} shards on {mesh.lead}: E_tot '
+        f'{e_tot[0]:.4f} -> {e_tot[-1]:.4f} kJ/mol, second-half fit {fit:+.4f} (bound '
+        f'{MD_FIT_TOL_KJ}); {rate:.2f} steps/s beside phase 5\'s {classical_rate:.2f} ({card}); '
+        f'capture {sim.capture_ms[0]:.1f} ms; launches {launches}, row kernels per step '
+        f'{[launches[k] / MESH_MD_STEPS for k in ROW_KERNELS]}')
+    assert np.all(np.isfinite(e_tot)) and abs(fit) <= MD_FIT_TOL_KJ, fit
+    assert all(launches[k] >= mesh.size * MESH_MD_STEPS for k in ROW_KERNELS), launches
+    assert all(k.launches == 0 for k in ED.KERNELS), launches
+    for k in ROW_KERNELS:
+        record[k]['launches'] = launches[k]
+    # the same steps from one state, eager and captured (phase 19's check)
+    runs = []
+    for eager in (True, False):
+        s2 = Simulation(pot, SimulationConfig(dt=0.0002, nlist_rebuild_interval='auto'),
+                        _eager=eager)
+        s2.set_positions(sim.state.positions)
+        s2.state = dataclasses.replace(s2.state, velocities=sim.state.velocities.clone())
+        runs.append((s2, s2.step(MESH_EAGER_STEPS)))
+    (se, oe), (sc, oc) = runs
+    same = (np.array_equal(oe['step_total_energy'], oc['step_total_energy'])
+            and all(bool(torch.equal(getattr(se.state, k), getattr(sc.state, k)))
+                    for k in ('positions', 'velocities')))
+    log(f'  {MESH_EAGER_STEPS} meshed steps eager and captured from the same state: E_tot '
+        f'traces and final state equal bit for bit: {same}')
+    assert same
+    return rate
+
+
+def phase_mesh_planned(torch, card, mesh):
+    """Phase 29 (e): water4096 sparse and water8192 block through
+    plan_capacities(n_devices=size), single points against the unmeshed
+    ones (through a one-device plan) under the replication rows."""
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+    from mbpol_openmm_plugin_tpu_torch.parallel.plan import plan_capacities
+
+    pot256 = MBPol(load_water256(torch, torch.device(mesh.lead), torch.float32)[0],
+                   MBPolConfig(**SINGLE_POINT))
+    failures = []
+    for name, reps, mode in (('water4096', REPS, 'sparse'), ('water8192', REPS8192, 'block')):
+        system, pos = load_replicated(torch, reps)
+        grid = tuple(g * r for g, r in zip(pot256.pme.grid, reps))
+        cfg = MBPolConfig(**dict(SINGLE_POINT, pme_grid=grid, electrostatics_mode=mode))
+        plans = {nd: plan_capacities(system.n_waters, system.box, n_devices=nd, config=cfg,
+                                     positions=pos) for nd in (1, mesh.size)}
+        plan = plans[mesh.size]
+        log(f'  {name} ({mode}): plan for {mesh.size} devices: per device {plan.per_device()}, '
+            f'local tile pairs {plan.tile_pair_capacity_local}, est. '
+            f'{plan.mem_per_device_mb:.0f} MB/device')
+        ref = MBPol(system, cfg, plan=plans[1]).energy_forces(pos)
+        torch.cuda.synchronize()
+        got = MBPol(system, cfg, mesh=mesh, plan=plan).energy_forces(pos)
+        torch.cuda.synchronize()
+        over = [k for k, v in got[3].items() if k.endswith('_overflow') and bool(v)]
+        e_rel = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+        f_rel = float((got[1] - ref[1]).abs().max() / ref[1].abs().max())
+        log(f'    meshed {float(got[0]):.4f} / unmeshed {float(ref[0]):.4f} kJ/mol: energy rel '
+            f'{e_rel:.3e} (bound {REPLICA_E_REL}), forces {f_rel:.3e} (bound {REPLICA_F_WHOLE})'
+            f'; overflow {over or "none"}; converged {bool(got[3]["converged"])}')
+        if over or not bool(got[3]['converged']) or e_rel > REPLICA_E_REL \
+                or f_rel > REPLICA_F_WHOLE:
+            failures.append(name)
+        del system, pos, ref, got
+        torch.cuda.empty_cache()
+    if failures:
+        raise AssertionError(f'planned meshed single points: {failures}')
+
+
+def phase_mesh_pimd_remd(torch, card, mesh):
+    """Phase 29 (f): 8 full beads over the shards and the water14 REMD ladder
+    over them, each bit for bit the unmeshed run."""
+    from mbpol_openmm_plugin_tpu_torch.md import remd
+    from mbpol_openmm_plugin_tpu_torch.md.rpmd import PIMDSimulation
+    from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+
+    pot, pos = pimd_potential(torch)
+    runs = []
+    for m in (None, mesh):
+        sim = PIMDSimulation(pot, n_beads=PIMD_BEADS, dt=PIMD_DT, temperature=300.0,
+                             thermostat='none', seed=0, nlist_rebuild_interval=PIMD_NL_EVERY,
+                             mesh=m)
+        assert sim.captured
+        sim.set_positions(pos, spread=PIMD_SPREAD)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sim.step(MESH_PIMD_STEPS)
+        torch.cuda.synchronize()
+        runs.append((out, sim.state, time.perf_counter() - t0))
+    (a, sa, wa), (b, sb, wb) = runs
+    same = (np.array_equal(a['step_hamiltonian'], b['step_hamiltonian'])
+            and all(bool(torch.equal(getattr(sa, k), getattr(sb, k)))
+                    for k in ('positions', 'velocities', 'forces', 'potential_energy')))
+    log(f'  PIMD {PIMD_BEADS} full beads, {PIMD_BEADS // mesh.size} per shard, '
+        f'{MESH_PIMD_STEPS} captured steps: meshed equal to unmeshed bit for bit: {same}; '
+        f'{MESH_PIMD_STEPS / wa:.2f} / {MESH_PIMD_STEPS / wb:.2f} steps/s (capture included) '
+        f'({card})')
+    assert same
+    del pot
+    system, pos, _ = cluster_input(torch, 'water14_cluster')
+    pot = MBPol(system, MBPolConfig(**WATER14_MD))
+    temps = remd.geometric_ladder(180.0, 480.0, MESH_REMD_R)
+    ladders = []
+    for m in (None, mesh):
+        sim = remd.REMDSimulation(pot, temps, remd.REMDConfig(dt=2e-4,
+                                                              exchange_interval=MESH_REMD_INTERVAL),
+                                  seed=0, mesh=m)
+        sim.set_positions(pos)
+        sim.set_velocities_to_temperature()
+        out = sim.run(1)
+        ladders.append((out, sim.state))
+    (a, sa), (b, sb) = ladders
+    same = (all(np.array_equal(a[k], b[k]) for k in ('walker', 'accept', 'potential_energy'))
+            and bool(torch.equal(sa.positions, sb.positions)))
+    log(f'  REMD water14, R = {MESH_REMD_R} over {mesh.size} shards, one block of '
+        f'{MESH_REMD_INTERVAL} steps: walkers {b["walker"][0].tolist()}, accepts '
+        f'{b["accept"][0].tolist()}; equal to the unmeshed ladder bit for bit: {same}')
+    assert same
+
+
+def phase_mesh(torch, card, record, classical_rate):
+    """Phase 29: the device mesh on the one card ((a)-(f)); on a machine
+    with more cards, (b) also over distinct cards."""
+    count = torch.cuda.device_count()
+    mesh = card_mesh(torch)
+    log(f'  mesh: {mesh.size} shards on {mesh.distinct()}; torch.cuda.device_count() {count}')
+    steps = {}
+    for tag, fn in (('(a) row kernels #3/#4 vs twins', lambda: phase_mesh_kernels(
+                        torch, card, record, mesh)),
+                    ('(b) water256 dense single point', lambda: phase_mesh_single_point(
+                        torch, card, mesh)),
+                    ('(c) water4096 block', lambda: phase_mesh_block(torch, card, mesh)),
+                    ('(d) water256 dense MD', lambda: phase_mesh_md(torch, card, record, mesh,
+                                                                    classical_rate)),
+                    ('(e) planned water4096 sparse and water8192 block', lambda: phase_mesh_planned(
+                        torch, card, mesh)),
+                    ('(f) PIMD and REMD', lambda: phase_mesh_pimd_remd(torch, card, mesh))):
+        log(f'  {tag}')
+        t0 = time.perf_counter()
+        fn()
+        steps[tag[:3]] = time.perf_counter() - t0
+    if count > 1:
+        multi = card_mesh(torch, devices=[torch.device('cuda', k) for k in range(min(count, 4))])
+        log(f'  (b) over {multi.size} distinct cards {multi.devices}')
+        phase_mesh_single_point(torch, card, multi, tag='(b, cards)')
+    else:
+        log('  (b) over distinct cards: not run (one card visible)')
+    log(f'  phase 29 walls: {", ".join(f"{k} {v:.1f} s" for k, v in steps.items())}')
+
+
 _PHASE = {}
 
 
@@ -2970,6 +3447,9 @@ def main():
     begin_phase(f'== phase 28: compensated accumulation (the drift tool, water256, {DRIFT_STEPS} '
                 f'steps plain and --kahan)')
     phase_drift(torch, card)
+    begin_phase(f'== phase 29: the device mesh ({MESH_SHARDS} shards on cuda:0: row kernels, '
+                f'dense, block, sparse, planned, MD, PIMD, REMD)')
+    phase_mesh(torch, card, record, quad_steps_per_s)
     begin_phase(None)
     log(f'  steps/s: classical {quad_steps_per_s:.2f} (phase 5), PIMD contracted {pimd_rate:.2f},'
         f' 8 full beads {full_rate:.2f} ({card})')

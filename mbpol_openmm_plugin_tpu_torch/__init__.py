@@ -16,14 +16,14 @@ water + Cl- systems without electrostatics and any site layout; and the
 large-box pieces: the sparse (water-pair list) electrostatics the CPU
 takes above 512 waters, list compaction, the reference's triplet
 enumeration, the site-chunked PME grid, the host voxel-hash lists
-(``ops/native.py``), single-device capacity plans (``parallel/plan.py``)
-and compensated accumulation (``utils/compensated.py``). The
+(``ops/native.py``), capacity plans (``parallel/plan.py``) and
+compensated accumulation (``utils/compensated.py``); and device meshes
+(``parallel/mesh.py``): one process splitting an evaluation, the beads of
+PIMD or the slots of REMD over the devices of a mesh. The
 direct-space electrostatics pair work of PME and the fused polynomials run
 in hand-written CUDA kernels on CUDA float32 tensors
 (``ops/elec_direct.py``, ``ops/elec_direct_bs.py``, ``ops/pip_fused.py``;
 sources in ``csrc/``) and in their plain PyTorch twins on the CPU.
-Everything outside the slices raises ``NotImplementedError`` pointing at
-ROADMAP.md.
 
 Units follow OpenMM: nm, kJ/mol, amu, e, ps.
 """
@@ -40,5 +40,3 @@ _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision('highest')
 
 from mbpol_openmm_plugin_tpu_torch.utils import units  # noqa: E402,F401
-
-ROADMAP_HINT = 'not ported yet; see ROADMAP.md, "Modules to port"'

@@ -1,13 +1,17 @@
 // Direct-space PME electrostatics pair kernels for Hopper (sm_90a), the
 // dense path (models/potential.py keeps it up to DENSE_LIMIT_KERNELS waters).
 //
-// K1 `fixed_field_tri_kernel` replaces _fixed_field_kernel_tri (and, as a
-// function, _fixed_field_kernel) of mbpol_openmm_plugin_tpu/ops/elec_pallas.py:
-// the direct fixed charge field [N,3] and the full symmetric SCF factor
-// matrices s3/s5 [N,N].
-// K2 `direct_efp_tri_kernel` replaces _pair_force_kernel_tri (and
-// _pair_force_kernel): given the induced dipoles, the direct-space energy,
-// the per-site pair force [N,3] and the per-site potential [N].
+// K1 `fixed_field_tri_kernel` replaces _fixed_field_kernel_tri of
+// mbpol_openmm_plugin_tpu/ops/elec_pallas.py: the direct fixed charge field
+// [N,3] and the full symmetric SCF factor matrices s3/s5 [N,N].
+// K2 `direct_efp_tri_kernel` replaces _pair_force_kernel_tri: given the
+// induced dipoles, the direct-space energy, the per-site pair force [N,3]
+// and the per-site potential [N].
+// `fixed_field_rows_kernel` and `direct_efp_rows_kernel` replace the
+// full-grid _fixed_field_kernel and _pair_force_kernel, which the TPU
+// package runs row-sharded over a device mesh: the same functions for a
+// range of rows against every column (the sharded dense path; a triangular
+// split would give the row shards unequal work).
 // `tile_sum_kernel`, launched after each, adds up their per-tile partials.
 // All run the per-pair chain of elec_common.cuh (elec_pallas._pair_chain),
 // which the block-sparse kernels of elec_direct_bs.cu share.
@@ -163,11 +167,12 @@ __device__ __forceinline__ void load_tiles(const float* __restrict__ sites,
 }
 
 // Warp w tests rows w * kBand .. + kBand - 1 against the tile's columns
-// (loosened r^2; r < c in a diagonal tile; sites past n rejected) and sets
-// rmask for its rows and cpart[w] for every column. The block then lists
-// the survivors row-major, and warp w runs run(r, c) on the list's chunks
-// of 32 pairs w, w + kTriWarps, ... Ends with a __syncthreads.
-template <class Smem, class Run>
+// (loosened r^2; in a diagonal tile r < c for the triangle, r != c for the
+// full grid; sites past n rejected) and sets rmask for its rows and
+// cpart[w] for every column. The block then lists the survivors row-major,
+// and warp w runs run(r, c) on the list's chunks of 32 pairs w, w +
+// kTriWarps, ... Ends with a __syncthreads.
+template <bool kTriangle = true, class Smem, class Run>
 __device__ __forceinline__ void run_pairs(Smem& s, int i0, int j0, int n, bool diag,
                                           const Consts& c, const Derived& k, Run run) {
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -184,7 +189,7 @@ __device__ __forceinline__ void run_pairs(Smem& s, int i0, int j0, int n, bool d
     const float dy = min_image_fast(cy - s.row[r][1], c.by, k.iby);
     const float dz = min_image_fast(cz - s.row[r][2], c.bz, k.ibz);
     const bool keep = dx * dx + dy * dy + dz * dz <= loose2 && col_ok && i0 + r < n
-                      && (!diag || r < lane);
+                      && (!diag || (kTriangle ? r < lane : r != lane));
     bits[b] = __ballot_sync(kFull, keep);
     cb |= (unsigned)keep << b;
     count += __popc(bits[b]);
@@ -427,6 +432,153 @@ direct_efp_tri_kernel(const float* __restrict__ sites, const float* __restrict__
       });
 }
 
+// The full-grid row kernels (#3/#4 of the TPU package, the sharded dense
+// path): one block per (row tile, column tile) of the rows [row0, row0 +
+// n_rows) against every column tile, each ordered pair's chain once (self
+// pairs excluded), row sums only. Thread t adds part t / kTile of row t %
+// kTile (kRowParts parts of kTile / kRowParts columns, each in column
+// order) into f, finish(f) fixes the signs, and thread t < kTile adds the
+// parts in order and writes the row's sums into the slot of column tile tj
+// of the partials [n_col_tiles, kOut, n_rows]; tile_sum_kernel then adds
+// the slots in its fixed order. The order is fixed by the indices alone,
+// so every run gives the same bits, with no atomics.
+constexpr int kRowParts = kTriThreads / kTile;
+static_assert(kRowParts == 2 * kSplit && kTile % kRowParts == 0,
+              "the row parts fit the sums planes of TileSmem");
+
+template <int kOut, class Smem, class Add, class Finish>
+__device__ __forceinline__ void sum_rows(Smem& s, int tj, int local0, int n_rows,
+                                         float* __restrict__ part, Add add, Finish finish) {
+  constexpr int kPart = kTile / kRowParts;
+  auto& sums = reinterpret_cast<float (&)[kRowParts][kOut][kTile]>(s.sums);
+  const int t = threadIdx.x, x = t % kTile, a = t / kTile, q0 = a * kPart;
+  unsigned m = s.rmask[x];
+  if constexpr (kPart < 32) m &= ((1u << kPart) - 1u) << q0;
+  float f[kOut];
+#pragma unroll
+  for (int q = 0; q < kOut; ++q) f[q] = 0.0f;
+  while (m) {
+    const int y = __ffs(m) - 1;
+    m &= m - 1;
+    add(x, y, f);
+  }
+  finish(f);
+#pragma unroll
+  for (int q = 0; q < kOut; ++q) sums[a][q][x] = f[q];
+  __syncthreads();
+  const int row = local0 + t;
+  if (t < kTile && row < n_rows) {
+#pragma unroll
+    for (int q = 0; q < kOut; ++q) {
+      float v = 0.0f;
+#pragma unroll
+      for (int b = 0; b < kRowParts; ++b) v += sums[b][q][t];
+      part[((size_t)tj * kOut + q) * n_rows + row] = v;
+    }
+  }
+}
+
+// K1 over the full grid for rows [row0, row0 + n_rows): the field rows
+// (through the partials) and s3/s5 rows [n_rows, n_cols], every entry
+// written once (zeros outside the cutoff, on the diagonal and for rows or
+// columns at or past n).
+__global__ void __launch_bounds__(kTriThreads)
+fixed_field_rows_kernel(const float* __restrict__ sites, int n, int row0, int n_rows,
+                        int n_cols, int nct, Consts c, float* __restrict__ part,
+                        float* __restrict__ s3, float* __restrict__ s5) {
+  __shared__ __align__(16) SmemK1 s;
+  const int ti = blockIdx.x / nct, tj = blockIdx.x % nct;
+  const int local0 = ti * kTile, i0 = row0 + local0, j0 = tj * kTile;
+  for (int q = threadIdx.x; q < 2 * kTile * kPitch / 4; q += kTriThreads)
+    reinterpret_cast<float4*>(&s.plane[0][0][0])[q] = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+  load_tiles(sites, nullptr, n, i0, j0, s);
+  const Derived k = derive(c);
+
+  run_pairs<false>(s, i0, j0, n, i0 == j0, c, k, [&](int r, int cc) {
+    const Site si = smem_site(s.row[r]), sj = smem_site(s.col[cc]);
+    Pair p;
+    float v3 = 0.0f, v5 = 0.0f, fd[3] = {0.0f, 0.0f, 0.0f};
+    if (pair_chain<false, true>(si, sj, i0 + r, j0 + cc, c, k, p)) {
+      scf_factors(p, v3, v5);
+      const float kd = fixed_field_kq(p, sj.q);
+      fd[0] = kd * p.dx;
+      fd[1] = kd * p.dy;
+      fd[2] = kd * p.dz;
+    }
+    s.plane[0][r][cc] = v3;
+    s.plane[1][r][cc] = v5;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) s.plane[2 + a][r][cc] = fd[a];
+  });
+
+  // field_i = -sum_j q_j kdir d
+  sum_rows<kOutK1>(
+      s, tj, local0, n_rows, part,
+      [&](int r, int cc, float (&f)[kOutK1]) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) f[a] += s.plane[2 + a][r][cc];
+      },
+      [](float (&f)[kOutK1]) {
+#pragma unroll
+        for (int a = 0; a < 3; ++a) f[a] = -f[a];
+      });
+
+  // s3/s5 rows of the tile, four columns a thread
+  for (int idx = threadIdx.x; idx < kTile * kTile / 4; idx += kTriThreads) {
+    const int a = idx / (kTile / 4), b = 4 * (idx % (kTile / 4));
+    const int row = local0 + a, col = j0 + b;
+    if (row >= n_rows) continue;
+    float v[2][4];
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) v[p][q] = s.plane[p][a][b + q];
+    }
+#pragma unroll
+    for (int p = 0; p < 2; ++p) {
+      float* __restrict__ o = (p == 0 ? s3 : s5) + (size_t)row * n_cols + col;
+      if ((n_cols & 3) == 0 && col + 3 < n_cols) {
+        *reinterpret_cast<float4*>(o) = make_float4(v[p][0], v[p][1], v[p][2], v[p][3]);
+      } else {
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          if (col + q < n_cols) o[q] = v[p][q];
+      }
+    }
+  }
+}
+
+// K2 over the full grid for rows [row0, row0 + n_rows): per row the force,
+// the potential and half the pair-energy sum (the TPU kernel's output
+// columns 0..4), through the partials.
+__global__ void __launch_bounds__(kTriThreads)
+direct_efp_rows_kernel(const float* __restrict__ sites, const float* __restrict__ mu, int n,
+                       int row0, int n_rows, int nct, Consts c, float* __restrict__ part) {
+  __shared__ __align__(16) SmemK2 s;
+  const int ti = blockIdx.x / nct, tj = blockIdx.x % nct;
+  const int local0 = ti * kTile, i0 = row0 + local0, j0 = tj * kTile;
+  load_tiles(sites, mu, n, i0, j0, s);
+  const Derived k = derive(c);
+
+  run_pairs<false>(s, i0, j0, n, i0 == j0, c, k, [&](int r, int cc) {
+    const Site si = smem_site(s.row[r]), sj = smem_site(s.col[cc]);
+    Pair p;
+    float a[5] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    if (pair_chain<true, true>(si, sj, i0 + r, j0 + cc, c, k, p))
+      efp_pair(p, si.q, sj.q, s.mrow[r], s.mcol[cc], a);
+#pragma unroll
+    for (int q = 0; q < 5; ++q) s.plane[q][r][cc] = a[q];
+  });
+
+  sum_rows<kOutK2>(
+      s, tj, local0, n_rows, part,
+      [&](int r, int cc, float (&f)[kOutK2]) {
+#pragma unroll
+        for (int a = 0; a < kOutK2; ++a) f[a] += s.plane[a][r][cc];
+      },
+      [](float (&)[kOutK2]) {});
+}
+
 // out(q, s) = the sum over tiles of part[b, q, s], in a fixed order: warp
 // g of the block adds the tiles b of group g, [g nt / kSumGroups, (g + 1)
 // nt / kSumGroups), in order, lane l for site 32 blockIdx.x + l (sites
@@ -506,6 +658,47 @@ extern "C" int mbpol_direct_efp(const float* sites, const float* mu, int n, floa
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(launch_tile_sum(part, nt, kOutK2, n, force, pot, e_row, st));
+}
+
+// Rows [row0, row0 + n_rows) of K1 over the full grid; s3, s5: [n_rows,
+// n_cols] (n_cols >= n; columns at or past n are written as zeros); part:
+// scratch of ceil(n_cols / tile) x 3 x n_rows floats; the caller's tile
+// must be kTile
+extern "C" int mbpol_fixed_field_scf_rows(const float* sites, int n, int row0, int n_rows,
+                                          int n_cols, float alpha, float cutoff2, float g_cc,
+                                          float g_cd, float g_dd, float g_ddoh, float g_ddhh,
+                                          float bx, float by, float bz, int tile, float* part,
+                                          float* field, float* s3, float* s5, void* stream) {
+  if (tile != kTile || n_cols < n) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0) return 0;
+  const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nrt = n_tiles(n_rows), nct = n_tiles(n_cols);
+  fixed_field_rows_kernel<<<nrt * nct, kTriThreads, 0, st>>>(sites, n, row0, n_rows, n_cols,
+                                                             nct, c, part, s3, s5);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_tile_sum(part, nct, kOutK1, n_rows, field, nullptr, nullptr,
+                                          st));
+}
+
+// Rows [row0, row0 + n_rows) of K2 over the full grid; part: scratch of
+// ceil(n / tile) x 5 x n_rows floats
+extern "C" int mbpol_direct_efp_rows(const float* sites, const float* mu, int n, int row0,
+                                     int n_rows, float alpha, float cutoff2, float g_cc,
+                                     float g_cd, float g_dd, float g_ddoh, float g_ddhh,
+                                     float bx, float by, float bz, int tile, float* part,
+                                     float* force, float* pot, float* e_row, void* stream) {
+  if (tile != kTile) return static_cast<int>(cudaErrorInvalidValue);
+  if (n_rows <= 0 || n <= 0) return 0;
+  const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int nrt = n_tiles(n_rows), nct = n_tiles(n);
+  direct_efp_rows_kernel<<<nrt * nct, kTriThreads, 0, st>>>(sites, mu, n, row0, n_rows, nct, c,
+                                                            part);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(launch_tile_sum(part, nct, kOutK2, n_rows, force, pot, e_row, st));
 }
 
 // one launch of an empty kernel: the card's floor per launch, for the record

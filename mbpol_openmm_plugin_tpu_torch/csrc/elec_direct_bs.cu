@@ -140,10 +140,16 @@ static_assert(kRows == kWater, "a block's rows are one water: a line's rows");
 static_assert(kQueue >= 2 * 32 + 32 * kRowsEfp && (kQueue & (kQueue - 1)) == 0,
               "the ring holds < 32 pairs plus one entry's 32 x kRowsEfp");
 
+// Block b of a launch over the row tiles row_tile0 .. row_tile0 +
+// n_row_tiles - 1 (a shard's rows under a device mesh; 0 and all tiles on
+// one device): its row tile in the launch (the index into the launch's
+// list and row_start) and its first row, local to the launch (the index
+// into its outputs) and global (the index into the sites).
 __device__ __forceinline__ int row_tile() { return blockIdx.x / kSub; }
 __device__ __forceinline__ int first_row() {
   return row_tile() * kTile + (blockIdx.x % kSub) * kRows;
 }
+__device__ __forceinline__ int first_site(int row_tile0) { return row_tile0 * kTile + first_row(); }
 
 // An axis-aligned box that holds an image of each of a group's sites.
 struct Box {
@@ -260,9 +266,10 @@ __device__ __forceinline__ size_t slab() {
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocksK1)
-fixed_field_bs_kernel(const float* __restrict__ sites, int n, const int* __restrict__ tj,
-                      const int* __restrict__ meta, const int* __restrict__ row_start,
-                      Consts c, const float4* __restrict__ boxes, int n_lines,
+fixed_field_bs_kernel(const float* __restrict__ sites, int n, int row_tile0,
+                      const int* __restrict__ tj, const int* __restrict__ meta,
+                      const int* __restrict__ row_start, Consts c,
+                      const float4* __restrict__ boxes, int n_lines,
                       float* __restrict__ field, float* __restrict__ s3,
                       float* __restrict__ s5, int* __restrict__ line_entry,
                       int* __restrict__ line_count) {
@@ -270,7 +277,7 @@ fixed_field_bs_kernel(const float* __restrict__ sites, int n, const int* __restr
   __shared__ float red[kWarps][kRows * 3];
   __shared__ int s_tj[kChunk];
   __shared__ unsigned char s_live[kChunk][kClusters];
-  const int i0 = first_row();
+  const int i0 = first_site(row_tile0);
   const int t = threadIdx.x;
   const int w = t >> 5, lane = t & 31;
   Site rows[kRows];
@@ -325,19 +332,19 @@ fixed_field_bs_kernel(const float* __restrict__ sites, int n, const int* __restr
   }
   if (lane == 0) line_count[slab()] = count;
   block_sum<kRows * 3>(acc, red);
-  if (t < kRows * 3) field[(size_t)i0 * 3 + t] = -acc[0];
+  if (t < kRows * 3) field[(size_t)first_row() * 3 + t] = -acc[0];
 }
 
 __global__ void __launch_bounds__(kThreads, kMinBlocksScf)
 scf_field_bs_kernel(const float* __restrict__ sites, const float* __restrict__ mu,
-                    const int* __restrict__ tj, Consts c, int n_lines,
+                    int row_tile0, const int* __restrict__ tj, Consts c, int n_lines,
                     const float* __restrict__ s3, const float* __restrict__ s5,
                     const int* __restrict__ line_entry, const int* __restrict__ line_count,
                     float* __restrict__ field) {
   constexpr unsigned kFull = 0xffffffffu;
   __shared__ float pbuf[kRows][3];
   __shared__ float red[kWarps][kRows * 3];
-  const int i0 = first_row();
+  const int i0 = first_site(row_tile0);
   const int t = threadIdx.x;
   const int lane = t & 31;
   if (t < kRows * 3) pbuf[t / 3][t % 3] = sites[(size_t)(i0 + t / 3) * kNS + t % 3];
@@ -394,12 +401,12 @@ scf_field_bs_kernel(const float* __restrict__ sites, const float* __restrict__ m
     }
   }
   block_sum<kRows * 3>(acc, red);
-  if (t < kRows * 3) field[(size_t)i0 * 3 + t] = acc[0];
+  if (t < kRows * 3) field[(size_t)first_row() * 3 + t] = acc[0];
 }
 
 __global__ void __launch_bounds__(kThreads)
 direct_efp_bs_kernel(const float* __restrict__ sites, const float* __restrict__ mu, int n,
-                     const int* __restrict__ tj, const int* __restrict__ meta,
+                     int row_tile0, const int* __restrict__ tj, const int* __restrict__ meta,
                      const int* __restrict__ row_start, Consts c,
                      const float4* __restrict__ boxes, float* __restrict__ force,
                      float* __restrict__ pot, float* __restrict__ e_row) {
@@ -411,8 +418,9 @@ direct_efp_bs_kernel(const float* __restrict__ sites, const float* __restrict__ 
   __shared__ int s_tj[kChunk];
   __shared__ unsigned char s_live[kChunk][kClusters];
   __shared__ unsigned s_queue[kWarps][kQueue];
-  const int tile = blockIdx.x / kSubEfp;
-  const int i0 = tile * kTile + (blockIdx.x % kSubEfp) * kRowsEfp;
+  const int tile = blockIdx.x / kSubEfp;     // in the launch
+  const int local0 = tile * kTile + (blockIdx.x % kSubEfp) * kRowsEfp;
+  const int i0 = row_tile0 * kTile + local0;
   const int t = threadIdx.x;
   const int w = t >> 5, lane = t & 31;
   if (t < kRowsEfp * 3) mbuf[t / 3][t % 3] = mu[(size_t)i0 * 3 + t];
@@ -500,7 +508,7 @@ direct_efp_bs_kernel(const float* __restrict__ sites, const float* __restrict__ 
 
   block_sum<kRowsEfp * kOut>(acc, red);
   if (t < kRowsEfp * kOut) {
-    const size_t i = (size_t)i0 + t / kOut;
+    const size_t i = (size_t)local0 + t / kOut;
     const int q = t % kOut;
     if (q < 3) force[i * 3 + q] = acc[0];
     else if (q == 3) pot[i] = acc[0];
@@ -518,57 +526,69 @@ cudaError_t launch_cluster_boxes(const float* sites, int n, int n_tiles, const C
 
 }  // namespace
 
-// boxes: scratch of n_tiles x kClusters x 8 floats; s3, s5: [n_tiles x
-// kSub, kClusters, n_lines, kRows, kCluster]; line_entry [n_tiles x kSub,
-// kClusters, n_lines]; line_count [n_tiles x kSub, kClusters]
-extern "C" int mbpol_fixed_field_scf_bs(const float* sites, int n, int n_tiles, const int* tj,
-                                        const int* meta, const int* row_start, float alpha,
-                                        float cutoff2, float g_cc, float g_cd, float g_dd,
-                                        float g_ddoh, float g_ddhh, float bx, float by,
-                                        float bz, int n_lines, float* boxes, float* field,
-                                        float* s3, float* s5, int* line_entry, int* line_count,
-                                        void* stream) {
-  if (n_tiles <= 0) return 0;
-  const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = launch_cluster_boxes(sites, n, n_tiles, c, boxes, st);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  fixed_field_bs_kernel<<<n_tiles * kSub, kThreads, 0, st>>>(
-      sites, n, tj, meta, row_start, c, reinterpret_cast<const float4*>(boxes), n_lines, field,
-      s3, s5, line_entry, line_count);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// the lines K1-bs wrote for these sites (same n_tiles and n_lines)
-extern "C" int mbpol_scf_field_bs(const float* sites, const float* mu, int n_tiles,
-                                  const int* tj, float alpha, float cutoff2, float g_cc,
-                                  float g_cd, float g_dd, float g_ddoh, float g_ddhh, float bx,
-                                  float by, float bz, int n_lines, const float* s3,
-                                  const float* s5, const int* line_entry,
-                                  const int* line_count, float* field, void* stream) {
-  if (n_tiles <= 0) return 0;
-  const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
-  scf_field_bs_kernel<<<n_tiles * kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      sites, mu, tj, c, n_lines, s3, s5, line_entry, line_count, field);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// boxes: scratch of n_tiles x kClusters x 8 floats; n_tiles x 256 < 2^24
-extern "C" int mbpol_direct_efp_bs(const float* sites, const float* mu, int n, int n_tiles,
-                                   const int* tj, const int* meta, const int* row_start,
-                                   float alpha, float cutoff2, float g_cc, float g_cd,
-                                   float g_dd, float g_ddoh, float g_ddhh, float bx, float by,
-                                   float bz, float* boxes, float* force, float* pot,
-                                   float* e_row, void* stream) {
-  if (n_tiles <= 0) return 0;
-  if ((long long)n_tiles * kTile > (1ll << kColBits))
+// The entry points launch over the row tiles row_tile0 .. row_tile0 +
+// n_row_tiles - 1 of the n_tiles tiles of the sites (0 and n_tiles on one
+// device, a shard's slab under a mesh); the list (tj, meta, row_start) is
+// that of those row tiles, and every output is indexed from row tile
+// row_tile0 (rows, and line slabs).
+// boxes: scratch of n_tiles x kClusters x 8 floats; s3, s5: [n_row_tiles x
+// kSub, kClusters, n_lines, kRows, kCluster]; line_entry [n_row_tiles x
+// kSub, kClusters, n_lines]; line_count [n_row_tiles x kSub, kClusters]
+extern "C" int mbpol_fixed_field_scf_bs(const float* sites, int n, int n_tiles, int row_tile0,
+                                        int n_row_tiles, const int* tj, const int* meta,
+                                        const int* row_start, float alpha, float cutoff2,
+                                        float g_cc, float g_cd, float g_dd, float g_ddoh,
+                                        float g_ddhh, float bx, float by, float bz, int n_lines,
+                                        float* boxes, float* field, float* s3, float* s5,
+                                        int* line_entry, int* line_count, void* stream) {
+  if (n_tiles <= 0 || n_row_tiles <= 0) return 0;
+  if (row_tile0 < 0 || row_tile0 + n_row_tiles > n_tiles)
     return static_cast<int>(cudaErrorInvalidValue);
   const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const cudaError_t err = launch_cluster_boxes(sites, n, n_tiles, c, boxes, st);
   if (err != cudaSuccess) return static_cast<int>(err);
-  direct_efp_bs_kernel<<<n_tiles * kSubEfp, kThreads, 0, st>>>(
-      sites, mu, n, tj, meta, row_start, c, reinterpret_cast<const float4*>(boxes), force, pot,
-      e_row);
+  fixed_field_bs_kernel<<<n_row_tiles * kSub, kThreads, 0, st>>>(
+      sites, n, row_tile0, tj, meta, row_start, c, reinterpret_cast<const float4*>(boxes),
+      n_lines, field, s3, s5, line_entry, line_count);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// the lines K1-bs wrote for these sites and row tiles (same n_lines)
+extern "C" int mbpol_scf_field_bs(const float* sites, const float* mu, int n_tiles,
+                                  int row_tile0, int n_row_tiles, const int* tj, float alpha,
+                                  float cutoff2, float g_cc, float g_cd, float g_dd,
+                                  float g_ddoh, float g_ddhh, float bx, float by, float bz,
+                                  int n_lines, const float* s3, const float* s5,
+                                  const int* line_entry, const int* line_count, float* field,
+                                  void* stream) {
+  if (n_tiles <= 0 || n_row_tiles <= 0) return 0;
+  if (row_tile0 < 0 || row_tile0 + n_row_tiles > n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
+  scf_field_bs_kernel<<<n_row_tiles * kSub, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sites, mu, row_tile0, tj, c, n_lines, s3, s5, line_entry, line_count, field);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// boxes: scratch of n_tiles x kClusters x 8 floats; n_tiles x 256 < 2^24
+extern "C" int mbpol_direct_efp_bs(const float* sites, const float* mu, int n, int n_tiles,
+                                   int row_tile0, int n_row_tiles, const int* tj,
+                                   const int* meta, const int* row_start, float alpha,
+                                   float cutoff2, float g_cc, float g_cd, float g_dd,
+                                   float g_ddoh, float g_ddhh, float bx, float by, float bz,
+                                   float* boxes, float* force, float* pot, float* e_row,
+                                   void* stream) {
+  if (n_tiles <= 0 || n_row_tiles <= 0) return 0;
+  if ((long long)n_tiles * kTile > (1ll << kColBits) || row_tile0 < 0
+      || row_tile0 + n_row_tiles > n_tiles)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Consts c = make_consts(alpha, cutoff2, g_cc, g_cd, g_dd, g_ddoh, g_ddhh, bx, by, bz);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = launch_cluster_boxes(sites, n, n_tiles, c, boxes, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  direct_efp_bs_kernel<<<n_row_tiles * kSubEfp, kThreads, 0, st>>>(
+      sites, mu, n, row_tile0, tj, meta, row_start, c, reinterpret_cast<const float4*>(boxes),
+      force, pot, e_row);
   return static_cast<int>(cudaGetLastError());
 }

@@ -10,7 +10,10 @@ sqrt(T_i / T_j). The thermostat's noise belongs to the ladder slot, not to
 the configuration.
 
 Where the JAX package vmaps the potential over the replica axis, the port
-evaluates the replicas one after another. The default closure of a REMD
+evaluates the replicas one after another; with a device mesh (`mesh`) the
+ladder's slots sit on its shards in contiguous blocks, each slot's
+evaluation on its shard's device through a copy of the potential made once
+per device, its results gathered on the potential's device. The default closure of a REMD
 potential is SOR with each replica's last dipoles as the start of its next
 loop (scf_warm_start), whose stop test reads the host once per iteration,
 so the ladder runs eagerly on a card. The draws (each step's normals
@@ -29,7 +32,7 @@ import torch
 
 from mbpol_openmm_plugin_tpu_torch.md import integrators as I
 from mbpol_openmm_plugin_tpu_torch.md.simulation import health_flag
-from mbpol_openmm_plugin_tpu_torch.models.potential import _not_ported
+from mbpol_openmm_plugin_tpu_torch.parallel.mesh import Mesh, shard_of, to_device
 from mbpol_openmm_plugin_tpu_torch.system import System, compute_virtual_sites
 from mbpol_openmm_plugin_tpu_torch.utils import units
 
@@ -123,8 +126,9 @@ def make_remd_block(system: System, ef_fn, temperatures, dt, friction=1.0,
     ladder temperature), then one exchange sweep.
 
     ef_fn(positions [natoms, 3], mu[, nlists], box) -> (E, F, mu_new, ok):
-    one replica's evaluation; mu is an opaque per-replica SCF carry (a list
-    of R entries, None entries to disable it). walker: [R] walker ids riding
+    one replica's evaluation, or a sequence of R of them, one per ladder
+    slot; mu is an opaque per-replica SCF carry (a list of R entries, None
+    entries to disable it). walker: [R] walker ids riding
     the configurations. normal(shape) / uniform(shape) give the step's
     normals [R, natoms, 3] and the sweep's uniforms [R].
 
@@ -134,6 +138,7 @@ def make_remd_block(system: System, ef_fn, temperatures, dt, friction=1.0,
     stats['list_overflow'] is their overflow flag. stats['pe'] holds the
     per-step energies [k, R], stats['accept'] the sweep's [R]."""
     T = np.asarray(temperatures, np.float64)
+    efs = list(ef_fn) if isinstance(ef_fn, (list, tuple)) else [ef_fn] * len(T)
 
     def block(state, mu, walker, parity, normal, uniform):
         R, box = len(T), state.box
@@ -151,7 +156,7 @@ def make_remd_block(system: System, ef_fn, temperatures, dt, friction=1.0,
             for r in range(R):
                 def ef(p, r=r):
                     args = (mu[r],) + ((nl[r],) if list_builder is not None else ()) + (box,)
-                    e, f, mu[r], _ = ef_fn(p, *args)
+                    e, f, mu[r], _ = efs[r](p, *args)
                     return e, f
                 one = I.MDState(positions=state.positions[r], velocities=state.velocities[r],
                                 forces=state.forces[r], potential_energy=state.potential_energy[r],
@@ -189,14 +194,17 @@ class REMDConfig:
 
 def _replica_evaluation(potential, warm):
     """One replica's evaluation ef(p, mu, [nlists,] box) -> (E, F, the
-    dipoles to carry, diag); mu starts the SCF when `warm`. Built from the
-    potential alone, so REMDSimulation's block function does not hold the
-    driver in a reference cycle."""
+    dipoles to carry, diag) on the potential's device, the results on p's;
+    mu starts the SCF when `warm`. Built from the potential alone, so
+    REMDSimulation's block function does not hold the driver in a
+    reference cycle."""
     def ef(p, mu, *rest):
-        nl = rest[0] if len(rest) == 2 else None
-        e, f, _, diag = potential._energy_forces_impl(p, mu if warm else None, nlists=nl,
-                                                      box=rest[-1])
-        return e, f, diag.get('induced_dipoles') if warm else None, diag
+        dev = potential.device
+        nl = to_device(rest[0], dev) if len(rest) == 2 else None
+        e, f, _, diag = potential._energy_forces_impl(p.to(dev), to_device(mu, dev) if warm
+                                                      else None, nlists=nl, box=rest[-1])
+        mu_new = to_device(diag.get('induced_dipoles'), p.device) if warm else None
+        return e.to(p.device), f.to(p.device), mu_new, diag
 
     return ef
 
@@ -213,13 +221,21 @@ class REMDSimulation:
         out['walker']                  # [n_blocks, R] replica flow
 
     R = 1 is a valid ladder (no exchange candidates), the single-replica
-    baseline of a ladder's efficiency. mesh= (replicas over devices) raises:
-    meshes (parallel/mesh.py) are not ported."""
+    baseline of a ladder's efficiency.
+
+    mesh: a parallel.mesh.Mesh to put the ladder's slots over (slot r on
+    shard floor(r size / R)), each slot evaluated on its shard's device
+    through the shard's copy of the potential (MBPol.to_device).
+    The potential's own mesh is not inherited: pick one level, a meshed
+    potential (few large replicas) or the slots over the shards (many small
+    ones), as in the JAX package. The draws come from one generator on the
+    potential's device, so the trajectory does not depend on the mesh."""
 
     def __init__(self, potential, temperatures, config: Optional[REMDConfig] = None,
                  seed: int = 0, mesh=None):
-        if mesh is not None:
-            raise _not_ported('REMDSimulation(mesh=...): replicas over devices (parallel/)')
+        if mesh is not None and not isinstance(mesh, Mesh):
+            raise TypeError(f'mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}')
+        self.mesh = mesh
         self.potential = potential
         self.system = potential.system
         self.temperatures = np.asarray(temperatures, float)
@@ -253,8 +269,13 @@ class REMDSimulation:
                 nl, d = potential.build_neighbor_lists(p, box)
                 return nl, d['pair_overflow'] | d['triplet_overflow']
 
-        self._ef = _replica_evaluation(potential, self._warm)
-        self._block = make_remd_block(self.system, self._ef, self.temperatures, config.dt,
+        if mesh is None:
+            self._efs = [_replica_evaluation(potential, self._warm)] * R
+        else:
+            copies = [_replica_evaluation(potential.to_device(d), self._warm)
+                      for d in mesh.devices]
+            self._efs = [copies[shard_of(r, R, mesh)] for r in range(R)]
+        self._block = make_remd_block(self.system, self._efs, self.temperatures, config.dt,
                                       friction=config.friction,
                                       exchange_interval=config.exchange_interval,
                                       list_builder=list_builder)
@@ -270,7 +291,7 @@ class REMDSimulation:
     def _cold(self, positions):
         """Converged evaluations of each replica: (E [R], F, dipoles or
         None, healthy [R] on the host)."""
-        out = [self._ef(p, None, self.state.box) for p in positions]
+        out = [ef(p, None, self.state.box) for ef, p in zip(self._efs, positions)]
         e = torch.stack([o[0] for o in out])
         f = torch.stack([o[1] for o in out])
         ok = np.array([bool(health_flag(o[3])) for o in out])

@@ -38,8 +38,9 @@ from mbpol_openmm_plugin_tpu_torch.md import integrators as I
 from mbpol_openmm_plugin_tpu_torch.md.step_graph import LIST_KEYS, StepGraph
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.models.one_body import one_body_energy
-from mbpol_openmm_plugin_tpu_torch.models.potential import (MBPol, _not_ported,
-                                                            inherit_capacities, with_scf_method)
+from mbpol_openmm_plugin_tpu_torch.models.potential import (MBPol, inherit_capacities,
+                                                            with_scf_method)
+from mbpol_openmm_plugin_tpu_torch.parallel.mesh import Mesh, shard_of, to_device
 from mbpol_openmm_plugin_tpu_torch.system import (System, compute_virtual_sites,
                                                   make_molecules_whole, water_positions)
 from mbpol_openmm_plugin_tpu_torch.utils import units
@@ -318,11 +319,11 @@ def rpmd_barostat_move(system: System, bead_energy_fn, state: I.MDState, tempera
 
 
 def term_subset(potential: MBPol, terms):
-    """An MBPol over the same system, device and configuration with only
-    `terms`, on the parent's tuned capacities (inherit_capacities)."""
+    """An MBPol over the same system, device, mesh and configuration with
+    only `terms`, on the parent's tuned capacities (inherit_capacities)."""
     return inherit_capacities(potential, MBPol(
         potential.system, dataclasses.replace(potential.config, terms=tuple(terms)),
-        device=potential.device))
+        device=potential.device, mesh=potential.mesh))
 
 
 def mbpol_intra_inter_split(potential: MBPol):
@@ -376,7 +377,7 @@ def make_rpmd_contracted_potential_step(potential: MBPol, n_beads, n_contracted,
                           thermostat=thermostat, batched=True)
 
 
-def _bead_evaluations(pot: MBPol, n_beads, contraction, ef_intra, aspc_k):
+def _bead_evaluations(pot: MBPol, n_beads, contraction, ef_intra, aspc_k, bead_pots=None):
     """PIMDSimulation's batched evaluation ef(q, aux, box) -> (e [n],
     f [n, natoms, 3], aux'). aux: the dipole payload 'mu' (None: converged
     cold evaluations), the per-evaluated-bead lists 'nl' (None: each
@@ -385,7 +386,9 @@ def _bead_evaluations(pot: MBPol, n_beads, contraction, ef_intra, aspc_k):
     without the electrostatics term). With `contraction` n_c, pot (the
     intermolecular terms) runs on the n_c contracted beads and ef_intra on
     all n (contracted_energy_forces); aspc_k: the ASPC order of the
-    payload's history (None: the payload is the last dipoles). Built from
+    payload's history (None: the payload is the last dipoles); bead_pots:
+    each evaluated bead's copy of pot on its shard's device (None: pot for
+    every bead), whose results come back to the beads' device. Built from
     the potential alone: a step function that held its driver would keep
     the driver, and its CUDA graph, in a reference cycle."""
     B = None if aspc_k is None else elec.aspc_predictor_coefficients(aspc_k)
@@ -400,19 +403,22 @@ def _bead_evaluations(pot: MBPol, n_beads, contraction, ef_intra, aspc_k):
         else:
             starts = list(mu)
         nls = aux['nl'] if aux['nl'] is not None else [None] * n_eval
+        pots = bead_pots if bead_pots is not None else [pot] * n_eval
         flags, dipoles = [], []
 
-        def one(p, mu0, nl):
-            e, f, _, diag = pot._energy_forces_impl(p, mu0, nlists=nl, box=box)
-            flags.extend(v for k, v in diag.items() if k.endswith('_overflow'))
-            dipoles.append(diag.get('induced_dipoles', mu0))
-            return e, f
+        def one(p, mu0, nl, bead_pot=pot):
+            dev = bead_pot.device
+            e, f, _, diag = bead_pot._energy_forces_impl(
+                p.to(dev), to_device(mu0, dev), nlists=to_device(nl, dev), box=box)
+            flags.extend(v.to(p.device) for k, v in diag.items() if k.endswith('_overflow'))
+            dipoles.append(to_device(diag.get('induced_dipoles', mu0), p.device))
+            return e.to(p.device), f.to(p.device)
 
         if contraction:
             e, f = contracted_energy_forces(one, lambda p: ef_intra(p, box), n_beads,
                                             contraction)(q, starts, nls)
         else:
-            e, f = _stack([one(p, m, nl) for p, m, nl in zip(q, starts, nls)])
+            e, f = _stack([one(*a) for a in zip(q, starts, nls, pots)])
         ovf = aux['ovf']
         for v in flags:
             ovf = ovf | v
@@ -459,8 +465,14 @@ class PIMDSimulation:
     steps). It needs lists, a skin, and no barostat. A list, tile or pair
     overflow anywhere in a chunk raises at its end.
 
-    mesh= (beads over devices) raises: meshes (parallel/mesh.py) are not
-    ported.
+    mesh (a parallel.mesh.Mesh) puts the beads over its shards in
+    contiguous blocks (n_beads must be a multiple of its size, and
+    contraction is refused, as in the JAX package): each bead's evaluation
+    runs on its shard's device through the shard's copy of the potential
+    (MBPol.to_device), its results gathered on the potential's
+    device. The noise is drawn at the full bead shape on that device, so
+    the trajectory does not depend on the mesh. Shards on one device keep
+    the CUDA graph; shards over several cards run each step eagerly.
     """
 
     def __init__(self, potential: MBPol, n_beads, dt=1e-4, temperature=300.0, tau0=0.1,
@@ -473,7 +485,11 @@ class PIMDSimulation:
             if contraction:
                 raise ValueError('mesh + contraction is unsupported: the contracted bead set '
                                  'is small and runs unsharded - drop mesh or contraction')
-            raise _not_ported('PIMDSimulation(mesh=...): beads over devices (parallel/)')
+            if not isinstance(mesh, Mesh):
+                raise TypeError(f'mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}')
+            if int(n_beads) % mesh.size:
+                raise ValueError(f'n_beads={n_beads} not divisible by mesh dp={mesh.size}')
+        self.mesh = mesh
         if (scf == 'auto' and scf_warm_start and potential.elec_params is not None
                 and potential.config.scf_method == 'sor'):
             potential = with_scf_method(potential, 'aspc')
@@ -515,8 +531,12 @@ class PIMDSimulation:
         else:
             intra, self._eval_pot, self._T = None, potential, None
             self._n_eval = self.n_beads
+        bead_pots = None
+        if mesh is not None:
+            copies = [potential.to_device(d) for d in mesh.devices]
+            bead_pots = [copies[shard_of(b, self.n_beads, mesh)] for b in range(self.n_beads)]
         self._ef = _bead_evaluations(self._eval_pot, self.n_beads, contraction, intra,
-                                     potential.config.aspc_k if self._aspc else None)
+                                     potential.config.aspc_k if self._aspc else None, bead_pots)
         self._step = make_rpmd_step(self.system, self._ef, self.n_beads, dt, temperature,
                                     tau0=tau0, thermostat=thermostat, batched=True,
                                     with_aux=True, with_box=True)
@@ -534,6 +554,7 @@ class PIMDSimulation:
         in the class docstring)."""
         pot = self.potential
         return (pot.device.type == 'cuda' and not self._eager
+                and not (self.mesh is not None and self.mesh.spans_devices)
                 and (pot.elec_params is None or self._aspc))
 
     def _normal(self, shape):

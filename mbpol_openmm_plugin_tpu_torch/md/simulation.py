@@ -143,8 +143,10 @@ class Simulation:
     device is a card and the step reads nothing on the host: no r-RESPA,
     and the trajectory's closure is ASPC with a warm start (scf='auto' on a
     SOR or ASPC potential with scf_warm_start) or there is no
-    electrostatics term. r-RESPA, scf='keep' on a SOR potential, a DIIS
-    potential, cold evaluations and the CPU run the same body eagerly (every
+    electrostatics term, and the potential's mesh, if any, keeps every shard
+    on its device. r-RESPA, scf='keep' on a SOR potential, a DIIS
+    potential, a mesh over several cards (a graph is captured on one
+    device), cold evaluations and the CPU run the same body eagerly (every
     SOR or DIIS iteration reads its stop test on the host); so do the converged
     evaluations (the chunk's seed, the health check, the barostat's trial
     energies, minimization). The graph is captured at the first step at a
@@ -205,6 +207,7 @@ class Simulation:
         closure_on_device = pot.elec_params is None or (
             cfg.scf_warm_start and pot.config.scf_method == 'aspc')
         return (pot.device.type == 'cuda' and not self._eager and not self._respa
+                and not (pot.mesh is not None and pot.mesh.spans_devices)
                 and closure_on_device)
 
     @property

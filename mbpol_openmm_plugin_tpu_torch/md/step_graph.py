@@ -46,7 +46,8 @@ def _body_running():
 def kernel_wrappers():
     """Every wrapper of a hand-written kernel, with its `launches` count."""
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct, elec_direct_bs, pip_fused
-    return elec_direct.KERNELS + elec_direct_bs.KERNELS + pip_fused.KERNELS
+    return (elec_direct.KERNELS + elec_direct.ROW_KERNELS + elec_direct_bs.KERNELS
+            + pip_fused.KERNELS)
 
 
 class LaunchLedger:

@@ -5,7 +5,10 @@ Energy -C6 * tt6(d6 r) / r^6 over all site pairs of different molecules,
 with per-class-pair (O,H,M,Cl) C6/d6 tables (the M rows are zero) and an
 optional C2 switch of the tail: over the dense [N, N] site grid
 (`dispersion_energy`), or over a padded water-pair list for large boxes
-(`dispersion_energy_pairs`, O(N) memory).
+(`dispersion_energy_pairs`, O(N) memory). Under a device mesh (`mesh`,
+parallel/mesh.py) the grid's rows, or the pair batch, split in equal slabs
+over the shards, each slab's energy on its device, added on the lead device
+in shard order.
 """
 import numpy as np
 import torch
@@ -39,22 +42,41 @@ def switch_factor(r2, cutoff, width):
     return 1.0 - x * x * x * (10.0 + x * (-15.0 + 6.0 * x))
 
 
-def dispersion_energy(system: System, positions, cutoff=None, box=None, switch_width=0.0):
+def _shards(mesh, n_rows, positions, fn):
+    """fn(positions, lo, hi) on the positions' device (no mesh), or on
+    each shard's slab of the n_rows rows with the positions copied there,
+    added on the lead device in shard order."""
+    if mesh is None:
+        return fn(positions, 0, n_rows)
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    return M.sum_to_lead(mesh, M.map_rows(mesh, n_rows,
+                                          lambda dev, lo, hi: fn(positions.to(dev), lo, hi)))
+
+
+def dispersion_energy(system: System, positions, cutoff=None, box=None, switch_width=0.0,
+                      mesh=None):
     """Total dispersion energy in kJ/mol over the dense [N, N] site grid.
     positions: [natoms, 3] nm with M sites placed; box: the periodic box
-    (default the system's)."""
+    (default the system's); mesh: rows over its shards."""
+    return _shards(mesh, positions.shape[0], positions,
+                   lambda p, lo, hi: _dense_rows(system, p, lo, hi, cutoff, box, switch_width))
+
+
+def _dense_rows(system, positions, lo, hi, cutoff, box, switch_width):
+    """The dispersion energy of the grid's rows [lo, hi) (half of each
+    ordered pair's)."""
     ff = _data.load('forcefield')
     dt, dev = positions.dtype, positions.device
     cls = device_const(np.asarray(system.atom_class, np.int64), device=dev)
-    C6 = device_const(ff['C6'], dtype=dt, device=dev)[cls][:, cls]
-    d6 = device_const(ff['d6'], dtype=dt, device=dev)[cls][:, cls]
+    C6 = device_const(ff['C6'], dtype=dt, device=dev)[cls[lo:hi]][:, cls]
+    d6 = device_const(ff['d6'], dtype=dt, device=dev)[cls[lo:hi]][:, cls]
     mol = device_const(np.asarray(system.mol_index, np.int64), device=dev)
 
-    delta = minimum_image(positions[None, :, :] - positions[:, None, :],
+    delta = minimum_image(positions[None, :, :] - positions[lo:hi, None, :],
                           (system.box if box is None else box) if system.periodic else None)
     r2 = torch.sum(delta * delta, dim=-1)
 
-    mask = mol[:, None] != mol[None, :]
+    mask = mol[lo:hi, None] != mol[None, :]
     if cutoff is not None:
         mask = mask & (r2 < cutoff * cutoff)
 
@@ -67,7 +89,7 @@ def dispersion_energy(system: System, positions, cutoff=None, box=None, switch_w
 
 
 def dispersion_energy_pairs(system: System, positions, mol_pairs, pair_mask, cutoff, box=None,
-                            switch_width=0.0):
+                            switch_width=0.0, mesh=None):
     """Dispersion energy in kJ/mol over a padded water-pair list
     (water-only): the same physics as `dispersion_energy`, per listed water
     pair over the 3x3 real-site block (the M rows of the tables are zero,
@@ -75,9 +97,17 @@ def dispersion_energy_pairs(system: System, positions, mol_pairs, pair_mask, cut
     pair with O-O distance < cutoff + PAIR_MARGIN.
 
     mol_pairs: [P, 2] water indices, each unordered pair once
-    (ops/neighbors.pair_list); padded entries masked by pair_mask [P]."""
+    (ops/neighbors.pair_list); padded entries masked by pair_mask [P];
+    mesh: the pair rows over its shards."""
     if system.n_ions:
         raise ValueError('dispersion_energy_pairs supports water-only systems')
+    return _shards(mesh, mol_pairs.shape[0], positions, lambda p, lo, hi: _pair_rows(
+        system, p, mol_pairs[lo:hi].to(p.device), pair_mask[lo:hi].to(p.device), cutoff, box,
+        switch_width))
+
+
+def _pair_rows(system, positions, mol_pairs, pair_mask, cutoff, box, switch_width):
+    """The dispersion energy of the listed water pairs."""
     ff = _data.load('forcefield')
     dt, dev = positions.dtype, positions.device
     cls = np.array([0, 1, 1])                      # O, H, H class codes

@@ -375,101 +375,157 @@ def make_scf(params):
 # Cluster (NoCutoff) energy and forces
 # ----------------------------------------------------------------------
 
-def _pair_tensors(params: ElecParams, positions):
-    """Dense [N, N] geometry and Thole tensors of a non-periodic system:
-    delta (r_j - r_i), r (1 on the diagonal before the square root), u = r /
-    (A_i A_j)^(1/6), the masks and the TDD gamma selection (same molecule:
-    TDDOH if either site is an O, else TDDHH; other molecules TDD). Masks
-    are applied with torch.where, so every shape is static."""
+def _pair_tensors(params: ElecParams, positions, rows=None):
+    """Dense geometry and Thole tensors of a non-periodic system, for the
+    rows [lo, hi) = `rows` (default all) against every site: delta (r_j -
+    r_i), r (1 at i = j before the square root), u = r / (A_i A_j)^(1/6),
+    the masks and the TDD gamma selection (same molecule: TDDOH if either
+    site is an O, else TDDHH; other molecules TDD). Masks are applied with
+    torch.where, so every shape is static."""
     dt, dev = positions.dtype, positions.device
     n = positions.shape[0]
-    delta = positions[None, :, :] - positions[:, None, :]
+    lo, hi = (0, n) if rows is None else rows
+    delta = positions[None, :, :] - positions[lo:hi, None, :]
     r2 = torch.sum(delta * delta, dim=-1)
-    notself = ~torch.eye(n, dtype=torch.bool, device=dev)
+    if rows is None:
+        notself = ~torch.eye(n, dtype=torch.bool, device=dev)
+    else:
+        notself = (torch.arange(lo, hi, device=dev)[:, None]
+                   != torch.arange(n, device=dev)[None, :])
     r = torch.sqrt(torch.where(notself, r2, 1.0))
     d16 = device_const(np.asarray(params.damping, np.float64) ** (1.0 / 6.0), dtype=dt,
                        device=dev)
-    u = r / (d16[:, None] * d16[None, :])
+    u = r / (d16[lo:hi, None] * d16[None, :])
     mol = device_const(np.asarray(params.mol_index, np.int64), device=dev)
-    same_mol = mol[:, None] == mol[None, :]
+    same_mol = mol[lo:hi, None] == mol[None, :]
     is_o = device_const(np.asarray(params.atom_type) == 0, device=dev)
     th = [device_const(float(x), dtype=dt, device=dev) for x in params.thole]
     gamma_dd = torch.where(same_mol,
-                           torch.where(is_o[:, None] | is_o[None, :], th[TDDOH], th[TDDHH]),
+                           torch.where(is_o[lo:hi, None] | is_o[None, :], th[TDDOH], th[TDDHH]),
                            th[TDD])
     return dict(delta=delta, r=r, u=u, notself=notself, diff_mol=~same_mol & notself,
                 gamma_dd=gamma_dd)
 
 
-def cluster_electrostatics(params: ElecParams, positions, mu0=None):
+class _ClusterRows:
+    """The cluster electrostatics' pair tensors of the rows [lo, hi) against
+    every site, on the positions' device."""
+
+    def __init__(self, params: ElecParams, positions, charges, rows=None):
+        th = [float(x) for x in params.thole]
+        t = _pair_tensors(params, positions, rows)
+        self.lo, self.hi = (0, positions.shape[0]) if rows is None else rows
+        self.delta, self.notself, self.diff_mol = t['delta'], t['notself'], t['diff_mol']
+        self.charges = charges
+        inv_r = torch.where(self.notself, 1.0 / t['r'], 0.0)
+        self.rr1, self.rr3 = inv_r, inv_r ** 3
+        self.rr5, self.rr7 = 3.0 * inv_r ** 5, 15.0 * inv_r ** 7
+        self.s_cc = thole_scales(t['u'], th[TCC], orders=(1, 3))
+        self.s_cd = thole_scales(t['u'], th[TCD], orders=(3, 5))
+        self.s_dd = thole_scales(t['u'], t['gamma_dd'], orders=(3, 5, 7))
+        # SCF factors (TDD damping, no exclusions)
+        self.s3 = torch.where(self.notself, -self.rr3 * self.s_dd[3], 0.0)
+        self.s5 = torch.where(self.notself, self.rr5 * self.s_dd[5], 0.0)
+
+    def fixed_field(self):
+        """Damped charge field of the rows, same-water pairs excluded."""
+        k3 = torch.where(self.diff_mol, self.rr3 * self.s_cc[3], 0.0)
+        return -torch.einsum('ij,j,ijd->id', k3, self.charges, self.delta)
+
+    def dipole_field(self, mu):
+        return dipole_field(mu, self.s3, self.s5, self.delta)
+
+    def energy_forces_phi(self, mu, with_phi):
+        """(the rows' half pair-energy sum, pair force rows [rows, 3], and
+        with_phi the damped potential rows of the charge-derivative forces,
+        else None) at the dipoles mu [N, 3]."""
+        delta, notself, diff_mol = self.delta, self.notself, self.diff_mol
+        rr1, rr3, rr5, rr7 = self.rr1, self.rr3, self.rr5, self.rr7
+        s_cc, s_cd, s_dd = self.s_cc, self.s_cd, self.s_dd
+        charges, mu_r = self.charges, mu[self.lo:self.hi]
+        q_r = charges[self.lo:self.hi]
+        mu_dot_d_i = torch.einsum('id,ijd->ij', mu_r, delta)     # mu_i . (r_j - r_i)
+        mu_dot_d_j = torch.einsum('jd,ijd->ij', mu, delta)       # mu_j . (r_j - r_i)
+        gl0 = torch.where(diff_mol, q_r[:, None] * charges[None, :], 0.0)
+        gli0 = torch.where(diff_mol, charges[None, :] * mu_dot_d_i - q_r[:, None] * mu_dot_d_j,
+                           0.0)
+        e_pair = rr1 * gl0 * s_cc[1] + 0.5 * rr3 * gli0 * s_cd[3]
+        energy = torch.sum(torch.where(notself, e_pair, 0.0))
+
+        gfi0 = (rr5 * gli0 * s_cd[5] + rr5 * (mu_r @ mu.T) * s_dd[5]
+                - rr7 * (mu_dot_d_i * mu_dot_d_j) * s_dd[7])
+        coeff = torch.where(notself, rr3 * gl0 * s_cc[3] + gfi0, 0.0)
+        force_pair = torch.einsum('ij,ijd->id', coeff, delta)
+        w5 = torch.where(notself, rr5 * s_dd[5], 0.0)
+        force_pair = (force_pair + torch.einsum('ij,ij,id->id', w5, mu_dot_d_j, mu_r)
+                      + torch.einsum('ij,jd->id', w5 * mu_dot_d_i, mu))
+        # (q_i mu_j - q_j mu_i) rr3 s3cd summed over j
+        w3 = torch.where(diff_mol, rr3 * s_cd[3], 0.0)
+        force_pair = force_pair + q_r[:, None] * (w3 @ mu) - mu_r * (w3 @ charges)[:, None]
+        phi = None
+        if with_phi:
+            # damped (TCC, orders 1/3) potentials at each site from every
+            # site of the other molecules
+            phi = (torch.einsum('ij,j->i', torch.where(diff_mol, s_cc[1] * rr1, 0.0), charges)
+                   + torch.einsum('ij,ij->i', torch.where(diff_mol, s_cc[3] * rr3, 0.0),
+                                  -mu_dot_d_j))
+        return energy, force_pair, phi
+
+
+def cluster_electrostatics(params: ElecParams, positions, mu0=None, mesh=None):
     """Energy (kJ/mol), forces (kJ/mol/nm) and diagnostics (SCF iterations,
     epsilon, converged, charges, induced_dipoles) of a non-periodic system.
 
     positions: [N, 3] nm with the M sites placed; mu0: optional dipole
-    predictor (ASPC) or warm start. The fixed field excludes same-molecule
-    pairs, the SCF field (TDD damping) excludes only i = j; the forces use
-    the reference's explicit formulas at the converged dipoles (the
-    reference's second 'polar' dipole copy is identical in MB-pol and is
-    folded in), plus the charge-derivative forces through dq/dr."""
-    dt = positions.dtype
+    predictor (ASPC) or warm start; mesh: a parallel.mesh.Mesh whose lead
+    device is the positions' (None: one device), the pair rows split in
+    equal slabs, each slab's tensors on its shard's device, the SCF's field
+    gathered and the energies added on the lead. The fixed field excludes
+    same-molecule pairs, the SCF field (TDD damping) excludes only i = j;
+    the forces use the reference's explicit formulas at the converged
+    dipoles (the reference's second 'polar' dipole copy is identical in
+    MB-pol and is folded in), plus the charge-derivative forces through
+    dq/dr."""
+    dt, dev = positions.dtype, positions.device
     f = units.ELECTRIC
-    t = _pair_tensors(params, positions)
-    delta, r, u = t['delta'], t['r'], t['u']
-    notself, diff_mol = t['notself'], t['diff_mol']
-
     charges, dq_w = assemble_charges(params, positions)
-    alpha = device_const(params.polarity, dtype=dt, device=positions.device)
-    th = [float(x) for x in params.thole]
+    alpha = device_const(params.polarity, dtype=dt, device=dev)
+    with_phi = params.include_charge_redistribution and dq_w is not None
 
-    inv_r = torch.where(notself, 1.0 / r, 0.0)
-    rr1 = inv_r
-    rr3 = inv_r ** 3
-    rr5 = 3.0 * inv_r ** 5
-    rr7 = 15.0 * inv_r ** 7
+    if mesh is None:
+        slabs = [(dev, _ClusterRows(params, positions, charges))]
+    else:
+        from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+        slabs = M.map_rows(mesh, positions.shape[0], lambda d, lo, hi: (d, _ClusterRows(
+            params, positions.to(d), charges.to(d), (lo, hi))))
 
-    s_cc = thole_scales(u, th[TCC], orders=(1, 3))
-    s_cd = thole_scales(u, th[TCD], orders=(3, 5))
-    s_dd = thole_scales(u, t['gamma_dd'], orders=(3, 5, 7))
+    def over(fn):
+        """[fn(device, slab)] of the slabs in shard order, each on its shard."""
+        from mbpol_openmm_plugin_tpu_torch.parallel.mesh import on_shard
+        out = []
+        for d, slab in slabs:
+            with on_shard(d):
+                out.append(fn(d, slab))
+        return out
 
-    # fixed field: damped charge field, same-water pairs excluded
-    k3 = torch.where(diff_mol, rr3 * s_cc[3], 0.0)
-    efield = -torch.einsum('ij,j,ijd->id', k3, charges, delta)
+    def rows(parts):
+        return parts[0] if len(parts) == 1 else torch.cat([p.to(dev) for p in parts])
 
-    # SCF (TDD damping, no exclusions)
-    s3 = torch.where(notself, -rr3 * s_dd[3], 0.0)
-    s5 = torch.where(notself, rr5 * s_dd[5], 0.0)
-    mu, diag = make_scf(params)(efield * alpha[:, None], alpha,
-                                lambda m: dipole_field(m, s3, s5, delta),
-                                params.target_epsilon, params.max_iterations, mu0=mu0)
+    efield = rows(over(lambda d, slab: slab.fixed_field()))
+    mu, diag = make_scf(params)(
+        efield * alpha[:, None], alpha,
+        lambda m: rows(over(lambda d, slab: slab.dipole_field(m.to(d)))),
+        params.target_epsilon, params.max_iterations, mu0=mu0)
 
-    # energy
-    mu_dot_d_i = torch.einsum('id,ijd->ij', mu, delta)       # mu_i . (r_j - r_i)
-    mu_dot_d_j = torch.einsum('jd,ijd->ij', mu, delta)       # mu_j . (r_j - r_i)
-    gl0 = torch.where(diff_mol, charges[:, None] * charges[None, :], 0.0)
-    gli0 = torch.where(diff_mol,
-                       charges[None, :] * mu_dot_d_i - charges[:, None] * mu_dot_d_j, 0.0)
-    e_pair = rr1 * gl0 * s_cc[1] + 0.5 * rr3 * gli0 * s_cd[3]
-    energy = 0.5 * f * torch.sum(torch.where(notself, e_pair, 0.0))
-
-    # pair forces
-    gfi0 = (rr5 * gli0 * s_cd[5] + rr5 * (mu @ mu.T) * s_dd[5]
-            - rr7 * (mu_dot_d_i * mu_dot_d_j) * s_dd[7])
-    coeff = torch.where(notself, rr3 * gl0 * s_cc[3] + gfi0, 0.0)
-    force_pair = torch.einsum('ij,ijd->id', coeff, delta)
-    w5 = torch.where(notself, rr5 * s_dd[5], 0.0)
-    force_pair = (force_pair + torch.einsum('ij,ij,id->id', w5, mu_dot_d_j, mu)
-                  + torch.einsum('ij,jd->id', w5 * mu_dot_d_i, mu))
-    # (q_i mu_j - q_j mu_i) rr3 s3cd summed over j
-    w3 = torch.where(diff_mol, rr3 * s_cd[3], 0.0)
-    force_pair = force_pair + charges[:, None] * (w3 @ mu) - mu * (w3 @ charges)[:, None]
+    outs = over(lambda d, slab: slab.energy_forces_phi(mu.to(d), with_phi))
+    e_pairs = outs[0][0]
+    for o in outs[1:]:
+        e_pairs = e_pairs + o[0].to(dev)
+    force_pair = rows([o[1] for o in outs])
+    phi = rows([o[2] for o in outs]) if with_phi else None
+    energy = 0.5 * f * e_pairs
     forces = -f * force_pair
-
-    # charge-derivative forces: damped (TCC, orders 1/3) potentials at each
-    # site from every site of the other molecules
-    if params.include_charge_redistribution and dq_w is not None:
-        phi = (torch.einsum('ij,j->i', torch.where(diff_mol, s_cc[1] * rr1, 0.0), charges)
-               + torch.einsum('ij,ij->i', torch.where(diff_mol, s_cc[3] * rr3, 0.0),
-                              -mu_dot_d_j))
+    if with_phi:
         forces = forces + charge_derivative_forces(params, phi, dq_w)
     return energy, forces, dict(**diag, charges=charges, induced_dipoles=mu)
 

@@ -23,7 +23,15 @@ grid scale, the minimum images and the tile-pair list follow it, and the
 direct-space kernels take it by value, so a barostat's volume move needs no
 rebuild. The grid dimensions and alpha stay at their construction values.
 
-Not ported yet: meshes (see ROADMAP.md).
+Under a device mesh (`mesh`, parallel/mesh.py; JAX pme.py's `sharded` and
+`bs_sharded` paths) the dense direct space runs the full-grid row kernels
+(#3/#4) over each shard's slab of the padded rows, the SCF's dipole field
+runs slab by slab on the shards' devices and is gathered on the lead; the
+block path gives each shard its slab of row tiles and a local tile list;
+and the reciprocal pipeline splits its sites: each shard spreads its sites
+into a partial grid, the partial grids are added on the lead in shard
+order, the convolution runs there once and each shard reads back its
+sites (`_Grid`).
 """
 from __future__ import annotations
 
@@ -213,32 +221,80 @@ def _convolve(setup: PmeSetup, grid, box):
     return torch.real(torch.fft.ifftn(gk) * ntot)
 
 
-def _dipole_phi(setup: PmeSetup, mu, pscale, S, box):
-    """Reciprocal phi10 [N, 10] of the dipoles mu [N, 3] on the spline
-    matrices S = (Sx, Sy, Sz); the three derivative sources spread as one
-    concatenated matmul."""
+def _dipole_sources(smu, S):
+    """The spread sources (wx, sy, sz) of the scaled dipoles smu [N, 3] on
+    the spline matrices S: the three derivative sources concatenated, so
+    they spread as one matmul."""
     Sx, Sy, Sz = S
     sx0, sy0, sz0 = Sx[..., 0], Sy[..., 0], Sz[..., 0]
     sx1, sy1, sz1 = Sx[..., 1], Sy[..., 1], Sz[..., 1]
-    smu = mu * pscale[None, :]
     wx = torch.cat([smu[:, 0:1] * sx1, smu[:, 1:2] * sx0, smu[:, 2:3] * sx0], dim=0)
-    sy = torch.cat([sy0, sy1, sy0], dim=0)
-    sz = torch.cat([sz0, sz0, sz1], dim=0)
-    g = _spread_separable(setup, wx, sy, sz)
-    return _readback_phi10(_convolve(setup, g, box), Sx, Sy, Sz)
+    return wx, torch.cat([sy0, sy1, sy0], dim=0), torch.cat([sz0, sz0, sz1], dim=0)
 
 
-def block_info(site_perm, capacity, device, line_capacity=None):
+def _dipole_phi(setup: PmeSetup, mu, pscale, S, box):
+    """Reciprocal phi10 [N, 10] of the dipoles mu [N, 3] on the spline
+    matrices S = (Sx, Sy, Sz)."""
+    g = _spread_separable(setup, *_dipole_sources(mu * pscale[None, :], S))
+    return _readback_phi10(_convolve(setup, g, box), *S)
+
+
+class _Grid:
+    """The reciprocal pipeline over the sites of positions [N, 3] in `box`:
+    the spline matrices of each shard's sites on its device (one part on
+    the positions' device without a mesh). phi10 of a source: each part
+    spreads its sites into a partial grid, the grids are added on the lead
+    device in shard order, the convolution runs there once, and each part
+    reads back its sites; one part gives the single-device bits."""
+
+    def __init__(self, setup: PmeSetup, positions, box, mesh=None):
+        self.setup, self.box, self.lead = setup, box, positions.device
+        if mesh is None:
+            self.parts = [(positions.device, 0, positions.shape[0],
+                           _spline_matrices(setup, positions, box))]
+        else:
+            from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+            self.parts = M.map_rows(mesh, positions.shape[0], lambda dev, lo, hi: (
+                dev, lo, hi, _spline_matrices(setup, positions[lo:hi].to(dev), box)))
+
+    def _phi10(self, sources):
+        from mbpol_openmm_plugin_tpu_torch.parallel.mesh import on_shard
+        grid = None
+        for dev, lo, hi, S in self.parts:
+            with on_shard(dev):
+                g = _spread_separable(self.setup, *sources(lo, hi, dev, S)).to(self.lead)
+            grid = g if grid is None else grid + g
+        conv = _convolve(self.setup, grid, self.box)
+        out = []
+        for dev, lo, hi, S in self.parts:
+            with on_shard(dev):
+                out.append(_readback_phi10(conv.to(dev), *S))
+        return out[0] if len(out) == 1 else torch.cat([o.to(self.lead) for o in out])
+
+    def charge_phi(self, charges):
+        """phi10 [N, 10] of the charges [N]."""
+        return self._phi10(lambda lo, hi, dev, S: (charges[lo:hi, None].to(dev) * S[0][..., 0],
+                                                   S[1][..., 0], S[2][..., 0]))
+
+    def dipole_phi(self, mu, pscale):
+        """phi10 [N, 10] of the dipoles mu [N, 3] (_dipole_phi)."""
+        smu = mu * pscale[None, :]
+        return self._phi10(lambda lo, hi, dev, S: _dipole_sources(smu[lo:hi].to(dev), S))
+
+
+def block_info(site_perm, capacity, device, line_capacity=None, capacity_local=None):
     """The block-mode layout: the static site permutation (numpy and on
-    `device`, with its inverse), the tile-pair list capacity and the s3/s5
-    line capacity per (row water, cluster) slab (None: the number of column
-    tiles, which never overflows)."""
+    `device`, with its inverse), the tile-pair list capacity, the per-shard
+    local list capacity under a mesh (None: derived from the global one)
+    and the s3/s5 line capacity per (row water, cluster) slab (None: the
+    number of column tiles, which never overflows)."""
     site_perm = np.asarray(site_perm, np.int64)
     inv = np.empty_like(site_perm)
     inv[site_perm] = np.arange(len(site_perm))
     if line_capacity is None:
         line_capacity = bs.default_line_capacity(bs.padded(len(site_perm)))
     return dict(site_perm=site_perm, site_perm_inv=inv, tile_pair_capacity=int(capacity),
+                tile_pair_capacity_local=None if capacity_local is None else int(capacity_local),
                 line_capacity=int(line_capacity),
                 perm=torch.as_tensor(site_perm, device=device),
                 inv=torch.as_tensor(inv, device=device))
@@ -256,31 +312,89 @@ def site_tables(params: elec.ElecParams, dtype, device):
         polarity=torch.as_tensor(params.polarity, dtype=dtype, device=device))
 
 
+def local_tile_capacity(block, n_shards):
+    """The per-shard tile-pair list capacity of a block layout: the global
+    one for one shard; else its own, or the JAX package's default from the
+    global capacity."""
+    if n_shards == 1:
+        return block['tile_pair_capacity']
+    return (block['tile_pair_capacity_local']
+            or (block['tile_pair_capacity'] * 13) // (10 * n_shards) + 8)
+
+
 def block_sites(params: elec.ElecParams, setup: PmeSetup, positions, charges, block,
-                tables=None, box=None):
+                tables=None, box=None, mesh=None):
     """Block mode's direct-space inputs: the packed sites in the static
-    sorted order, padded to whole tiles, and their active tile-pair list in
-    `box` (default the setup's)."""
+    sorted order, padded to parallel.mesh.padded_for_mesh (whole tiles
+    without a mesh), and the active tile-pair lists in `box` (default the
+    setup's), one local list per shard in shard order (mesh None: one part
+    on the positions' device)."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    mesh = M.or_one(mesh, positions.device)
     if tables is None:
         tables = site_tables(params, positions.dtype, positions.device)
     d16_inv, mol, is_o = tables['d16_inv'], tables['mol'], tables['is_o']
-    perm = block['perm']
-    sites = bs.pack_sites(positions[perm], charges[perm], d16_inv[perm], mol[perm], is_o[perm])
-    tiles = bs.active_tile_pairs(sites[:, :3], positions.shape[0], box_tuple(setup, box),
-                                 setup.cutoff, block['tile_pair_capacity'])
-    return sites, tiles
+    perm, n, box = block['perm'], positions.shape[0], box_tuple(setup, box)
+    sites = bs.pack_sites(positions[perm], charges[perm], d16_inv[perm], mol[perm], is_o[perm],
+                          pad_to=M.padded_for_mesh(n, mesh.size))
+    return sites, bs.active_tile_pairs_sharded(sites[:, :3], n, box, setup.cutoff,
+                                               local_tile_capacity(block, mesh.size), mesh)
+
+
+def _dense_direct(sites, positions, consts, box, mesh):
+    """The dense direct space: (fixed field [N, 3], direct_field(mu),
+    direct_efp(mu)) through K1/K2, or under a mesh through the full-grid
+    row kernels, each shard holding its s3/s5/delta slab of the padded
+    rows [N_pad / size, N_pad] on its device."""
+    n = positions.shape[0]
+    if mesh is None:
+        ef_direct, s3_dir, s5_dir = elec_direct.fixed_field_and_scf_factors(sites, consts)
+        delta = elec_direct.pair_delta(positions, box)
+
+        def direct_field(mu):
+            return elec.dipole_field(mu, s3_dir, s5_dir, delta)
+
+        def direct_efp(mu):
+            return elec_direct.direct_energy_force_pot(sites, mu.contiguous(), consts)
+        return ef_direct, direct_field, direct_efp
+
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    ef_direct, s3, s5 = elec_direct.fixed_field_and_scf_factors_sharded(sites, consts, mesh)
+    n_pad = M.padded_for_mesh(n, mesh.size)
+    pos_pad = bs.pad_rows(positions, n_pad)
+    # the slabs holding real rows (one of padding rows only adds nothing to [:n])
+    slabs = [(dev, lo, hi, s3_k, s5_k) for dev, (lo, hi), s3_k, s5_k
+             in zip(mesh.devices, M.row_ranges(n_pad, mesh), s3, s5) if lo < n]
+    deltas = []
+    for dev, lo, hi, _, _ in slabs:
+        with M.on_shard(dev):
+            p = pos_pad.to(dev)
+            deltas.append(elec_direct._delta(p[lo:hi], p, box))
+
+    def direct_field(mu):
+        mu_pad = bs.pad_rows(mu, n_pad)
+        out = []
+        for (dev, _, _, s3_k, s5_k), d_k in zip(slabs, deltas):
+            with M.on_shard(dev):
+                out.append(elec.dipole_field(mu_pad.to(dev), s3_k, s5_k, d_k))
+        return M.gather_rows(mesh, out)[:n]
+
+    def direct_efp(mu):
+        return elec_direct.direct_energy_force_pot_sharded(sites, mu.contiguous(), consts, mesh)
+    return ef_direct, direct_field, direct_efp
 
 
 def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=None,
-                       block=None, tables=None, box=None):
+                       block=None, tables=None, box=None, mesh=None):
     """PME energy (kJ/mol), forces (kJ/mol/nm) and diagnostics.
 
     positions: [N,3] nm with M sites placed; mu0: optional dipole predictor
     (ASPC) or warm start; block: a `block_info` dict for the block-sparse
     direct space (None: dense); tables: `site_tables` of params on the
     positions' device (built here when None); box: the evaluation's box
-    (three floats; default setup.box). Block mode never builds an [N, N]
-    tensor and adds elec_tile_pairs / elec_tile_overflow /
+    (three floats; default setup.box); mesh: a parallel.mesh.Mesh whose
+    lead device is the positions' (None: one device). Block mode never
+    builds an [N, N] tensor and adds elec_tile_pairs / elec_tile_overflow /
     elec_line_overflow to the diagnostics.
     """
     dt, dev = positions.dtype, positions.device
@@ -302,37 +416,33 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     if block is None:
         sites = elec_direct.pack_sites(positions, charges, tables['d16_inv'], tables['mol'],
                                        tables['is_o'])
-        ef_direct, s3_dir, s5_dir = elec_direct.fixed_field_and_scf_factors(sites, consts)
-        delta = elec_direct.pair_delta(positions, box)
-
-        def direct_field(mu):
-            return elec.dipole_field(mu, s3_dir, s5_dir, delta)
-
-        def direct_efp(mu):
-            return elec_direct.direct_energy_force_pot(sites, mu.contiguous(), consts)
+        ef_direct, direct_field, direct_efp = _dense_direct(sites, positions, consts, box, mesh)
     else:
+        from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+        bmesh = M.or_one(mesh, dev)
         perm, inv = block['perm'], block['inv']
-        sites, tiles = block_sites(params, setup, positions, charges, block, tables, box)
-        ef_s, lines = bs.fixed_field_and_scf_lines(sites, n, tiles, consts,
-                                                   block['line_capacity'])
-        bs_diag = dict(elec_tile_pairs=tiles.n_act,
-                       elec_tile_overflow=tiles.n_act > tiles.capacity,
-                       elec_line_overflow=lines.overflow())
+        sites, tiles = block_sites(params, setup, positions, charges, block, tables, box, bmesh)
+        ef_s, lines = bs.fixed_field_and_scf_lines_sharded(sites, n, tiles, consts,
+                                                           block['line_capacity'], bmesh)
+        bs_diag = dict(
+            elec_tile_pairs=M.sum_to_lead(bmesh, [t.n_act for t in tiles]),
+            elec_tile_overflow=M.any_to_lead(bmesh, [t.n_act > t.capacity for t in tiles]),
+            elec_line_overflow=M.any_to_lead(bmesh, [ln.overflow() for ln in lines]))
         ef_direct = ef_s[inv]
 
         def direct_field(mu):
             mu_pad = bs.pad_rows(mu[perm], sites.shape[0])
-            return bs.scf_dipole_field_bs(sites, lines, mu_pad, tiles, n, consts)[inv]
+            return bs.scf_dipole_field_bs_sharded(sites, lines, mu_pad, tiles, n, consts,
+                                                  bmesh)[inv]
 
         def direct_efp(mu):
-            e, f_s, pot_s = bs.direct_energy_force_pot_bs(sites, mu[perm].contiguous(), n,
-                                                          tiles, consts)
+            e, f_s, pot_s = bs.direct_energy_force_pot_bs_sharded(
+                sites, mu[perm].contiguous(), n, tiles, consts, bmesh)
             return e, f_s[inv], pot_s[inv]
 
     # ---- grid machinery ----
-    Sx, Sy, Sz = _spline_matrices(setup, positions, box)
-    grid = _spread_separable(setup, charges[:, None] * Sx[..., 0], Sy[..., 0], Sz[..., 0])
-    phi = _readback_phi10(_convolve(setup, grid, box), Sx, Sy, Sz)     # [N,10]
+    rgrid = _Grid(setup, positions, box, mesh)
+    phi = rgrid.charge_phi(charges)                                     # [N,10]
 
     # ---- fixed field: reciprocal + direct ----
     efield = -pscale[None, :] * phi[:, 1:4] + ef_direct
@@ -342,7 +452,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
 
     def field_fn(mu):
         f = direct_field(mu)
-        phid = _dipole_phi(setup, mu, pscale, (Sx, Sy, Sz), box)
+        phid = rgrid.dipole_phi(mu, pscale)
         return f + (-pscale[None, :] * phid[:, 1:4] + self_term * mu)
 
     scf = elec.make_scf(params)
@@ -361,7 +471,7 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
     pot = pot + phi[:, 0]
 
     # ---- reciprocal induced ----
-    phid = _dipole_phi(setup, mu, pscale, (Sx, Sy, Sz), box)
+    phid = rgrid.dipole_phi(mu, pscale)
     smu = mu * pscale[None, :]
     e_recip_ind = 0.5 * torch.sum(smu * phi[:, 1:4])
     hess = device_const(_HESS, device=dev)

@@ -18,17 +18,24 @@ dispersion_mode 'auto', 'dense' or 'pairs'; scf_method 'sor', 'diis' or
 compaction (compact_eval) and the reference's triplet enumeration
 (triplet_semantics); analytic list capacities, capacities tuned from a
 configuration (`tune_capacities`, from the port's own counts or the host
-voxel hash of ops/native.py) or a `parallel.plan.CapacityPlan` for one
-device (`plan=`). 'auto' resolves as the JAX package does: dense up to
-2560 waters where the CUDA kernels run (the potential's device is a card),
-512 otherwise; above that 'block' with the kernels and 'sparse' without,
-and 'pairs' dispersion whenever the electrostatics leave 'dense'. The box
-is an argument of each evaluation (`box`, default the system's), for the
-barostat. Not ported: meshes (see ROADMAP.md).
+voxel hash of ops/native.py) or a `parallel.plan.CapacityPlan` (`plan=`).
+'auto' resolves as the JAX package does: dense up to 2560 waters (2560 x
+max(shards // 2, 1) under a mesh) where the CUDA kernels run (the
+potential's device is a card), 512 otherwise; above that 'block' with the
+kernels and 'sparse' without, and 'pairs' dispersion whenever the
+electrostatics leave 'dense'. The box is an argument of each evaluation
+(`box`, default the system's), for the barostat.
 
 The potential lives on one device (`device`, default 'cuda'; the tests
 pass 'cpu'): its entry points take numpy arrays or tensors and move them
 there. Without a card, the default device raises; nothing falls back.
+With a device mesh (`mesh`, parallel/mesh.py) the device is the mesh's
+lead: the one-body molecule batch, the 2B pair and 3B triplet batches,
+the dispersion rows or pairs and the electrostatics (dense rows, block row
+tiles, sparse pairs, cluster rows, the PME grid's sites) split over its
+shards, each shard's share evaluated on its device (a fused `pip_impl`
+launches its kernel once per shard), the energies added on the lead in
+shard order. Every list capacity is a multiple of the shard count.
 """
 from __future__ import annotations
 
@@ -38,7 +45,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from mbpol_openmm_plugin_tpu_torch import ROADMAP_HINT, _data
+from mbpol_openmm_plugin_tpu_torch import _data
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.models import pme as pme_mod
 from mbpol_openmm_plugin_tpu_torch.models import pme_sparse
@@ -132,10 +139,6 @@ class MBPolConfig:
         return cls(**base)
 
 
-def _not_ported(what):
-    return NotImplementedError(f'{what}: {ROADMAP_HINT}')
-
-
 def _check_config(system: System, config: MBPolConfig):
     if config.nonbonded_method not in ('NoCutoff', 'PME'):
         raise ValueError(config.nonbonded_method)
@@ -159,13 +162,16 @@ def _check_config(system: System, config: MBPolConfig):
         raise ValueError(f'unknown triplet_semantics {config.triplet_semantics!r}')
 
 
-def resolve_modes(system: System, config: MBPolConfig, has_pme, kernels):
+def resolve_modes(system: System, config: MBPolConfig, has_pme, kernels, n_devices=1):
     """(electrostatics mode, dispersion mode) after resolving 'auto' as JAX
     MBPol.__init__ does; `kernels`: the direct-space CUDA kernels run (the
-    device is a card), the counterpart of elec_pallas.use_pallas."""
+    device is a card), the counterpart of elec_pallas.use_pallas;
+    n_devices: the mesh's shards, whose row split of the dense s3/s5
+    stretches the dense limit."""
     mode = config.electrostatics_mode
     if mode == 'auto':
-        dense_limit = DENSE_LIMIT_KERNELS if kernels else DENSE_LIMIT
+        dense_limit = (DENSE_LIMIT_KERNELS * max(n_devices // 2, 1) if kernels
+                       else DENSE_LIMIT)
         if has_pme and system.n_waters > dense_limit:
             mode = 'block' if kernels else 'sparse'
         else:
@@ -187,14 +193,22 @@ class MBPol:
     `positions` are [natoms, 3] nm including M-site slots (overwritten by
     the virtual-site placement), as a numpy array or a tensor; they are
     moved to `device` in its dtype (float32 on a card, where the kernels
-    run, float64 on the CPU). `plan`: a parallel.plan.CapacityPlan for one
-    device, whose capacities (and block layout) the potential takes.
+    run, float64 on the CPU). `mesh`: a parallel.mesh.Mesh to split the
+    evaluation over (its lead device is the potential's; `device` may be
+    left out). `plan`: a parallel.plan.CapacityPlan for as many devices as
+    the mesh has shards (one without a mesh), whose capacities (and block
+    layout) the potential takes.
     """
 
-    def __init__(self, system: System, config: MBPolConfig = MBPolConfig(), device='cuda',
-                 plan=None):
+    def __init__(self, system: System, config: MBPolConfig = MBPolConfig(), device=None,
+                 mesh=None, plan=None):
         _check_config(system, config)
-        self.device = torch.device(device)
+        if mesh is not None:
+            if device is not None and torch.device(device) != mesh.lead:
+                raise ValueError(f'device {device} is not the mesh lead {mesh.lead}')
+            device = mesh.lead
+        self.mesh = mesh
+        self.device = torch.device('cuda' if device is None else device)
         if self.device.type == 'cuda' and not torch.cuda.is_available():
             raise RuntimeError("MBPol: no CUDA device is available; pass device='cpu' to "
                                'evaluate on the CPU')
@@ -220,7 +234,8 @@ class MBPol:
             if config.nonbonded_method == 'PME':
                 self.pme = pme_mod.PmeSetup.from_config(system, config)
         self.elec_mode, self.disp_mode = resolve_modes(
-            system, config, self.pme is not None, kernels=self.device.type == 'cuda')
+            system, config, self.pme is not None, kernels=self.device.type == 'cuda',
+            n_devices=self._n_shards())
         self._block_info = None
         if self.elec_mode in ('block', 'sparse'):
             if self.pme is None:
@@ -273,8 +288,24 @@ class MBPol:
                 system.n_waters, box, config.cutoff_2b + half, factor=f)
             self.trip_eval_cap = neighbors.triplet_capacity(
                 system.n_waters, box, config.cutoff_3b + half, factor=f)
+        self._round_capacities()
         if plan is not None:
             self._apply_plan(plan)
+
+    def _n_shards(self):
+        return 1 if self.mesh is None else self.mesh.size
+
+    def _round_capacities(self):
+        """Round every list capacity up to a multiple of the shard count
+        (the JAX MBPol under a mesh), so each shard's slab is the same
+        size."""
+        from mbpol_openmm_plugin_tpu_torch.parallel.mesh import round_up
+        k = self._n_shards()
+        for attr in ('pair_cap', 'trip_cap', 'pair_eval_cap', 'trip_eval_cap', 'elec_pair_cap',
+                     'disp_pair_cap'):
+            v = getattr(self, attr, None)
+            if v is not None:
+                setattr(self, attr, round_up(v, k))
 
     def _compact_half(self):
         """The radius added to the physical cutoffs for the compacted
@@ -283,9 +314,11 @@ class MBPol:
 
     def _apply_plan(self, plan):
         """Take a parallel.plan.CapacityPlan's capacities (and block layout),
-        as the JAX MBPol's constructor does. One device only."""
-        if plan.n_devices != 1:
-            raise _not_ported(f'a CapacityPlan for {plan.n_devices} devices (meshes)')
+        as the JAX MBPol's constructor does; the plan's device count must be
+        the mesh's shard count (1 without a mesh)."""
+        if plan.n_devices != self._n_shards():
+            raise ValueError(f'plan is for {plan.n_devices} devices, potential mesh has '
+                             f'{self._n_shards()}')
         if self.system.n_waters != plan.n_waters:
             raise ValueError('plan/potential water count mismatch')
         if not self.use_neighbor_lists:
@@ -304,10 +337,30 @@ class MBPol:
             info = self._block_info
             self._set_block_perm(info['site_perm'] if plan.site_perm is None else plan.site_perm,
                                  plan.tile_pair_capacity,
-                                 plan.line_capacity or info['line_capacity'])
+                                 plan.line_capacity or info['line_capacity'],
+                                 plan.tile_pair_capacity_local)
 
-    def _set_block_perm(self, site_perm, cap, line_cap=None):
-        self._block_info = pme_mod.block_info(site_perm, cap, self.device, line_cap)
+    def _set_block_perm(self, site_perm, cap, line_cap=None, cap_local=None):
+        self._block_info = pme_mod.block_info(site_perm, cap, self.device, line_cap, cap_local)
+
+    def to_device(self, device):
+        """A clone of this potential on `device` (its own device too) with
+        the same configuration, capacities and block layout, whose per-site
+        tables are rebuilt there at first use. The beads and replicas of
+        md/rpmd.py and md/remd.py run on their shards' devices through such
+        copies, one per shard. A meshed potential stays on its mesh."""
+        device = torch.device(device)
+        if self.mesh is not None:
+            raise ValueError('a meshed potential runs on its mesh; build it with another mesh')
+        new = object.__new__(MBPol)
+        new.__dict__.update(self.__dict__)
+        new.device, new._tables = device, None
+        if self._block_info is not None:
+            info = self._block_info
+            new._block_info = pme_mod.block_info(info['site_perm'], info['tile_pair_capacity'],
+                                                 device, info['line_capacity'],
+                                                 info['tile_pair_capacity_local'])
+        return new
 
     def _site_tables(self):
         """The electrostatics parameters' per-site tables on the device,
@@ -421,25 +474,36 @@ class MBPol:
         system's); differentiable."""
         cfg = self.config
         sys_ = self.system
+        mesh = self.mesh
         pos = compute_virtual_sites(sys_, positions)
         parts = {}
         if 'one_body' in cfg.terms:
-            parts['one_body'] = torch.sum(one_body_energy(water_positions(sys_, pos)))
+            wpos = water_positions(sys_, pos)
+            parts['one_body'] = _over_rows(mesh, wpos.shape[0], pos.device, lambda dev, lo, hi:
+                                           torch.sum(one_body_energy(wpos[lo:hi].to(dev))))
         pl, tl = nlists if nlists is not None else ((None, None), (None, None))
         pip = (cfg.pip_impl, cfg.pip_basis)
-        if 'two_body' in cfg.terms:
-            parts['two_body'] = two_body_energy(sys_, pos, pl[0], pl[1], box=box, pip=pip)
-        if 'three_body' in cfg.terms:
-            parts['three_body'] = three_body_energy(sys_, pos, tl[0], tl[1], box=box, pip=pip)
+        for term, fn, (rows, mask) in (('two_body', two_body_energy, pl),
+                                       ('three_body', three_body_energy, tl)):
+            if term not in cfg.terms:
+                continue
+            if rows is None:
+                parts[term] = fn(sys_, pos, box=box, pip=pip)
+            else:
+                parts[term] = _over_rows(
+                    mesh, rows.shape[0], pos.device,
+                    lambda dev, lo, hi, fn=fn, rows=rows, mask=mask: fn(
+                        sys_, pos.to(dev), rows[lo:hi].to(dev), mask[lo:hi].to(dev), box=box,
+                        pip=pip))
         if 'dispersion' in cfg.terms:
             sw = cfg.dispersion_switch_width
             if disp_pairs is not None:
                 parts['dispersion'] = dispersion_energy_pairs(
                     sys_, pos, disp_pairs[0], disp_pairs[1], cutoff=cfg.cutoff, box=box,
-                    switch_width=sw)
+                    switch_width=sw, mesh=mesh)
             else:
                 parts['dispersion'] = dispersion_energy(sys_, pos, cutoff=cfg.cutoff, box=box,
-                                                        switch_width=sw)
+                                                        switch_width=sw, mesh=mesh)
         if cfg.restraint_radius is not None:
             parts['restraint'] = flat_bottom_energy(oxygen_positions(sys_, pos),
                                                     cfg.restraint_radius, cfg.restraint_k)
@@ -502,15 +566,15 @@ class MBPol:
             with torch.no_grad():
                 if self.pme is None:
                     e_elec, f_elec, ediag = elec.cluster_electrostatics(self.elec_params, pos_v,
-                                                                        mu0=mu0)
+                                                                        mu0=mu0, mesh=self.mesh)
                 elif self.elec_mode == 'sparse':
                     e_elec, f_elec, ediag = pme_sparse.pme_electrostatics_sparse(
                         self.elec_params, self.pme, pos_v, *water_pairs, mu0=mu0, box=box,
-                        tables=self._site_tables())
+                        tables=self._site_tables(), mesh=self.mesh)
                 else:
                     e_elec, f_elec, ediag = pme_mod.pme_electrostatics(
                         self.elec_params, self.pme, pos_v, mu0=mu0, block=self._block_info,
-                        tables=self._site_tables(), box=box)
+                        tables=self._site_tables(), box=box, mesh=self.mesh)
             diag.update(ediag)
             parts['electrostatics'] = e_elec
             forces = forces + _redistribute_m_sites(sys_, f_elec)
@@ -555,7 +619,9 @@ class MBPol:
         if self.disp_pair_cap is not None:
             self.disp_pair_cap = caps['disp_pair_cap']
         if self.elec_mode == 'block':
-            self._set_block_perm(*block_layout(sys_, pos, sys_.box, self.config.cutoff, margin))
+            self._set_block_perm(*block_layout(sys_, pos, sys_.box, self.config.cutoff, margin,
+                                               self.mesh and self.mesh.size))
+        self._round_capacities()
         return self
 
     def with_updated_params(self, thole=None, charges=None, damping=None, polarity=None,
@@ -671,13 +737,15 @@ def list_capacities(counts: ListCounts, config: MBPolConfig, n_waters, margin, e
     return out
 
 
-def block_layout(system: System, pos, box, cutoff, margin):
+def block_layout(system: System, pos, box, cutoff, margin, n_devices=None):
     """Block mode's layout from whole positions pos [N, 3] (a tensor on the
     potential's device): (the serpentine site sort, the tile-pair capacity
     from the active tile pairs at the sorted layout, the s3/s5 line
     capacity from the most live lines of one (row water, cluster) slab at
     the sites' positions with the M sites placed, at most the number of
-    column tiles)."""
+    column tiles, and for a mesh of n_devices shards the local list
+    capacity from the most active pairs of one shard's row slab, else
+    None)."""
     o = oxygen_positions(system, pos)
     mol_perm = bs.molecule_sort_permutation(o.detach().cpu().numpy(), box)
     site_perm = (4 * mol_perm[:, None] + np.arange(4)[None, :]).reshape(-1)
@@ -689,8 +757,26 @@ def block_layout(system: System, pos, box, cutoff, margin):
                                 cutoff, n_tiles * n_tiles)
     pos_v = bs.pad_rows(compute_virtual_sites(system, pos)[perm], bs.padded(n_sites))
     _, count = bs.line_slots(bs.live_lines(pos_v, n_sites, full, box, cutoff), full)
+    cap_local = None
+    if n_devices:
+        from mbpol_openmm_plugin_tpu_torch.parallel.mesh import padded_for_mesh
+        ntl = padded_for_mesh(n_sites, n_devices) // bs.TILE // n_devices
+        valid = (full.meta & bs.VALID) > 0
+        per_tile = torch.bincount(full.ti[valid].long(), minlength=ntl * n_devices)
+        per_dev = per_tile[:ntl * n_devices].reshape(n_devices, ntl).sum(dim=1)
+        cap_local = max(int(margin * int(torch.max(per_dev))) + 8, 16)
     return (site_perm, max(int(margin * int(full.n_act)) + 8, 16),
-            min(max(int(margin * int(torch.max(count))) + 2, 8), n_tiles))
+            min(max(int(margin * int(torch.max(count))) + 2, 8), n_tiles), cap_local)
+
+
+def _over_rows(mesh, n_rows, device, fn):
+    """fn(device, 0, n_rows) without a mesh; under one, the sum over its
+    shards' slabs of fn(shard device, lo, hi), added on the lead device in
+    shard order."""
+    if mesh is None:
+        return fn(device, 0, n_rows)
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    return M.sum_to_lead(mesh, M.map_rows(mesh, n_rows, fn))
 
 
 def _redistribute_m_sites(system: System, f):

@@ -112,22 +112,33 @@ def load():
     lib.mbpol_fixed_field_scf.restype = i32
     lib.mbpol_direct_efp.argtypes = [ptr, ptr, i32, *consts, i32, ptr, ptr, ptr, ptr, ptr]
     lib.mbpol_direct_efp.restype = i32
+    # the full-grid row kernels: sites, n, row0, n_rows, n_cols, consts,
+    # tile, partials, field, s3, s5, stream; sites, mu, n, row0, n_rows,
+    # consts, tile, partials, force, pot, e_row, stream
+    lib.mbpol_fixed_field_scf_rows.argtypes = [ptr, i32, i32, i32, i32, *consts, i32, ptr, ptr,
+                                               ptr, ptr, ptr]
+    lib.mbpol_fixed_field_scf_rows.restype = i32
+    lib.mbpol_direct_efp_rows.argtypes = [ptr, ptr, i32, i32, i32, *consts, i32, ptr, ptr, ptr,
+                                          ptr, ptr]
+    lib.mbpol_direct_efp_rows.restype = i32
     lib.mbpol_empty_launch.argtypes = [ptr]
     lib.mbpol_empty_launch.restype = i32
-    # block-sparse kernels (csrc/elec_direct_bs.cu): list pointers tj, meta, row_start
+    # block-sparse kernels (csrc/elec_direct_bs.cu): list pointers tj, meta,
+    # row_start; the tiles: n_tiles, row_tile0, n_row_tiles
     lists = [ptr, ptr, ptr]
-    # K1-bs: sites, n, n_tiles, lists, consts, n_lines, box scratch, field,
+    tiles = [i32, i32, i32]
+    # K1-bs: sites, n, tiles, lists, consts, n_lines, box scratch, field,
     # s3, s5, line_entry, line_count, stream
-    lib.mbpol_fixed_field_scf_bs.argtypes = [ptr, i32, i32, *lists, *consts, i32, ptr, ptr, ptr,
-                                             ptr, ptr, ptr, ptr]
+    lib.mbpol_fixed_field_scf_bs.argtypes = [ptr, i32, *tiles, *lists, *consts, i32, ptr, ptr,
+                                             ptr, ptr, ptr, ptr, ptr]
     lib.mbpol_fixed_field_scf_bs.restype = i32
-    # K3-bs: sites, mu, n_tiles, tj, consts, n_lines, s3, s5, line_entry,
+    # K3-bs: sites, mu, tiles, tj, consts, n_lines, s3, s5, line_entry,
     # line_count, field, stream
-    lib.mbpol_scf_field_bs.argtypes = [ptr, ptr, i32, ptr, *consts, i32, ptr, ptr, ptr, ptr, ptr,
-                                       ptr]
+    lib.mbpol_scf_field_bs.argtypes = [ptr, ptr, *tiles, ptr, *consts, i32, ptr, ptr, ptr, ptr,
+                                       ptr, ptr]
     lib.mbpol_scf_field_bs.restype = i32
-    # K2-bs takes n, n_tiles and the cluster-box scratch
-    lib.mbpol_direct_efp_bs.argtypes = [ptr, ptr, i32, i32, *lists, *consts, ptr, ptr, ptr,
+    # K2-bs takes n, the tiles and the cluster-box scratch
+    lib.mbpol_direct_efp_bs.argtypes = [ptr, ptr, i32, *tiles, *lists, *consts, ptr, ptr, ptr,
                                         ptr, ptr]
     lib.mbpol_direct_efp_bs.restype = i32
     # fused PIP kernels (csrc/pip_fused.cu): x, p, v, tables..., e, g, stream

@@ -3,11 +3,19 @@ and their plain PyTorch twins (counterpart of
 mbpol_openmm_plugin_tpu/ops/elec_pallas.py).
 
 K1 `fixed_field_and_scf_factors` replaces the Pallas kernel
-`_fixed_field_kernel_tri` (and `_fixed_field_kernel`): the direct fixed
-charge field [N,3] and the full symmetric SCF factor matrices s3/s5 [N,N].
-K2 `direct_energy_force_pot` replaces `_pair_force_kernel_tri` (and
-`_pair_force_kernel`): the direct-space energy, pair forces [N,3] and
-per-site potential [N] from the induced dipoles.
+`_fixed_field_kernel_tri`: the direct fixed charge field [N,3] and the
+full symmetric SCF factor matrices s3/s5 [N,N].
+K2 `direct_energy_force_pot` replaces `_pair_force_kernel_tri`: the
+direct-space energy, pair forces [N,3] and per-site potential [N] from the
+induced dipoles.
+`fixed_field_and_scf_factors_rows` and `direct_energy_force_pot_rows`
+replace the full-grid `_fixed_field_kernel` and `_pair_force_kernel`: the
+same functions for a range of rows against every column, which is what
+one shard of a device mesh computes (`*_sharded`, the counterparts of
+elec_pallas.fixed_field_and_scf_factors_sharded and
+direct_energy_force_pot_sharded: rows padded to
+parallel.mesh.padded_for_mesh and split in equal slabs, s3/s5 kept as one
+[rows, N_pad] slab per shard on its device).
 
 What bounds them on the H100 and the design: see csrc/elec_direct.cu (the
 triangular form of the TPU kernels: one block per tile pair ti <= tj in
@@ -17,7 +25,8 @@ in a fixed order, so no atomics and the same bits on every run; s3/s5
 written whole and exactly symmetric).
 
 Dispatch: a CPU tensor goes to the plain twin; a CUDA float32 tensor goes
-to the kernel; anything else raises. There is no fallback. Before either,
+to the kernel, launched on the tensor's device and its current stream;
+anything else raises. There is no fallback. Before either,
 every wrapper (and those of ops/elec_direct_bs.py) refuses a box shorter
 than twice the cutoff (`DirectConsts.check_box`). The full twins
 (`*_plain`) are written from the XLA dense formulas of models/pme.py with
@@ -243,6 +252,62 @@ def direct_energy_force_pot_plain(sites, mu, c: DirectConsts):
     return torch.sum(e_row), force, pot
 
 
+def _rows_chunks(sites, row_lo, row_hi):
+    """Per chunk of the rows [row_lo, row_hi) (all below N) against the N
+    sites: (row sites [r, 8], every site [N, 8], mask [r, N]: not the same
+    site). Chunks of TRI_CHUNK site pairs."""
+    n = sites.shape[0]
+    cols = torch.arange(n, device=sites.device)
+    step = max(1, TRI_CHUNK // max(n, 1))
+    for a in range(row_lo, row_hi, step):
+        rows = torch.arange(a, min(a + step, row_hi), device=sites.device)
+        yield sites[rows], sites, rows[:, None] != cols[None, :]
+
+
+def _pad_rows_cols(x, n_rows, n_cols=None):
+    """x [r, ...] zero-padded to n_rows rows (and its last dim to n_cols)."""
+    if n_cols is not None:
+        x = torch.nn.functional.pad(x, (0, n_cols - x.shape[-1]))
+    return torch.nn.functional.pad(x, (0, 0) * (x.dim() - 1) + (0, n_rows - x.shape[0]))
+
+
+def fixed_field_and_scf_factors_rows_plain(sites, row_lo, row_hi, c: DirectConsts,
+                                           n_cols=None):
+    """Plain twin of the full-grid row kernel #3: rows [row_lo, row_hi) of
+    K1's function (field [rows, 3], s3 [rows, n_cols], s5 [rows, n_cols];
+    n_cols >= N, default N); rows and columns at or past N are zero (and
+    not computed)."""
+    n = sites.shape[0]
+    n_cols = n if n_cols is None else n_cols
+    real = max(min(row_hi, n), row_lo)
+    out = [k1_terms(srow, scol, mask, c) for srow, scol, mask in
+           _rows_chunks(sites, row_lo, real)]
+    if not out:
+        out = [(sites.new_zeros(0, 3), sites.new_zeros(0, n), sites.new_zeros(0, n))]
+    field, s3, s5 = (torch.cat(x) for x in zip(*out))
+    rows = row_hi - row_lo
+    return (_pad_rows_cols(field, rows), _pad_rows_cols(s3, rows, n_cols),
+            _pad_rows_cols(s5, rows, n_cols))
+
+
+def direct_energy_force_pot_rows_plain(sites, mu, row_lo, row_hi, c: DirectConsts):
+    """Plain twin of the full-grid row kernel #4: per row of [row_lo,
+    row_hi) (half the pair-energy sum [rows], force [rows, 3], potential
+    [rows]) against every site; rows at or past N are zero (and not
+    computed)."""
+    n = sites.shape[0]
+    real = max(min(row_hi, n), row_lo)
+    out, a = [], row_lo
+    for srow, scol, mask in _rows_chunks(sites, row_lo, real):
+        r = srow.shape[0]
+        out.append(k2_terms(srow, scol, mask, mu[a:a + r], mu, c))
+        a += r
+    if not out:
+        out = [(sites.new_zeros(0), sites.new_zeros(0, 3), sites.new_zeros(0))]
+    rows = row_hi - row_lo
+    return tuple(_pad_rows_cols(torch.cat(x), rows) for x in zip(*out))
+
+
 # ----------------------------------------------------------------------
 # Triangular twins: the kernels' decomposition (tiles, tile-pair order,
 # row and column partials in the scratch layout, the tile sum's order)
@@ -393,6 +458,13 @@ def _stream():
     return torch.cuda.current_stream().cuda_stream
 
 
+def on_device(t):
+    """Context making t's card the current device, so that _stream() is its
+    stream (a shard of a device mesh may sit on another card than the
+    current one)."""
+    return torch.cuda.device(t.device)
+
+
 def _partials(n, k, like):
     """The kernels' row/column partials scratch [n_tiles, k, n] (every
     entry written by one block, so left uninitialized)."""
@@ -414,9 +486,11 @@ def fixed_field_and_scf_factors(sites, c: DirectConsts):
     s3 = torch.empty((n, n), dtype=sites.dtype, device=sites.device)
     s5 = torch.empty((n, n), dtype=sites.dtype, device=sites.device)
     part = _partials(n, 3, sites)
-    _check(lib.mbpol_fixed_field_scf(sites.data_ptr(), n, *c.kernel_args(), TILE,
-                                     part.data_ptr(), field.data_ptr(), s3.data_ptr(),
-                                     s5.data_ptr(), _stream()), 'fixed_field_and_scf_factors')
+    with on_device(sites):
+        _check(lib.mbpol_fixed_field_scf(sites.data_ptr(), n, *c.kernel_args(), TILE,
+                                         part.data_ptr(), field.data_ptr(), s3.data_ptr(),
+                                         s5.data_ptr(), _stream()),
+               'fixed_field_and_scf_factors')
     fixed_field_and_scf_factors.launches += 1
     return field, s3, s5
 
@@ -437,19 +511,127 @@ def direct_energy_force_pot(sites, mu, c: DirectConsts):
     pot = torch.empty((n,), dtype=sites.dtype, device=sites.device)
     e_row = torch.empty((n,), dtype=sites.dtype, device=sites.device)
     part = _partials(n, 5, sites)
-    _check(lib.mbpol_direct_efp(sites.data_ptr(), mu.data_ptr(), n, *c.kernel_args(), TILE,
-                                part.data_ptr(), force.data_ptr(), pot.data_ptr(),
-                                e_row.data_ptr(), _stream()), 'direct_energy_force_pot')
+    with on_device(sites):
+        _check(lib.mbpol_direct_efp(sites.data_ptr(), mu.data_ptr(), n, *c.kernel_args(), TILE,
+                                    part.data_ptr(), force.data_ptr(), pot.data_ptr(),
+                                    e_row.data_ptr(), _stream()), 'direct_energy_force_pot')
     direct_energy_force_pot.launches += 1
+    return torch.sum(e_row), force, pot
+
+
+def fixed_field_and_scf_factors_rows(sites, row_lo, row_hi, c: DirectConsts, n_cols=None):
+    """Kernel #3 (`fixed_field_rows_kernel` + `tile_sum_kernel`): rows
+    [row_lo, row_hi) of K1's function over the full grid, from packed sites
+    [N, 8]: (field [rows, 3], s3 [rows, n_cols], s5 [rows, n_cols]) with
+    n_cols >= N (default N); rows and columns at or past N are exact
+    zeros."""
+    n = sites.shape[0]
+    n_cols = n if n_cols is None else int(n_cols)
+    if sites.dim() != 2 or sites.shape[1] != NS or not 0 <= row_lo <= row_hi or n_cols < n:
+        raise ValueError(f'expected sites [N, {NS}], 0 <= row_lo <= row_hi and n_cols >= N, got '
+                         f'{tuple(sites.shape)}, {row_lo}, {row_hi}, {n_cols}')
+    c.check_box()
+    if not _on_kernel(sites):
+        return fixed_field_and_scf_factors_rows_plain(sites, row_lo, row_hi, c, n_cols)
+    from mbpol_openmm_plugin_tpu_torch.ops import _build
+    lib = _build.load()
+    rows = row_hi - row_lo
+    field = torch.empty((rows, 3), dtype=sites.dtype, device=sites.device)
+    s3 = torch.empty((rows, n_cols), dtype=sites.dtype, device=sites.device)
+    s5 = torch.empty((rows, n_cols), dtype=sites.dtype, device=sites.device)
+    part = torch.empty((-(-n_cols // TILE), 3, rows), dtype=sites.dtype, device=sites.device)
+    with on_device(sites):
+        _check(lib.mbpol_fixed_field_scf_rows(sites.data_ptr(), n, row_lo, rows, n_cols,
+                                              *c.kernel_args(), TILE, part.data_ptr(),
+                                              field.data_ptr(), s3.data_ptr(), s5.data_ptr(),
+                                              _stream()), 'fixed_field_and_scf_factors_rows')
+    fixed_field_and_scf_factors_rows.launches += 1
+    return field, s3, s5
+
+
+def direct_energy_force_pot_rows(sites, mu, row_lo, row_hi, c: DirectConsts):
+    """Kernel #4 (`direct_efp_rows_kernel` + `tile_sum_kernel`): rows
+    [row_lo, row_hi) of K2's function over the full grid, from packed sites
+    [N, 8] and dipoles mu [N, 3]: (half the pair-energy sum [rows], force
+    [rows, 3], potential [rows]), the TPU kernel's output columns; rows at
+    or past N are zero."""
+    n = sites.shape[0]
+    if (sites.dim() != 2 or sites.shape[1] != NS or tuple(mu.shape) != (n, 3)
+            or not 0 <= row_lo <= row_hi):
+        raise ValueError(f'expected sites [N, {NS}], mu [N, 3] and 0 <= row_lo <= row_hi, got '
+                         f'{tuple(sites.shape)}, {tuple(mu.shape)}, {row_lo}, {row_hi}')
+    c.check_box()
+    if not _on_kernel(sites, mu):
+        return direct_energy_force_pot_rows_plain(sites, mu, row_lo, row_hi, c)
+    from mbpol_openmm_plugin_tpu_torch.ops import _build
+    lib = _build.load()
+    rows = row_hi - row_lo
+    force = torch.zeros((rows, 3), dtype=sites.dtype, device=sites.device)
+    pot = torch.zeros((rows,), dtype=sites.dtype, device=sites.device)
+    e_row = torch.zeros((rows,), dtype=sites.dtype, device=sites.device)
+    part = torch.empty((-(-n // TILE), 5, rows), dtype=sites.dtype, device=sites.device)
+    with on_device(sites):
+        _check(lib.mbpol_direct_efp_rows(sites.data_ptr(), mu.data_ptr(), n, row_lo, rows,
+                                         *c.kernel_args(), TILE, part.data_ptr(),
+                                         force.data_ptr(), pot.data_ptr(), e_row.data_ptr(),
+                                         _stream()), 'direct_energy_force_pot_rows')
+    direct_energy_force_pot_rows.launches += 1
+    return e_row, force, pot
+
+
+def _shard_rows(n, mesh):
+    """(padded row count, [(device, lo, hi)]) of the sharded dense direct
+    space: parallel.mesh.padded_for_mesh rows in equal slabs."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    n_pad = M.padded_for_mesh(n, mesh.size)
+    return n_pad, [(d, lo, hi) for d, (lo, hi) in zip(mesh.devices, M.row_ranges(n_pad, mesh))]
+
+
+def fixed_field_and_scf_factors_sharded(sites, c: DirectConsts, mesh):
+    """Kernel #3 under a device mesh (elec_pallas.fixed_field_and_scf_factors_sharded):
+    each shard computes its slab of the padded rows against every padded
+    column on its device. Returns (field [N, 3] on the lead device, s3 and
+    s5 as lists of row slabs [N_pad / size, N_pad], one per shard on its
+    device). Padded rows and columns hold exact zeros, so the SCF's
+    matvecs run on the slabs at the padded size."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    n = sites.shape[0]
+    n_pad, slabs = _shard_rows(n, mesh)
+    fields, s3, s5 = [], [], []
+    for dev, lo, hi in slabs:
+        with M.on_shard(dev):
+            f, a, b = fixed_field_and_scf_factors_rows(sites.to(dev), lo, hi, c, n_pad)
+        fields.append(f)
+        s3.append(a)
+        s5.append(b)
+    return M.gather_rows(mesh, fields)[:n], s3, s5
+
+
+def direct_energy_force_pot_sharded(sites, mu, c: DirectConsts, mesh):
+    """Kernel #4 under a device mesh (elec_pallas.direct_energy_force_pot_sharded):
+    each shard's rows on its device, gathered on the lead. Returns
+    (e_direct scalar, force [N, 3], pot [N]) as direct_energy_force_pot."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    n = sites.shape[0]
+    _, slabs = _shard_rows(n, mesh)
+    outs = []
+    for dev, lo, hi in slabs:
+        with M.on_shard(dev):
+            outs.append(direct_energy_force_pot_rows(sites.to(dev), mu.to(dev), lo, hi, c))
+    e_row, force, pot = (M.gather_rows(mesh, list(x))[:n] for x in zip(*outs))
     return torch.sum(e_row), force, pot
 
 
 fixed_field_and_scf_factors.launches = 0
 direct_energy_force_pot.launches = 0
+fixed_field_and_scf_factors_rows.launches = 0
+direct_energy_force_pot_rows.launches = 0
 
 KERNELS = (fixed_field_and_scf_factors, direct_energy_force_pot)
+# the full-grid row kernels of the sharded dense path
+ROW_KERNELS = (fixed_field_and_scf_factors_rows, direct_energy_force_pot_rows)
 
 
 def reset_launch_counts():
-    for k in KERNELS:
+    for k in KERNELS + ROW_KERNELS:
         k.launches = 0

@@ -39,8 +39,16 @@ reference the line twins are held to. Each kernel wrapper counts its
 launches in its `launches` attribute. What bounds the kernels on the H100
 and their design: csrc/elec_direct_bs.cu.
 
-Not ported yet: the row-sharded `*_sharded` wrappers and their row-slice
-tile lists (multi-GPU, see ROADMAP.md).
+Under a device mesh (parallel/mesh.py) each shard owns a contiguous slab of
+row tiles (`active_tile_pairs_rows`: a LOCAL list of its rows' active
+pairs, row tiles counted from the slab's first, columns global, so a row's
+partner set is shard-local; `TileList.row_tile0` says where the slab
+starts). The kernels and twins take that offset: their outputs are the
+slab's rows, and its ScfLines the slab's waters. The `*_sharded` wrappers
+(elec_pallas_bs.*_sharded) run each shard on its device and gather the rows
+on the lead device; a shard whose rows are all padding gives zeros.
+Without a mesh models/pme.py runs them over a one-shard mesh
+(parallel/mesh.or_one).
 """
 from __future__ import annotations
 
@@ -119,50 +127,74 @@ def _tile_aabbs(positions, n_sites, box, tile):
 @dataclasses.dataclass
 class TileList:
     """A padded row-major active tile-pair list (all int32 tensors on the
-    sites' device, no host sync to build): ti/tj/meta [cap], the count of
-    active pairs n_act (0-d tensor; n_act > cap is an overflow) and
-    row_start [n_tiles + 1], the start of each row tile's run."""
+    sites' device, no host sync to build) of the row tiles row_tile0 ..
+    row_tile0 + n_row_tiles - 1 (all of them on one device; a shard's slab
+    under a mesh): ti (counted from row_tile0) / tj (global) / meta [cap],
+    the count of active pairs n_act (0-d tensor; n_act > cap is an
+    overflow) and row_start [n_row_tiles + 1], the start of each row tile's
+    run."""
     ti: torch.Tensor
     tj: torch.Tensor
     meta: torch.Tensor
     n_act: torch.Tensor
     row_start: torch.Tensor
+    row_tile0: int = 0
 
     @property
     def capacity(self):
         return self.ti.shape[0]
 
+    @property
+    def n_row_tiles(self):
+        return self.row_start.shape[0] - 1
 
-def active_tile_pairs(positions, n_sites, box, cutoff, capacity, tile=TILE):
-    """Padded row-major list of active tile pairs from per-tile AABBs
-    (elec_pallas_bs.active_tile_pairs; its row-slice form
-    active_tile_pairs_rows serves the sharded wrappers, not ported).
-    positions: [np_, 3] (sites sorted spatially; rows >= n_sites are
-    padding). Conservative superset: a pair is active when the per-axis
-    minimum-image AABB gap is <= cutoff on every axis. Returns a TileList."""
+    def rows_kept(self, n_sites):
+        """The slab's rows that hold real sites (its rows before n_sites)."""
+        return min(self.n_row_tiles * TILE, max(n_sites - self.row_tile0 * TILE, 0))
+
+
+def active_tile_pairs_rows(positions, n_sites, box, cutoff, capacity, row_lo, n_row_tiles,
+                           tile=TILE):
+    """The active tile pairs of the row tiles [row_lo, row_lo +
+    n_row_tiles) against every column tile (elec_pallas_bs.active_tile_pairs_rows):
+    ti counted from row_lo, tj global, so a row's whole partner set is in
+    the list and its sums need no other shard's. Returns a TileList with
+    row_tile0 = row_lo."""
     n_tiles = positions.shape[0] // tile
     dt, dev = positions.dtype, positions.device
     b = device_const(np.asarray(box, np.float64), dtype=dt, device=dev)
     center, half, has_sites = _tile_aabbs(positions, n_sites, box, tile)
-    dc = center[None, :, :] - center[:, None, :]                   # [T, T, 3]
+    rows = slice(row_lo, row_lo + n_row_tiles)
+    dc = center[None, :, :] - center[rows, None, :]                # [ntl, T, 3]
     dc = dc - torch.floor(dc / b + 0.5) * b
-    gap = torch.abs(dc) - (half[:, None, :] + half[None, :, :])
-    act = torch.all(gap <= cutoff, dim=-1) & has_sites[:, None] & has_sites[None, :]
+    gap = torch.abs(dc) - (half[rows, None, :] + half[None, :, :])
+    act = torch.all(gap <= cutoff, dim=-1) & has_sites[rows, None] & has_sites[None, :]
 
     sel, valid, n_act = _first_true(act.reshape(-1), capacity)     # row-major
     ti = (sel // n_tiles).to(torch.int32)
     tj = (sel % n_tiles).to(torch.int32)
-    # padded entries: park on the last row tile; their contribution is
-    # masked to 0 (the kernels and twins skip entries without VALID)
-    ti = torch.where(valid, ti, n_tiles - 1)
+    # padded entries: park on the slab's last row tile; their contribution
+    # is masked to 0 (the kernels and twins skip entries without VALID)
+    ti = torch.where(valid, ti, n_row_tiles - 1)
     tj = torch.where(valid, tj, n_tiles - 1)
     first = torch.cat([torch.ones((1,), dtype=torch.bool, device=dev), ti[1:] != ti[:-1]])
     meta = (valid.to(torch.int32) * VALID + first.to(torch.int32) * FIRST_IN_ROW)
     # ti is non-decreasing (row-major, padding parked last), so each row
     # tile's run starts where searchsorted puts it
     row_start = torch.searchsorted(
-        ti, torch.arange(n_tiles + 1, dtype=torch.int32, device=dev)).to(torch.int32)
-    return TileList(ti=ti, tj=tj, meta=meta.to(torch.int32), n_act=n_act, row_start=row_start)
+        ti, torch.arange(n_row_tiles + 1, dtype=torch.int32, device=dev)).to(torch.int32)
+    return TileList(ti=ti, tj=tj, meta=meta.to(torch.int32), n_act=n_act, row_start=row_start,
+                    row_tile0=int(row_lo))
+
+
+def active_tile_pairs(positions, n_sites, box, cutoff, capacity, tile=TILE):
+    """Padded row-major list of active tile pairs from per-tile AABBs
+    (elec_pallas_bs.active_tile_pairs): every row tile's run.
+    positions: [np_, 3] (sites sorted spatially; rows >= n_sites are
+    padding). Conservative superset: a pair is active when the per-axis
+    minimum-image AABB gap is <= cutoff on every axis. Returns a TileList."""
+    n_tiles = positions.shape[0] // tile
+    return active_tile_pairs_rows(positions, n_sites, box, cutoff, capacity, 0, n_tiles, tile)
 
 
 def molecule_sort_permutation(o_positions, box, mols_per_tile=TILE // 4):
@@ -188,12 +220,13 @@ def molecule_sort_permutation(o_positions, box, mols_per_tile=TILE // 4):
     return np.argsort(key, kind='stable')
 
 
-def pack_sites(positions, charges, d16_inv, mol_index, is_o):
-    """[padded(N), 8] packed sites (ops/elec_direct.pack_sites layout);
-    padded rows are zero with molecule id -1."""
+def pack_sites(positions, charges, d16_inv, mol_index, is_o, pad_to=None):
+    """[pad_to, 8] packed sites (ops/elec_direct.pack_sites layout; pad_to
+    a multiple of TILE, default padded(N)); padded rows are zero with
+    molecule id -1."""
     s = ED.pack_sites(positions, charges, d16_inv, mol_index, is_o)
     n = s.shape[0]
-    pad = s.new_zeros((padded(n) - n, ED.NS))
+    pad = s.new_zeros(((padded(n) if pad_to is None else pad_to) - n, ED.NS))
     pad[:, ED._MOL] = -1.0
     return torch.cat([s, pad], dim=0)
 
@@ -237,7 +270,7 @@ def live_lines(xyz, n_sites, tiles: TileList, box, cutoff):
     b = device_const(np.asarray(box, np.float64), dtype=xyz.dtype, device=xyz.device)
     rc, rh = (x.reshape(-1, TILE // WATER, 3) for x in group_boxes(xyz, n_sites, box, WATER))
     cc, ch = (x.reshape(-1, TILE // CLUSTER, 3) for x in group_boxes(xyz, n_sites, box, CLUSTER))
-    ti, tj = tiles.ti.long(), tiles.tj.long()
+    ti, tj = tiles.ti.long() + tiles.row_tile0, tiles.tj.long()
     dc = cc[tj][:, None, :, :] - rc[ti][:, :, None, :]
     dc = dc - torch.floor(dc / b + 0.5) * b
     gap = torch.clamp(dc.abs() - (rh[ti][:, :, None, :] + ch[tj][:, None, :, :]), min=0.0)
@@ -367,44 +400,50 @@ def blocks_to_lines(s3, s5, tiles: TileList, live, n_lines):
 # ----------------------------------------------------------------------
 
 def _chunks(tiles: TileList, chunk):
-    for a in range(0, tiles.capacity, chunk):
-        yield slice(a, min(a + chunk, tiles.capacity))
+    """Slices of `chunk` list entries over the valid ones: the list is
+    row-major with its padded entries parked at the end, and those add
+    nothing (a host read of n_act: the twins serve the CPU and the checks)."""
+    n_valid = min(int(tiles.n_act), tiles.capacity)
+    for a in range(0, n_valid, chunk):
+        yield slice(a, min(a + chunk, n_valid))
 
 
 def _entry_tiles(sites, tiles: TileList, sl, n_sites):
-    """Row and column tiles [c, 256, 8] of the list entries `sl`, and the
-    mask [c, 256, 256] of pairs that count: valid entry, both sites real,
-    not the same site."""
+    """Row and column tiles [c, 256, 8] of the list entries `sl`, the mask
+    [c, 256, 256] of pairs that count (valid entry, both sites real, not
+    the same site), and the entries' row tiles in the list's count and
+    column tiles."""
     st = sites.reshape(-1, TILE, ED.NS)
     ti, tj = tiles.ti[sl].long(), tiles.tj[sl].long()
     lane = torch.arange(TILE, device=sites.device)
-    gi, gj = ti[:, None] * TILE + lane, tj[:, None] * TILE + lane          # [c, 256]
+    gi, gj = (ti[:, None] + tiles.row_tile0) * TILE + lane, tj[:, None] * TILE + lane
     valid = (tiles.meta[sl] & VALID) > 0
     mask = ((gi[:, :, None] != gj[:, None, :]) & (gi < n_sites)[:, :, None]
             & (gj < n_sites)[:, None, :] & valid[:, None, None])
-    return st[ti], st[tj], mask, ti, tj
+    return st[ti + tiles.row_tile0], st[tj], mask, ti, tj
 
 
 def _k1_plain(sites, n_sites, tiles: TileList, c: ED.DirectConsts, chunk, store):
-    """The fixed field [n, 3] of K1-bs's formulas; store(sl, s3, s5) takes
-    each chunk's blocks [c, 256, 256] (zero for padded entries)."""
-    n_tiles = sites.shape[0] // TILE
-    field = sites.new_zeros((n_tiles, TILE, 3))
+    """The fixed field of K1-bs's formulas at the list's real rows
+    [tiles.rows_kept(n), 3]; store(sl, s3, s5) takes each chunk's blocks
+    [c, 256, 256] (zero for padded entries)."""
+    field = sites.new_zeros((tiles.n_row_tiles, TILE, 3))
     for sl in _chunks(tiles, chunk):
         srow, scol, mask, ti, _ = _entry_tiles(sites, tiles, sl, n_sites)
         f, b3, b5 = ED.k1_terms(srow, scol, mask, c)
         field.index_add_(0, ti, f)
         store(sl, b3, b5)
-    return field.reshape(-1, 3)[:n_sites]
+    return field.reshape(-1, 3)[:tiles.rows_kept(n_sites)]
 
 
 def fixed_field_and_scf_blocks_plain(sites, n_sites, tiles: TileList, c: ED.DirectConsts,
                                      chunk=CHUNK):
-    """K1-bs's function in the Pallas kernel's layout: (field [n,3], s3
-    [cap,256,256], s5 [cap,256,256]); the blocks of padded list entries
-    come out zero. The reference of the line twin (tests, checks)."""
-    s3 = sites.new_empty((tiles.capacity, TILE, TILE))
-    s5 = torch.empty_like(s3)
+    """K1-bs's function in the Pallas kernel's layout: (field [n,3] of the
+    list's rows, s3 [cap,256,256], s5 [cap,256,256]); the blocks of padded
+    list entries come out zero. The reference of the line twin (tests,
+    checks)."""
+    s3 = sites.new_zeros((tiles.capacity, TILE, TILE))
+    s5 = torch.zeros_like(s3)
 
     def store(sl, b3, b5):
         s3[sl], s5[sl] = b3, b5
@@ -421,7 +460,8 @@ def fixed_field_and_scf_lines_plain(sites, n_sites, tiles: TileList, c: ED.Direc
     if n_lines is None:
         n_lines = default_line_capacity(sites.shape[0])
     live = live_lines(sites[:, :3], n_sites, tiles, c.box, c.cutoff)
-    lines = _new_lines(sites.shape[0], n_lines, sites.dtype, sites.device, torch.zeros)
+    lines = _new_lines(tiles.n_row_tiles * TILE, n_lines, sites.dtype, sites.device,
+                       torch.zeros)
     slot, lines.count = line_slots(live, tiles)
     field = _k1_plain(sites, n_sites, tiles, c, chunk,
                       lambda sl, b3, b5: _put_lines(lines, b3, b5, live, slot, tiles, sl))
@@ -429,21 +469,22 @@ def fixed_field_and_scf_lines_plain(sites, n_sites, tiles: TileList, c: ED.Direc
 
 
 def _k3_plain(sites, mu_pad, tiles: TileList, n_sites, c: ED.DirectConsts, chunk, blocks):
-    """The dipole field [n,3] of K3-bs's formula; blocks(sl) gives the
-    s3/s5 blocks [c, 256, 256] of the list entries sl."""
+    """The dipole field of K3-bs's formula at the list's real rows
+    [tiles.rows_kept(n), 3]; blocks(sl) gives the s3/s5 blocks [c, 256,
+    256] of the list entries sl."""
     n_tiles = sites.shape[0] // TILE
     st = sites.reshape(n_tiles, TILE, ED.NS)
     mt = mu_pad.reshape(n_tiles, TILE, 3)
-    field = sites.new_zeros((n_tiles, TILE, 3))
+    field = sites.new_zeros((tiles.n_row_tiles, TILE, 3))
     for sl in _chunks(tiles, chunk):
         ti, tj = tiles.ti[sl].long(), tiles.tj[sl].long()
         valid = ((tiles.meta[sl] & VALID) > 0)[:, None, None]
-        delta = ED._delta(st[ti, :, :3], st[tj, :, :3], c.box)
+        delta = ED._delta(st[ti + tiles.row_tile0, :, :3], st[tj, :, :3], c.box)
         s3, s5 = blocks(sl)
         # the blocks of padded entries are unwritten in the Pallas layout:
         # select, do not multiply by zero
         field.index_add_(0, ti, torch.where(valid, dipole_field(mt[tj], s3, s5, delta), 0.0))
-    return field.reshape(-1, 3)[:n_sites]
+    return field.reshape(-1, 3)[:tiles.rows_kept(n_sites)]
 
 
 def scf_dipole_field_blocks_plain(sites, s3, s5, mu_pad, tiles: TileList, n_sites,
@@ -466,15 +507,16 @@ def scf_dipole_field_bs_plain(sites, lines: ScfLines, mu_pad, tiles: TileList, n
 
 def direct_energy_force_pot_bs_plain(sites, mu, n_sites, tiles: TileList,
                                      c: ED.DirectConsts, chunk=CHUNK):
-    """Plain twin of K2-bs: (e_direct scalar, force [n,3], pot [n])."""
+    """Plain twin of K2-bs: (e_direct scalar, force [n,3], pot [n]) of the
+    list's rows (force and pot [tiles.rows_kept(n)])."""
     n_tiles = sites.shape[0] // TILE
     mt = pad_rows(mu, sites.shape[0]).reshape(n_tiles, TILE, 3)
-    out = sites.new_zeros((n_tiles, TILE, 5))
+    out = sites.new_zeros((tiles.n_row_tiles, TILE, 5))
     for sl in _chunks(tiles, chunk):
         srow, scol, mask, ti, tj = _entry_tiles(sites, tiles, sl, n_sites)
-        e_row, force, pot = ED.k2_terms(srow, scol, mask, mt[ti], mt[tj], c)
+        e_row, force, pot = ED.k2_terms(srow, scol, mask, mt[ti + tiles.row_tile0], mt[tj], c)
         out.index_add_(0, ti, torch.cat([force, pot[..., None], e_row[..., None]], dim=-1))
-    out = out.reshape(-1, 5)[:n_sites]
+    out = out.reshape(-1, 5)[:tiles.rows_kept(n_sites)]
     return torch.sum(out[:, 4]), out[:, :3], out[:, 3]
 
 
@@ -509,16 +551,24 @@ def _box_scratch(sites):
     return torch.empty((sites.shape[0] // CLUSTER, 8), dtype=sites.dtype, device=sites.device)
 
 
+def _tile_args(sites, tiles: TileList):
+    """The kernels' tile arguments: the sites' tiles, and the first and the
+    number of the row tiles the list holds."""
+    return sites.shape[0] // TILE, tiles.row_tile0, tiles.n_row_tiles
+
+
 def _list_args(tiles: TileList):
     return tiles.tj.data_ptr(), tiles.meta.data_ptr(), tiles.row_start.data_ptr()
 
 
 def fixed_field_and_scf_lines(sites, n_sites, tiles: TileList, c: ED.DirectConsts,
                               n_lines=None):
-    """K1-bs: (field [n,3], ScfLines of capacity n_lines, by default
-    default_line_capacity) from padded packed sites [padded(n), 8] and an
-    active tile-pair list. Only the live lines are written; lines.overflow()
-    says whether a slab held more than n_lines."""
+    """K1-bs: (field [rows, 3] of the list's real rows, ScfLines of the
+    list's row waters with capacity n_lines, by default
+    default_line_capacity) from padded packed sites [np_, 8] and an active
+    tile-pair list (all rows on one device, a shard's under a mesh). Only
+    the live lines are written; lines.overflow() says whether a slab held
+    more than n_lines."""
     _check_sites(sites)
     c.check_box()
     np_ = sites.shape[0]
@@ -528,26 +578,30 @@ def fixed_field_and_scf_lines(sites, n_sites, tiles: TileList, c: ED.DirectConst
         return fixed_field_and_scf_lines_plain(sites, n_sites, tiles, c, n_lines)
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
-    field = torch.empty((np_, 3), dtype=sites.dtype, device=sites.device)
-    lines = _new_lines(np_, n_lines, sites.dtype, sites.device, torch.empty)
+    rows = tiles.n_row_tiles * TILE
+    field = torch.empty((rows, 3), dtype=sites.dtype, device=sites.device)
+    lines = _new_lines(rows, n_lines, sites.dtype, sites.device, torch.empty)
     boxes = _box_scratch(sites)
-    ED._check(lib.mbpol_fixed_field_scf_bs(
-        sites.data_ptr(), n_sites, np_ // TILE, *_list_args(tiles), *c.kernel_args(), n_lines,
-        boxes.data_ptr(), field.data_ptr(), lines.s3.data_ptr(), lines.s5.data_ptr(),
-        lines.entry.data_ptr(), lines.count.data_ptr(), ED._stream()),
-        'fixed_field_and_scf_lines')
+    with ED.on_device(sites):
+        ED._check(lib.mbpol_fixed_field_scf_bs(
+            sites.data_ptr(), n_sites, *_tile_args(sites, tiles), *_list_args(tiles),
+            *c.kernel_args(), n_lines, boxes.data_ptr(), field.data_ptr(), lines.s3.data_ptr(),
+            lines.s5.data_ptr(), lines.entry.data_ptr(), lines.count.data_ptr(), ED._stream()),
+            'fixed_field_and_scf_lines')
     fixed_field_and_scf_lines.launches += 1
-    return field[:n_sites], lines
+    return field[:tiles.rows_kept(n_sites)], lines
 
 
 def scf_dipole_field_bs(sites, lines: ScfLines, mu_pad, tiles: TileList, n_sites,
                         c: ED.DirectConsts):
-    """K3-bs: the dipole field [n,3] at the (sorted) sites from the lines
-    K1-bs stored for them and mu_pad [padded(n), 3] (padded rows zero)."""
+    """K3-bs: the dipole field [rows, 3] at the list's real (sorted) rows
+    from the lines K1-bs stored for them and mu_pad [np_, 3] (padded rows
+    zero)."""
     _check_sites(sites)
     c.check_box()
     np_ = sites.shape[0]
-    shape = (np_ // WATER, TILE // CLUSTER, lines.capacity, WATER, CLUSTER)
+    rows = tiles.n_row_tiles * TILE
+    shape = (rows // WATER, TILE // CLUSTER, lines.capacity, WATER, CLUSTER)
     if (tuple(mu_pad.shape) != (np_, 3) or tuple(lines.s3.shape) != shape
             or lines.s5.shape != lines.s3.shape or tuple(lines.entry.shape) != shape[:3]
             or tuple(lines.count.shape) != shape[:2]):
@@ -559,18 +613,21 @@ def scf_dipole_field_bs(sites, lines: ScfLines, mu_pad, tiles: TileList, n_sites
         return scf_dipole_field_bs_plain(sites, lines, mu_pad, tiles, n_sites, c)
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
-    field = torch.empty((np_, 3), dtype=sites.dtype, device=sites.device)
-    ED._check(lib.mbpol_scf_field_bs(
-        sites.data_ptr(), mu_pad.data_ptr(), np_ // TILE, tiles.tj.data_ptr(), *c.kernel_args(),
-        lines.capacity, lines.s3.data_ptr(), lines.s5.data_ptr(), lines.entry.data_ptr(),
-        lines.count.data_ptr(), field.data_ptr(), ED._stream()), 'scf_dipole_field_bs')
+    field = torch.empty((rows, 3), dtype=sites.dtype, device=sites.device)
+    with ED.on_device(sites):
+        ED._check(lib.mbpol_scf_field_bs(
+            sites.data_ptr(), mu_pad.data_ptr(), *_tile_args(sites, tiles),
+            tiles.tj.data_ptr(), *c.kernel_args(), lines.capacity, lines.s3.data_ptr(),
+            lines.s5.data_ptr(), lines.entry.data_ptr(), lines.count.data_ptr(),
+            field.data_ptr(), ED._stream()), 'scf_dipole_field_bs')
     scf_dipole_field_bs.launches += 1
-    return field[:n_sites]
+    return field[:tiles.rows_kept(n_sites)]
 
 
 def direct_energy_force_pot_bs(sites, mu, n_sites, tiles: TileList, c: ED.DirectConsts):
-    """K2-bs: (e_direct scalar, force [n,3], pot [n]) from padded packed
-    sites and the induced dipoles mu [n,3] (in the sites' order)."""
+    """K2-bs: (e_direct scalar, force [rows, 3], pot [rows]) of the list's
+    real rows from padded packed sites and the induced dipoles mu [n, 3]
+    of all sites (in the sites' order)."""
     _check_sites(sites)
     c.check_box()
     if tuple(mu.shape) != (n_sites, 3):
@@ -580,17 +637,85 @@ def direct_energy_force_pot_bs(sites, mu, n_sites, tiles: TileList, c: ED.Direct
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
     np_ = sites.shape[0]
+    rows = tiles.n_row_tiles * TILE
     mu_pad = pad_rows(mu, np_)
-    force = torch.empty((np_, 3), dtype=sites.dtype, device=sites.device)
-    pot = torch.empty((np_,), dtype=sites.dtype, device=sites.device)
-    e_row = torch.empty((np_,), dtype=sites.dtype, device=sites.device)
+    force = torch.empty((rows, 3), dtype=sites.dtype, device=sites.device)
+    pot = torch.empty((rows,), dtype=sites.dtype, device=sites.device)
+    e_row = torch.empty((rows,), dtype=sites.dtype, device=sites.device)
     boxes = _box_scratch(sites)
-    ED._check(lib.mbpol_direct_efp_bs(
-        sites.data_ptr(), mu_pad.data_ptr(), n_sites, np_ // TILE, *_list_args(tiles),
-        *c.kernel_args(), boxes.data_ptr(), force.data_ptr(), pot.data_ptr(), e_row.data_ptr(),
-        ED._stream()), 'direct_energy_force_pot_bs')
+    with ED.on_device(sites):
+        ED._check(lib.mbpol_direct_efp_bs(
+            sites.data_ptr(), mu_pad.data_ptr(), n_sites, *_tile_args(sites, tiles),
+            *_list_args(tiles),
+            *c.kernel_args(), boxes.data_ptr(), force.data_ptr(), pot.data_ptr(),
+            e_row.data_ptr(), ED._stream()), 'direct_energy_force_pot_bs')
     direct_energy_force_pot_bs.launches += 1
-    return torch.sum(e_row[:n_sites]), force[:n_sites], pot[:n_sites]
+    kept = tiles.rows_kept(n_sites)
+    return torch.sum(e_row[:kept]), force[:kept], pot[:kept]
+
+
+# ----------------------------------------------------------------------
+# Under a device mesh: a slab of row tiles per shard
+# ----------------------------------------------------------------------
+
+def active_tile_pairs_sharded(positions, n_sites, box, cutoff, cap_local, mesh):
+    """Per-shard LOCAL active tile-pair lists (elec_pallas_bs.active_tile_pairs_sharded):
+    positions [np_, 3] padded to parallel.mesh.padded_for_mesh (sites
+    sorted spatially); shard k owns the row tiles [k ntl, (k + 1) ntl),
+    ntl = np_ / TILE / size, and its list (capacity cap_local) is built on
+    its device. Returns the TileLists in shard order."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    n_tiles = positions.shape[0] // TILE
+    if n_tiles % mesh.size:
+        raise ValueError(f'{n_tiles} row tiles do not split over {mesh.size} shards')
+    ntl = n_tiles // mesh.size
+    out = []
+    for k, dev in enumerate(mesh.devices):
+        with M.on_shard(dev):
+            out.append(active_tile_pairs_rows(positions.to(dev), n_sites, box, cutoff, cap_local,
+                                              k * ntl, ntl))
+    return out
+
+
+def fixed_field_and_scf_lines_sharded(sites, n_sites, tiles, c: ED.DirectConsts, n_lines,
+                                      mesh):
+    """K1-bs under a mesh (elec_pallas_bs.fixed_field_and_scf_blocks_sharded):
+    (field [n, 3] on the lead device, one ScfLines per shard on its device)
+    from the shards' lists `tiles`."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    fields, lines = [], []
+    for dev, t in zip(mesh.devices, tiles):
+        with M.on_shard(dev):
+            f, ln = fixed_field_and_scf_lines(sites.to(dev), n_sites, t, c, n_lines)
+        fields.append(f)
+        lines.append(ln)
+    return M.gather_rows(mesh, fields), lines
+
+
+def scf_dipole_field_bs_sharded(sites, lines, mu_pad, tiles, n_sites, c: ED.DirectConsts,
+                                mesh):
+    """K3-bs under a mesh (elec_pallas_bs.scf_dipole_field_bs_sharded): each
+    shard's rows from its lines and the whole dipole vector mu_pad [np_, 3],
+    gathered into the field [n, 3] on the lead device."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    out = []
+    for dev, t, ln in zip(mesh.devices, tiles, lines):
+        with M.on_shard(dev):
+            out.append(scf_dipole_field_bs(sites.to(dev), ln, mu_pad.to(dev), t, n_sites, c))
+    return M.gather_rows(mesh, out)
+
+
+def direct_energy_force_pot_bs_sharded(sites, mu, n_sites, tiles, c: ED.DirectConsts, mesh):
+    """K2-bs under a mesh (elec_pallas_bs.direct_energy_force_pot_bs_sharded):
+    (e_direct, force [n, 3], pot [n]) on the lead device, the energies of
+    the shards added in shard order."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    outs = []
+    for dev, t in zip(mesh.devices, tiles):
+        with M.on_shard(dev):
+            outs.append(direct_energy_force_pot_bs(sites.to(dev), mu.to(dev), n_sites, t, c))
+    e, force, pot = zip(*outs)
+    return M.sum_to_lead(mesh, list(e)), M.gather_rows(mesh, force), M.gather_rows(mesh, pot)
 
 
 fixed_field_and_scf_lines.launches = 0

@@ -119,6 +119,22 @@ def k1_rows(sites, polarity, kern, twin, twin64):
                     ELEM)
 
 
+def k1_rows_range(sites, polarity, lo, hi, kern, twin, twin64):
+    """Rows of the check of the full-grid row kernel #3 on the rows [lo,
+    hi) of N real sites: kern/twin/twin64 = (field [rows, 3], s3, s5
+    [rows, n_cols]) of the kernel and the float32 and float64 twins; the
+    entries of real rows and columns, in the sets of k1_rows."""
+    n = sites.shape[0]
+    hi = min(hi, n)
+    r = hi - lo
+    pol = polarity.to(sites.device) > 0
+    rows = torch.arange(lo, hi, device=sites.device)
+    notself = rows[:, None] != torch.arange(n, device=sites.device)[None, :]
+    both = pol[lo:hi, None] & pol[None, :]
+    real = [(x[0][:r],) + tuple(m[:r, :n] for m in x[1:]) for x in (kern, twin, twin64)]
+    return _k1_rows(both & notself, ~both & notself, sites[lo:hi, _ISO] > 0.5, *real, ELEM)
+
+
 def _block_sets(polarity, tiles, n_sites, n_pad):
     """Masks [cap, 256, 256] of the K1-bs entry sets (polarizable pairs,
     pairs with an M site) over valid list entries, real and distinct
@@ -128,7 +144,7 @@ def _block_sets(polarity, tiles, n_sites, n_pad):
     pol = torch.zeros(n_pad, dtype=torch.bool, device=dev)
     pol[:n_sites] = polarity.to(dev) > 0
     lane = torch.arange(TILE, device=dev)
-    gi = tiles.ti.long()[:, None] * TILE + lane
+    gi = (tiles.ti.long()[:, None] + tiles.row_tile0) * TILE + lane
     gj = tiles.tj.long()[:, None] * TILE + lane
     real = (((tiles.meta & VALID) > 0)[:, None, None] & (gi < n_sites)[:, :, None]
             & (gj < n_sites)[:, None, :] & (gi[:, :, None] != gj[:, None, :]))
@@ -136,13 +152,22 @@ def _block_sets(polarity, tiles, n_sites, n_pad):
     return real & both, real & ~both
 
 
+def _list_rows(tiles, n_sites):
+    """The sorted rows a tile list's outputs hold (its real rows)."""
+    from mbpol_openmm_plugin_tpu_torch.ops.elec_direct_bs import TILE
+    r0 = tiles.row_tile0 * TILE
+    return slice(r0, r0 + tiles.rows_kept(n_sites))
+
+
 def k1_bs_rows(sites, polarity, tiles, n_sites, kern, twin, twin64):
-    """Rows of the K1-bs check. sites [padded(n), 8] sorted packed sites,
-    polarity [n] in the same order, tiles the active tile-pair list;
-    kern/twin/twin64 = (field [n,3], s3, s5 [cap,256,256]) of the kernel
-    and the float32 and float64 twins, their lines spread into blocks."""
+    """Rows of the K1-bs check. sites [np_, 8] sorted packed sites,
+    polarity [n] in the same order, tiles the active tile-pair list (of all
+    row tiles, or of a shard's); kern/twin/twin64 = (field of the list's
+    rows [rows, 3], s3, s5 [cap,256,256]) of the kernel and the float32 and
+    float64 twins, their lines spread into blocks."""
     pp, with_m = _block_sets(polarity, tiles, n_sites, sites.shape[0])
-    return _k1_rows(pp, with_m, sites[:n_sites, _ISO] > 0.5, kern, twin, twin64, ELEM_BS)
+    is_o = sites[_list_rows(tiles, n_sites), _ISO] > 0.5
+    return _k1_rows(pp, with_m, is_o, kern, twin, twin64, ELEM_BS)
 
 
 def k3_bs_rows(polarity, kern, twin):
@@ -173,13 +198,14 @@ def k2_rows(kern, twin):
     return rows
 
 
-def block_kernel_rows(sites, polarity, tiles, n_sites, c, n_lines=None):
+def block_kernel_rows(sites, polarity, tiles, n_sites, c, n_lines=None, mu=None):
     """Run K1-bs, K3-bs and K2-bs and their plain twins on the same inputs
-    (K3-bs and K2-bs on dipoles of realistic size: polarity times the
-    direct fixed field; K1-bs and its twins with line capacity n_lines)
-    and check them. sites [padded(n), 8] sorted packed sites, polarity [n]
-    in the same order. Returns {wrapper name: (rows, max |kernel - twin|
-    over the outputs)}."""
+    (K3-bs and K2-bs on dipoles of realistic size: by default polarity
+    times the direct fixed field, which needs a list of every row tile;
+    for a shard's list, pass the dipoles mu [n, 3]; K1-bs and its twins
+    with line capacity n_lines) and check them on the list's rows. sites
+    [np_, 8] sorted packed sites, polarity [n] in the same order. Returns
+    {wrapper name: (rows, max |kernel - twin| over the outputs)}."""
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
 
     def k1_blocks(k1):
@@ -190,7 +216,8 @@ def block_kernel_rows(sites, polarity, tiles, n_sites, c, n_lines=None):
     t1 = k1_blocks(bs.fixed_field_and_scf_lines_plain(sites, n_sites, tiles, c, n_lines))
     t1_64 = k1_blocks(bs.fixed_field_and_scf_lines_plain(sites.double(), n_sites, tiles, c,
                                                          n_lines))
-    mu = (polarity.to(sites)[:, None] * t1[0]).contiguous()
+    if mu is None:
+        mu = (polarity.to(sites)[:, None] * t1[0]).contiguous()
     mu_pad = bs.pad_rows(mu, sites.shape[0])
     k3 = bs.scf_dipole_field_bs(sites, k1_lines[1], mu_pad, tiles, n_sites, c)
     t3 = bs.scf_dipole_field_bs_plain(sites, k1_lines[1], mu_pad, tiles, n_sites, c)
@@ -203,6 +230,7 @@ def block_kernel_rows(sites, polarity, tiles, n_sites, c, n_lines=None):
     return {
         'fixed_field_and_scf_lines': (k1_bs_rows(sites, polarity, tiles, n_sites, k1, t1, t1_64),
                                       max_abs(k1, t1)),
-        'scf_dipole_field_bs': (k3_bs_rows(polarity, k3, t3), max_abs((k3,), (t3,))),
+        'scf_dipole_field_bs': (k3_bs_rows(polarity[_list_rows(tiles, n_sites)], k3, t3),
+                                max_abs((k3,), (t3,))),
         'direct_energy_force_pot_bs': (k2_rows(k2, t2), max_abs(k2, t2)),
     }

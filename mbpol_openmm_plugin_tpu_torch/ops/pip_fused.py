@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from mbpol_openmm_plugin_tpu_torch.ops import polyeval
-from mbpol_openmm_plugin_tpu_torch.ops.elec_direct import _check, _on_kernel, _stream
+from mbpol_openmm_plugin_tpu_torch.ops.elec_direct import _check, _on_kernel, _stream, on_device
 
 MONO_SLOTS = 4           # factor slots per monomial (total degree <= 4)
 PLAIN_CHUNK = 1024       # rows per chunk of the monomial twin
@@ -412,9 +412,10 @@ def pip_energy_grad(name, x):
     lib = _build.load()
     offsets, c, ettiles = _device_tables(name, 'monomial', x.dtype, x.device)
     e, g = _outputs(x)
-    _check(lib.mbpol_pip_monomial(x.data_ptr(), x.shape[0], x.shape[1], ettiles.data_ptr(),
-                                  offsets.data_ptr(), c.data_ptr(), ettiles.shape[0],
-                                  e.data_ptr(), g.data_ptr(), _stream()), 'pip_energy_grad')
+    with on_device(x):
+        _check(lib.mbpol_pip_monomial(x.data_ptr(), x.shape[0], x.shape[1], ettiles.data_ptr(),
+                                      offsets.data_ptr(), c.data_ptr(), ettiles.shape[0],
+                                      e.data_ptr(), g.data_ptr(), _stream()), 'pip_energy_grad')
     pip_energy_grad.launches += 1
     return e, g
 
@@ -440,9 +441,10 @@ def _quad_launch(entry, wrapper, name, x):
     fn = getattr(_build.load(), entry)
     idx, wtiles, ftiles = _device_tables(name, 'quad', x.dtype, x.device)
     e, g = _outputs(x)
-    _check(fn(x.data_ptr(), x.shape[0], x.shape[1], idx.shape[0], idx.data_ptr(),
-              wtiles.data_ptr(), ftiles.data_ptr(), e.data_ptr(), g.data_ptr(), _stream()),
-           wrapper.__name__)
+    with on_device(x):
+        _check(fn(x.data_ptr(), x.shape[0], x.shape[1], idx.shape[0], idx.data_ptr(),
+                  wtiles.data_ptr(), ftiles.data_ptr(), e.data_ptr(), g.data_ptr(), _stream()),
+               wrapper.__name__)
     wrapper.launches += 1
     return e, g
 
@@ -475,10 +477,11 @@ def pip_vech_energy_grad(name, x):
     wtiles, ftiles = _device_tables(name, 'vech', x.dtype, x.device)
     xat = polyeval.augmented(x).T.contiguous()            # [V+1, P], batch on the fast axis
     e, g = _outputs(x)
-    _check(lib.mbpol_pip_quad_vech(xat.data_ptr(), x.shape[0], x.shape[1],
-                                   wtiles.shape[0] * N_CHUNK, wtiles.data_ptr(),
-                                   ftiles.data_ptr(), e.data_ptr(), g.data_ptr(), _stream()),
-           'pip_vech_energy_grad')
+    with on_device(x):
+        _check(lib.mbpol_pip_quad_vech(xat.data_ptr(), x.shape[0], x.shape[1],
+                                       wtiles.shape[0] * N_CHUNK, wtiles.data_ptr(),
+                                       ftiles.data_ptr(), e.data_ptr(), g.data_ptr(), _stream()),
+               'pip_vech_energy_grad')
     pip_vech_energy_grad.launches += 1
     return e, g
 

@@ -1,1 +1,1 @@
-"""Capacity planning (plan.py); meshes are not ported yet (ROADMAP.md)."""
+"""Device meshes (mesh.py) and capacity planning (plan.py)."""

@@ -70,7 +70,7 @@ def water4096_block():
     pot = MBPol(big, MBPolConfig.for_dynamics()).tune_capacities(pos)
     params, block = pot.elec_params, pot._block_info
     charges, _ = elec.assemble_charges(params, pos)
-    sites, tiles = pme.block_sites(params, pot.pme, pos, charges, block)
+    sites, (tiles,) = pme.block_sites(params, pot.pme, pos, charges, block)
     polarity = torch.as_tensor(params.polarity[block['site_perm']], dtype=torch.float32,
                                device='cuda')
     consts = ED.DirectConsts.from_setup(pot.pme, params.thole)

@@ -134,7 +134,8 @@ def pieces(pot, pos, reps):
     if pot.disp_mode == 'pairs':
         table['dispersion pair-list build'] = disp_list
     if pot.elec_mode == 'block':
-        sites, tiles = pme_mod.block_sites(params, pot.pme, pos_v, charges, pot._block_info)
+        sites, (tiles,) = pme_mod.block_sites(params, pot.pme, pos_v, charges,
+                                              pot._block_info)
         n = pos_v.shape[0]
         mu_s = mu0[pot._block_info['perm']].contiguous()
         n_lines = pot._block_info['line_capacity']

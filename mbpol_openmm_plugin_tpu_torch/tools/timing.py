@@ -4,7 +4,8 @@ probes of this folder.
 - `card_line`: the card's name and power limit as nvidia-smi prints them,
   to stand beside every time;
 - `loop_ms`, `median_ms`: CUDA-event times of back-to-back calls and of
-  synchronized calls;
+  synchronized calls; `graph_ms`: the same of one CUDA graph replay of n
+  calls (no host launch cost);
 - `kernel_device_ms`: device time per launch of one CUDA kernel (and of
   the helper kernels launched with it) from torch.profiler's trace,
   divided by the launches of that kernel the trace holds;
@@ -85,6 +86,31 @@ def loop_ms(fn, n):
     return start.elapsed_time(end) / n
 
 
+def graph_ms(fn, n):
+    """Mean time per call of n calls of fn recorded into one CUDA graph and
+    replayed between two CUDA events: the device time of the calls' kernels
+    without the host's launch cost (the graph's gaps between kernels
+    included)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(n):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
 def median_ms(fn, n):
     """Median of n calls, each between two CUDA events and followed by a
     synchronize: the wrapper call, host work included."""
@@ -132,8 +158,9 @@ def kernel_device_ms(fn, kernel, n, helpers=()):
             launches += ev.count
         elif any(h in ev.key for h in helpers):
             helper_us += ev.device_time_total
-    if not (launches and own_us > 0):
-        return DeviceTime(None, None, None, launches, {})
+    if not (launches and own_us > 0):       # each: the trace's kernels, ms per call of fn
+        return DeviceTime(None, None, None, launches,
+                          {k: v / (1e3 * n) for k, v in every.items()})
     per = 1e3 * launches
     return DeviceTime((own_us + helper_us) / per, own_us / per, helper_us / per, launches,
                       {k: v / per for k, v in every.items()})

@@ -37,6 +37,7 @@ MODULES = [
     'mbpol_openmm_plugin_tpu_torch.ops._build',
     'mbpol_openmm_plugin_tpu_torch.ops.native',
     'mbpol_openmm_plugin_tpu_torch.parallel',
+    'mbpol_openmm_plugin_tpu_torch.parallel.mesh',
     'mbpol_openmm_plugin_tpu_torch.parallel.plan',
     'mbpol_openmm_plugin_tpu_torch.utils.compensated',
     'mbpol_openmm_plugin_tpu_torch.tools.nve_drift',

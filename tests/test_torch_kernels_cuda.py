@@ -4,7 +4,10 @@ and water256, with s3/s5 exactly symmetric, the outputs the same bits on
 a repeat and every entry written; the block-sparse kernels of
 ops/elec_direct_bs against theirs at water1024 (the water256 fixture
 repeated 2 x 2 x 1, 16 row tiles, sorted as
-tune_capacities sorts it); the fused PIP kernels of ops/pip_fused against
+tune_capacities sorts it), also on each of 4 shards' local lists (a row-tile
+range); the full-grid row kernels (#3/#4) against their row twins, shard
+by shard, with the padded rows and columns of a mesh exact zeros; the
+fused PIP kernels of ops/pip_fused against
 theirs on seeded variables and on the water256 lists' variables; and the
 card's row gather (ops/gather.py).
 
@@ -149,6 +152,37 @@ def test_dense_kernels_write_every_entry(cuda, name):
         assert all(bool(torch.isfinite(t).all()) for t in out)
 
 
+@pytest.mark.parametrize('shards', [1, 8])
+@pytest.mark.parametrize('name', sorted(SYSTEMS))
+def test_row_kernels_match_twins(cuda, name, shards):
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    sites, consts, alpha = _sites(name, cuda)
+    n = sites.shape[0]
+    mesh = M.make_mesh(devices=[cuda] * shards)
+    n_pad = M.padded_for_mesh(n, shards)
+    mu = (alpha[:, None] * ED.fixed_field_and_scf_factors(sites, consts)[0]).contiguous()
+    for lo, hi in M.row_ranges(n_pad, mesh):
+        before = [k.launches for k in ED.ROW_KERNELS]
+        k1 = ED.fixed_field_and_scf_factors_rows(sites, lo, hi, consts, n_pad)
+        k2 = ED.direct_energy_force_pot_rows(sites, mu, lo, hi, consts)
+        torch.cuda.synchronize()
+        assert [k.launches for k in ED.ROW_KERNELS] == [b + 1 for b in before]
+        assert k1[1].shape == (hi - lo, n_pad)
+        real = max(min(hi, n) - lo, 0)
+        for out in k1 + k2:
+            assert not bool(out[real:].any())         # padded rows: exact zeros
+        assert not bool(k1[1][:, n:].any()) and not bool(k1[2][:, n:].any())
+        if not real:
+            continue
+        _assert_rows(check.k1_rows_range(
+            sites, alpha, lo, hi, k1,
+            ED.fixed_field_and_scf_factors_rows_plain(sites, lo, hi, consts, n_pad),
+            ED.fixed_field_and_scf_factors_rows_plain(sites.double(), lo, hi, consts, n_pad)))
+        t2 = ED.direct_energy_force_pot_rows_plain(sites, mu, lo, hi, consts)
+        _assert_rows(check.k2_rows((k2[0][:real].sum(), k2[1][:real], k2[2][:real]),
+                                   (t2[0][:real].sum(), t2[1][:real], t2[2][:real])))
+
+
 def test_float64_cuda_tensor_is_refused(cuda):
     sites, consts, _ = _sites('water50', cuda)
     with pytest.raises(TypeError):
@@ -174,7 +208,7 @@ def water1024_block():
                                  electrostatics_mode='block')).tune_capacities(pos)
     params, block = pot.elec_params, pot._block_info
     charges, _ = elec.assemble_charges(params, pos)
-    sites, tiles = pme.block_sites(params, pot.pme, pos, charges, block)
+    sites, (tiles,) = pme.block_sites(params, pot.pme, pos, charges, block)
     polarity = torch.as_tensor(params.polarity[block['site_perm']], dtype=torch.float32,
                                device='cuda')
     return sites, polarity, tiles, pos.shape[0], ED.DirectConsts.from_setup(pot.pme,
@@ -191,6 +225,25 @@ def test_block_kernels_match_twins(cuda, water1024_block):
     assert [k.launches for k in bs.KERNELS] == [b + 1 for b in before]
     for name, (rows, _) in checks.items():
         _assert_rows(rows)
+
+
+def test_sharded_block_kernels_match_twins(cuda, water1024_block):
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    sites, polarity, tiles, n, consts = water1024_block
+    mesh = M.make_mesh(devices=[cuda] * 4)
+    cap = tiles.capacity // 2
+    shard_tiles = bs.active_tile_pairs_sharded(sites[:, :3], n, consts.box, consts.cutoff, cap,
+                                               mesh)
+    assert sum(int(t.n_act) for t in shard_tiles) == int(tiles.n_act)
+    field = bs.fixed_field_and_scf_lines(sites, n, tiles, consts)[0]
+    mu = (polarity[:, None] * field).contiguous()
+    for t in shard_tiles:
+        assert 0 < int(t.n_act) <= t.capacity
+        checks = check.block_kernel_rows(sites, polarity, t, n, consts, mu=mu)
+        torch.cuda.synchronize()
+        for name, (rows, _) in checks.items():
+            _assert_rows(rows)
 
 
 def _moved(sites, box, how):

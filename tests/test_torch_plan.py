@@ -8,8 +8,8 @@ CPU float64, single device (the cases of tests/test_plan.py).
   tune_capacities, since the port's tiles are not the TPU's);
 - MBPol(plan=plan) takes the plan's capacities and evaluates bit for bit as
   a potential tuned with tune_capacities at the same positions;
-- a plan for 2 devices raises NotImplementedError, a water-count mismatch
-  ValueError; CapacityPlan.apply warns DeprecationWarning and returns a new
+- a plan for 2 devices on a potential without a mesh, and a water-count
+  mismatch, raise ValueError; CapacityPlan.apply warns DeprecationWarning and returns a new
   potential.
 """
 import warnings
@@ -95,12 +95,10 @@ def test_plan_constructor_equals_tuned_potential(water256, mode):
 def test_plan_refusals(water256):
     tsys, pos = water256
     cfg = MBPolConfig.for_dynamics()
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        P.plan_capacities(256, BOX, n_devices=2, config=cfg, device='cpu')
-    plan = P.plan_capacities(256, BOX, config=cfg, device='cpu')
-    two = P.CapacityPlan(**dict(vars(plan), n_devices=2))
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    two = P.plan_capacities(256, BOX, n_devices=2, config=cfg, device='cpu')
+    with pytest.raises(ValueError, match='devices'):
         MBPol(tsys, cfg, device='cpu', plan=two)
+    plan = P.plan_capacities(256, BOX, config=cfg, device='cpu')
     small = P.plan_capacities(128, BOX, config=cfg, device='cpu')
     with pytest.raises(ValueError, match='water count'):
         MBPol(tsys, cfg, device='cpu', plan=small)

@@ -7,7 +7,7 @@ term, max |dF| <= 1e-6 kJ/mol/nm, equal SCF iteration counts; plus the
 reference golden totals of test_potential_pme.py. Also: tune_capacities
 gives the JAX tuned fields on water256, 'auto' resolves the modes as JAX
 does on both sides of 512 and 2560 waters (the CPU's 'sparse' included),
-and a plan for a mesh (outside the port) raises.
+and a plan for a mesh fits only a potential on a mesh of its size.
 """
 
 import numpy as np
@@ -109,15 +109,15 @@ def test_golden_total(evaluated):
 
 
 def test_not_ported_options_raise():
-    """What stays outside the port raises: a capacity plan for a mesh (more
-    than one device), from the planner and at the constructor."""
+    """A capacity plan for a mesh (more than one device) is planned, and a
+    potential without a mesh of that size refuses it at the constructor."""
     from mbpol_openmm_plugin_tpu_torch.parallel.plan import CapacityPlan, plan_capacities
     sys_ = System.waters(64, box=[_side(64)] * 3)
     cfg = MBPolConfig(nonbonded_method='PME')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
-        plan_capacities(64, sys_.box, n_devices=2, config=cfg, device='cpu')
+    two = plan_capacities(64, sys_.box, n_devices=2, config=cfg, device='cpu')
+    assert two.n_devices == 2 and two.pair_cap % 2 == 0 and two.trip_cap % 2 == 0
     plan = plan_capacities(64, sys_.box, config=cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(ValueError, match='devices'):
         MBPol(sys_, cfg, device='cpu', plan=CapacityPlan(**dict(vars(plan), n_devices=2)))
     # above the CPU's dense limit 'auto' picks the sparse mode, now ported
     big = System.waters(600, box=[_side(600)] * 3)

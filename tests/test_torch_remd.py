@@ -10,7 +10,8 @@ replica evaluation (md/replicas.py) against the JAX package's, CPU float64.
   energies and final positions within 1e-8 kJ/mol and 1e-10 nm, the same
   accepts and walkers;
 - a checkpoint resume bit for bit; the ladder's validation, the R = 1
-  ladder, the cold-slot frame callback and the mesh refusal.
+  ladder, the cold-slot frame callback and the refusal of a mesh that is
+  not a parallel.mesh.Mesh.
 """
 import jax
 import jax.numpy as jnp
@@ -201,7 +202,7 @@ def test_remd_validates_ladder_and_one_replica(water14):
         remd.REMDSimulation(pot, [])
     with pytest.raises(ValueError):
         remd.REMDSimulation(pot, [300.0, 300.0])
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(TypeError, match='Mesh'):
         remd.REMDSimulation(pot, [300.0], mesh=object())
     with pytest.raises(ValueError, match='neighbor-list'):
         remd.REMDSimulation(pot, [300.0], remd.REMDConfig(nlist_reuse=True))

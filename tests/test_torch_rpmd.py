@@ -19,8 +19,8 @@ against the JAX package's, CPU float64, the JAX draws fed in.
 - PIMDSimulation against the JAX driver's chunk for 6 steps (water3, 2
   beads, ASPC and scf='keep'; water50 PME, contraction 2 -> 1, list interval
   2): per-step bead-mean energy and KE_cv within 1e-8 kJ/mol;
-- a checkpoint resume bit for bit; the JAX guards (mesh, mesh with
-  contraction, NPT on a cluster, the list-reuse guards, a box other than
+- a checkpoint resume bit for bit; the JAX guards (a mesh that is not a
+  Mesh or does not divide the beads, mesh with contraction, NPT on a cluster, the list-reuse guards, a box other than
   the system's); the step body with no host read (the guard of
   test_torch_step_capture.py); a dropped driver freed without the cyclic
   collector.
@@ -43,6 +43,7 @@ from mbpol_openmm_plugin_tpu.system import make_molecules_whole as jwhole
 from mbpol_openmm_plugin_tpu_torch.md import integrators as I
 from mbpol_openmm_plugin_tpu_torch.md import rpmd as R
 from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
+from mbpol_openmm_plugin_tpu_torch.parallel.mesh import make_mesh
 from mbpol_openmm_plugin_tpu_torch.system import System
 from test_torch_step_capture import PLAIN_TWINS, _Guard, _host_data_raising, _lifted, _raising
 
@@ -326,8 +327,10 @@ def test_pimd_guards(water3):
     pot, _, pos = water3
     with pytest.raises(ValueError, match='mesh \\+ contraction'):
         R.PIMDSimulation(pot, n_beads=8, contraction=1, mesh=object())
-    with pytest.raises(NotImplementedError, match='ROADMAP'):
+    with pytest.raises(TypeError, match='Mesh'):
         R.PIMDSimulation(pot, n_beads=8, mesh=object())
+    with pytest.raises(ValueError, match='not divisible'):
+        R.PIMDSimulation(pot, n_beads=8, mesh=make_mesh(devices=['cpu'] * 3))
     with pytest.raises(ValueError, match='periodic'):
         R.PIMDSimulation(pot, n_beads=2, barostat_pressure=1.0)
     with pytest.raises(ValueError, match='neighbor-list'):

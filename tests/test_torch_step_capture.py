@@ -288,6 +288,7 @@ def test_launch_ledger_counts_replays(n_steps):
 def test_kernel_wrappers_are_every_kernel_route():
     names = {w.__name__ for w in step_graph.kernel_wrappers()}
     assert names == {'fixed_field_and_scf_factors', 'direct_energy_force_pot',
+                     'fixed_field_and_scf_factors_rows', 'direct_energy_force_pot_rows',
                      'fixed_field_and_scf_lines', 'scf_dipole_field_bs',
                      'direct_energy_force_pot_bs', 'pip_energy_grad', 'pip_quad_energy_grad',
                      'pip_quad_product_energy_grad', 'pip_vech_energy_grad'}
