@@ -230,10 +230,15 @@ Phases (any failure raises and the script exits non-zero):
      both rates printed.
  29. the device mesh: make_mesh(devices=[cuda:0] x 4) (torch.cuda.device_count()
      printed). (a) the full-grid row kernels #3/#4 (fixed_field_rows_kernel,
-     direct_efp_rows_kernel, with the tile sum) shard by shard against their
-     twins at water256 (1024 sites) and water2048 (8192), on the entry sets of
-     ops/elec_direct_check.py, and over all rows against K1/K2 (triangular);
-     ms per launch of one shard's rows beside the bound, the twin and K1/K2;
+     direct_efp_rows_kernel: rows own blocks and walk their columns, one
+     launch each) shard by shard against their twins at water256 (1024
+     sites), water2048 (8192) and water4096 dense (16,384; the twins on shard
+     0 and the last shard), on the entry sets of ops/elec_direct_check.py
+     (at water4096 the block sets' per-entry bound, with the float32 twin's
+     own distance printed), two launches on the same inputs bit for bit, and
+     over all rows against K1/K2 (triangular); ms per launch of one shard's
+     rows beside the bound, the twin, K1/K2, the earlier design's ms, one
+     CUDA graph replay of the calls and the empty-launch floor;
      (b) water256 dense, 4 shards, against the unmeshed single point, SCF at
      DIIS_EPS on both sides: electrostatics within F32_BOUND_FACTOR x the JAX
      float32 distance, the other terms TERM_REL, forces REPLICA_F_WHOLE; under
@@ -313,6 +318,19 @@ OPS_K3 = 36
 # triangular form (PERF.md section 6, rows 1-2), logged beside this run's
 DENSE_MS_BEFORE = {'fixed_field_and_scf_factors': 0.0132, 'direct_energy_force_pot': 0.0180}
 DENSE_REPS = {'water256': (1, 1, 1), 'water2048': (2, 2, 2)}
+# phase 29 (a): the row kernels also at water4096 dense (16,384 sites, the
+# dense limit's size for 4 shards, models/potential.py), where the twin rows
+# run on shard 0 and the last shard only, with the per-entry bound of the
+# block kernels' water4096 sets (ops/elec_direct_check.py ELEM_BS: the same
+# sites; the float32 twin itself reads 3.3e-5 on s5 there); and their
+# device ms per launch of one shard in the earlier tile-pair design (PERF.md
+# section 6, rows 3-4), logged beside this run's
+MESH_DENSE_REPS = dict(DENSE_REPS, water4096=(2, 2, 4))
+TWIN_ENDS_ONLY = ('water4096',)
+ROW_MS_BEFORE = {'fixed_field_and_scf_factors_rows': {'water256': '0.0074-0.0076',
+                                                      'water2048': '0.0737-0.0743'},
+                 'direct_energy_force_pot_rows': {'water256': '0.0077-0.0084',
+                                                  'water2048': '0.0730-0.0736'}}
 # device ms per launch of the block kernels before the live-line layout of
 # s3/s5 (this phase's reading of the earlier design, with s3/s5 as whole
 # blocks; PERF.md section 6), logged beside this run's
@@ -323,8 +341,6 @@ BS_MS_BEFORE = {'fixed_field_and_scf_lines': 1.1152, 'scf_dipole_field_bs': 0.22
 # culling test)
 HELPER_KERNELS = {'fixed_field_and_scf_factors': ('tile_sum_kernel',),
                   'direct_energy_force_pot': ('tile_sum_kernel',),
-                  'fixed_field_and_scf_factors_rows': ('tile_sum_kernel',),
-                  'direct_energy_force_pot_rows': ('tile_sum_kernel',),
                   'fixed_field_and_scf_lines': ('cluster_boxes_kernel',),
                   'direct_energy_force_pot_bs': ('cluster_boxes_kernel',)}
 SOURCE = 'mbpol_openmm_plugin_tpu_torch/csrc/elec_direct.cu'
@@ -479,12 +495,18 @@ def n_in_cutoff(*blocks):
     return int(sum(((b3 != 0) | (b5 != 0)).sum() for b3, b5 in blocks))
 
 
-def empty_launch_ms(torch):
-    """Device time of one empty kernel launch (the card's floor per launch)."""
+def empty_launch_floor(torch):
+    """'x.xxxx ms', the device time of one empty kernel launch (the card's
+    floor per launch; it bounds nothing), or 'not in the trace' when
+    PROFILER_TRIES torch.profiler traces hold no event of it."""
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
     stream = torch.cuda.current_stream().cuda_stream
-    return kernel_device_ms(lambda: lib.mbpol_empty_launch(stream), 'empty_kernel', N_TIMING).ms
+    for _ in range(PROFILER_TRIES):
+        ms = kernel_device_ms(lambda: lib.mbpol_empty_launch(stream), 'empty_kernel', N_TIMING).ms
+        if ms is not None:
+            return f'{ms:.4f} ms'
+    return 'not in the trace'
 
 
 def phase_kernels(torch, card, record):
@@ -493,10 +515,10 @@ def phase_kernels(torch, card, record):
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_check as check
     from mbpol_openmm_plugin_tpu_torch.tools.dense_probe import dense_inputs
 
-    floor = empty_launch_ms(torch)
+    floor = empty_launch_floor(torch)
     rate = transcendental_rate()
     tile = ED.TILE
-    log(f'  empty kernel launch: {floor:.4f} ms device time (the card\'s floor per launch, '
+    log(f'  empty kernel launch: {floor} device time (the card\'s floor per launch, '
         f'bounds nothing); tile {tile} sites')
     failures = []
     for size, reps in DENSE_REPS.items():
@@ -569,7 +591,7 @@ def phase_kernels(torch, card, record):
                 + (f' (before the triangular form {DENSE_MS_BEFORE[kname]} ms)'
                    if size == 'water256' else '')
                 + f', bound {bounds[kname][0]:.4f} ms ({bounds[kname][1]}), kernel / bound '
-                f'{ms / bounds[kname][0]:.2f}, empty launch {floor:.4f} ms ({card})')
+                f'{ms / bounds[kname][0]:.2f}, empty launch {floor} ({card})')
         del k1, tri1, tri1_64, k2, tri2, checks
         torch.cuda.empty_cache()
     if failures:
@@ -2944,59 +2966,82 @@ def rel_rows(name, kern, ref, bound_rel):
 
 def phase_mesh_kernels(torch, card, record, mesh):
     """Phase 29 (a): the full-grid row kernels #3/#4 shard by shard against
-    their twins, and over the whole row range against K1/K2 (triangular),
-    at water256 and water2048."""
+    their twins (every shard, or shard 0 and the last at water4096), two
+    launches on the same inputs bit for bit, and over the whole row range
+    against K1/K2 (triangular), at MESH_DENSE_REPS' sizes; one shard's
+    launch timed beside its bound, its twin, K1/K2, the earlier design and the
+    empty-launch floor."""
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
     from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_check as check
     from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
     from mbpol_openmm_plugin_tpu_torch.tools.dense_probe import dense_inputs
 
     rate = transcendental_rate()
+    floor = empty_launch_floor(torch)
+    log(f'  empty kernel launch: {floor} device time (the card\'s floor per launch)')
     failures = []
-    for size, reps in DENSE_REPS.items():
+    for size, reps in MESH_DENSE_REPS.items():
         sites, polarity, consts = dense_inputs(reps)
         n = sites.shape[0]
         n_pad = M.padded_for_mesh(n, mesh.size)
         ranges = M.row_ranges(n_pad, mesh)
+        twin_shards = (0, mesh.size - 1) if size in TWIN_ENDS_ONLY else range(mesh.size)
+        elem_bound = check.ELEM_BS if size in TWIN_ENDS_ONLY else check.ELEM
         tri1 = ED.fixed_field_and_scf_factors(sites, consts)
         mu = (polarity[:, None] * tri1[0]).contiguous()
         tri2 = ED.direct_energy_force_pot(sites, mu, consts)
         torch.cuda.synchronize()
         log(f'  {size}: {n} sites, padded {n_pad}, {mesh.size} shards of {n_pad // mesh.size} '
-            f'rows x {n_pad} columns')
+            f'rows x {n_pad} columns; twin rows on shards {list(twin_shards)}')
         max_abs = {k: 0.0 for k in ROW_KERNELS}
         outs1, outs2, n_in = [], [], []
         for k, (lo, hi) in enumerate(ranges):
             k1 = ED.fixed_field_and_scf_factors_rows(sites, lo, hi, consts, n_pad)
-            t1 = ED.fixed_field_and_scf_factors_rows_plain(sites, lo, hi, consts, n_pad)
-            t1_64 = ED.fixed_field_and_scf_factors_rows_plain(sites.double(), lo, hi, consts,
-                                                              n_pad)
             k2 = ED.direct_energy_force_pot_rows(sites, mu, lo, hi, consts)
-            t2 = ED.direct_energy_force_pot_rows_plain(sites, mu, lo, hi, consts)
+            again = (ED.fixed_field_and_scf_factors_rows(sites, lo, hi, consts, n_pad)
+                     + ED.direct_energy_force_pot_rows(sites, mu, lo, hi, consts))
             torch.cuda.synchronize()
-            rows = [('fixed_field_and_scf_factors_rows', r)
-                    for r in check.k1_rows_range(sites, polarity, lo, hi, k1, t1, t1_64)]
-            rows += [('direct_energy_force_pot_rows', r) for r in check.k2_rows(
-                (k2[0].sum(), k2[1], k2[2]), (t2[0].sum(), t2[1], t2[2]))]
+            same = all(bool(torch.equal(a, b)) for a, b in zip(k1 + k2, again))
+            del again
+            if not same:
+                failures.append(f'{size}.{k}.two_launches')
+            rows = []
+            if k in twin_shards:
+                t1 = ED.fixed_field_and_scf_factors_rows_plain(sites, lo, hi, consts, n_pad)
+                t1_64 = ED.fixed_field_and_scf_factors_rows_plain(sites.double(), lo, hi, consts,
+                                                                  n_pad)
+                t2 = ED.direct_energy_force_pot_rows_plain(sites, mu, lo, hi, consts)
+                rows = [('fixed_field_and_scf_factors_rows', r)
+                        for r in check.k1_rows_range(sites, polarity, lo, hi, k1, t1, t1_64,
+                                                     elem_bound)]
+                rows += [('direct_energy_force_pot_rows', r) for r in check.k2_rows(
+                    (k2[0].sum(), k2[1], k2[2]), (t2[0].sum(), t2[1], t2[2]))]
+                if size in TWIN_ENDS_ONLY:
+                    e3, e5 = check.twin_elem_range(sites, polarity, lo, hi, t1, t1_64)
+                    log(f'  {size} shard {k}: the float32 twin\'s own per-entry distance from '
+                        f'float64 on the polarizable pairs: s3 {e3:.3e}, s5 {e5:.3e} (ELEM '
+                        f'{check.ELEM:g}, ELEM_BS {check.ELEM_BS:g})')
+                max_abs['fixed_field_and_scf_factors_rows'] = max(
+                    max_abs['fixed_field_and_scf_factors_rows'],
+                    max(float((a - b).abs().max()) for a, b in zip(k1, t1)))
+                max_abs['direct_energy_force_pot_rows'] = max(
+                    max_abs['direct_energy_force_pot_rows'],
+                    max(float((a - b).abs().max()) for a, b in zip(k2, t2)))
+                del t1, t1_64, t2
             for kname, row in rows:
                 if k in (0, mesh.size - 1) or not row.ok:
                     log(f'  {size} shard {k} {kname:32s} {row}')
                 if not row.ok:
                     failures.append(f'{size}.{k}.{kname}.{row.output}.{row.entries}')
-            log(f'  {size} shard {k}: {sum(r.ok for _, r in rows)} of {len(rows)} twin rows ok')
-            max_abs['fixed_field_and_scf_factors_rows'] = max(
-                max_abs['fixed_field_and_scf_factors_rows'],
-                max(float((a - b).abs().max()) for a, b in zip(k1, t1)))
-            max_abs['direct_energy_force_pot_rows'] = max(
-                max_abs['direct_energy_force_pot_rows'],
-                max(float((a - b).abs().max()) for a, b in zip(k2, t2)))
+            log(f'  {size} shard {k}: {sum(r.ok for _, r in rows)} of {len(rows)} twin rows ok; '
+                f'two launches on the same inputs equal bit for bit: {same}')
             n_in.append(n_in_cutoff((k1[1], k1[2])))
             outs1.append(k1)
             outs2.append(k2)
-            del t1, t1_64, t2
         # the whole row range against K1/K2 (triangular) within the same rows
         log(f'  {size}: the row kernels over all {n_pad} rows against K1/K2 (triangular):')
         whole1 = [torch.cat(x)[:n] for x in zip(*outs1)]
+        del outs1
         for name, a, b, rel in (('field', whole1[0], tri1[0], check.REL_O),
                                 ('s3', whole1[1][:, :n], tri1[1], check.REL_M),
                                 ('s5', whole1[2][:, :n], tri1[2], check.REL_M)):
@@ -3006,7 +3051,8 @@ def phase_mesh_kernels(torch, card, record, mesh):
         for row in check.k2_rows((whole2[0].sum(), whole2[1], whole2[2]), tri2):
             log(f'    direct_energy_force_pot_rows vs K2 {row}')
             failures += [] if row.ok else [f'{size}.whole.k2.{row.output}']
-        del outs1, outs2, whole1, tri1
+        del outs2, whole1, whole2, tri1
+        torch.cuda.empty_cache()
         # one shard's launch: time, twin, bound; K1/K2's time beside it
         lo, hi = ranges[0]
         rows_n = hi - lo
@@ -3023,24 +3069,35 @@ def phase_mesh_kernels(torch, card, record, mesh):
         timed = (('fixed_field_and_scf_factors_rows',
                   lambda: ED.fixed_field_and_scf_factors_rows(sites, lo, hi, consts, n_pad),
                   lambda: ED.fixed_field_and_scf_factors_rows_plain(sites, lo, hi, consts, n_pad),
-                  'fixed_field_and_scf_factors'),
+                  'fixed_field_and_scf_factors',
+                  lambda: ED.fixed_field_and_scf_factors(sites, consts)),
                  ('direct_energy_force_pot_rows',
                   lambda: ED.direct_energy_force_pot_rows(sites, mu, lo, hi, consts),
                   lambda: ED.direct_energy_force_pot_rows_plain(sites, mu, lo, hi, consts),
-                  'direct_energy_force_pot'))
-        for kname, kern, plain, tri in timed:
+                  'direct_energy_force_pot',
+                  lambda: ED.direct_energy_force_pot(sites, mu, consts)))
+        for kname, kern, plain, tri, tri_call in timed:
             timing = time_kernel(torch, card, kname, kern, plain,
                                  N_TIMING if size == 'water256' else N_TIMING_TWIN_BS)
-            ms, plain_ms, _ = timing
+            ms, plain_ms, source = timing
             rec = kernel_record(kname, max_abs[kname], timing, bounds[kname])
-            tri_ms = (record[tri]['ms'] if size == 'water256' else None)
+            tri_ms = kernel_device_ms(tri_call, KERNELS[tri][0], N_TIMING,
+                                      HELPER_KERNELS.get(tri, ())).ms
+            replay_ms = graph_ms(kern, N_TIMING)
             if size == 'water256':
                 record[kname] = rec
-            log(f'  {size} {kname:32s} {ms:.4f} ms per launch ({rows_n} rows), x {mesh.size} '
-                f'shards {ms * mesh.size:.4f} ms; bound {bounds[kname][0]:.4f} ms '
-                f'({bounds[kname][1]}), kernel / bound {ms / bounds[kname][0]:.2f}; twin '
-                f'{plain_ms:.4f} ms'
-                + ('' if tri_ms is None else f'; {tri} (triangular, all rows) {tri_ms:.4f} ms')
+            before = ROW_MS_BEFORE[kname].get(size)
+            log(f'  {size} {kname:32s} {ms:.4f} ms per launch ({rows_n} rows; ms_source '
+                f'{source})'
+                + ('' if before is None else f' (the earlier tile-pair design {before} ms)')
+                + f', x {mesh.size} shards {ms * mesh.size:.4f} ms; bound '
+                f'{bounds[kname][0]:.4f} ms ({bounds[kname][1]}), kernel / bound '
+                f'{ms / bounds[kname][0]:.2f}, bound / kernel {bounds[kname][0] / ms:.1%}; twin '
+                f'{plain_ms:.4f} ms; {tri} (triangular, all rows) '
+                + ('not in the trace' if tri_ms is None else f'{tri_ms:.4f} ms')
+                + f'; one CUDA graph replay of {N_TIMING} calls: {replay_ms:.4f} ms a call '
+                f'(the wrapper\'s allocations and the gaps included)'
+                + (f'; empty launch {floor}' if size == 'water256' else '')
                 + f' ({card})')
         del sites, mu, tri2
         torch.cuda.empty_cache()

@@ -228,21 +228,41 @@ def langevin_step(system: System, energy_forces_fn, state: MDState, dt, temperat
                                potential_energy=energy, step=state.step + 1)
 
 
+def molecule_members(system: System):
+    """[n_molecules, k] the atom indices of each molecule (system.mol_index)
+    in atom order, padded with n_atoms: k = 4 for waters, a Cl- ion has one
+    member. On the water-only layout it is arange(n_atoms) as [n_waters, 4]."""
+    mol = np.asarray(system.mol_index)
+    counts = np.bincount(mol)
+    order = np.argsort(mol, kind='stable')
+    rank = np.arange(len(mol)) - (np.cumsum(counts) - counts)[mol[order]]
+    members = np.full((len(counts), int(counts.max())), len(mol), np.int64)
+    members[mol[order], rank] = order
+    return members
+
+
 def molecule_centroid_shift(system: System, positions, length_scale):
-    """[natoms, 3]: each atom's share of its water's centroid move when the
-    centroids scale by length_scale (water-only layouts)."""
-    n = system.n_waters
-    m4 = _masses(system, positions).reshape(n, 4, 1)
-    p4 = positions.reshape(n, 4, 3)
-    centroid = torch.sum(m4 * p4, dim=1) / torch.sum(m4, dim=1)
-    return (centroid * (length_scale - 1.0))[:, None, :].expand(n, 4, 3).reshape(-1, 3)
+    """[natoms, 3]: each atom's share of its molecule's centroid move when
+    the centroids scale by length_scale. Molecules are those of
+    system.mol_index, ions included; each centroid is the mass-weighted sum
+    over its members in atom order (a fixed order: on the water-only layout
+    the bits of a sum over each water's four sites), padding members being a
+    zero row of zero mass."""
+    members = device_const(molecule_members(system), device=positions.device)
+    m = device_const(np.append(np.asarray(system.masses), 0.0), dtype=positions.dtype,
+                     device=positions.device)[members][..., None]
+    p = torch.cat([positions, positions.new_zeros(1, 3)])[members]
+    centroid = torch.sum(m * p, dim=1) / torch.sum(m, dim=1)
+    mol = device_const(np.asarray(system.mol_index, np.int64), device=positions.device)
+    return (centroid * (length_scale - 1.0))[mol]
 
 
 def monte_carlo_barostat_move(system: System, energy_fn, state: MDState, temperature_k,
                               pressure_bar, scale, uniforms):
-    """One MC volume move (OpenMM MonteCarloBarostat): the water centroids
-    scale isotropically with the box, Metropolis acceptance on
-    dU + P dV - N kT ln(V'/V). Returns (state, accepted: bool).
+    """One MC volume move (OpenMM MonteCarloBarostat): the molecule centroids
+    (waters and ions) scale isotropically with the box, Metropolis
+    acceptance on dU + P dV - N kT ln(V'/V), N the number of molecules.
+    Returns (state, accepted: bool).
 
     scale: the move size (nm^3); uniforms: two draws in [0, 1), the volume
     change and the acceptance. energy_fn(positions, box) -> (energy,
@@ -266,7 +286,7 @@ def monte_carlo_barostat_move(system: System, energy_fn, state: MDState, tempera
     e_old, _ = energy_fn(state.positions, box)
     e_new_h, e_old_h = torch.stack([e_new, e_old]).double().tolist()
     w = e_new_h - e_old_h + pressure_bar * BAR_KJ_MOL_NM3 * dv \
-        - system.n_waters * kT * math.log(new_vol / vol)
+        - (int(np.max(system.mol_index)) + 1) * kT * math.log(new_vol / vol)
     accept = w <= 0 or u_acc < math.exp(-w / kT)
     if accept:
         state = dataclasses.replace(state, positions=pos_new, box=box_new, forces=f_new,

@@ -113,14 +113,17 @@ def load():
     lib.mbpol_direct_efp.argtypes = [ptr, ptr, i32, *consts, i32, ptr, ptr, ptr, ptr, ptr]
     lib.mbpol_direct_efp.restype = i32
     # the full-grid row kernels: sites, n, row0, n_rows, n_cols, consts,
-    # tile, partials, field, s3, s5, stream; sites, mu, n, row0, n_rows,
-    # consts, tile, partials, force, pot, e_row, stream
+    # tile, partials, tickets, field, s3, s5, stream; sites, mu, n, row0,
+    # n_rows, consts, tile, partials, tickets, force, pot, e_row, stream;
+    # their column groups (n_rows, n_cols), which size the partials
     lib.mbpol_fixed_field_scf_rows.argtypes = [ptr, i32, i32, i32, i32, *consts, i32, ptr, ptr,
-                                               ptr, ptr, ptr]
+                                               ptr, ptr, ptr, ptr]
     lib.mbpol_fixed_field_scf_rows.restype = i32
     lib.mbpol_direct_efp_rows.argtypes = [ptr, ptr, i32, i32, i32, *consts, i32, ptr, ptr, ptr,
-                                          ptr, ptr]
+                                          ptr, ptr, ptr]
     lib.mbpol_direct_efp_rows.restype = i32
+    lib.mbpol_rows_groups.argtypes = [i32, i32]
+    lib.mbpol_rows_groups.restype = i32
     lib.mbpol_empty_launch.argtypes = [ptr]
     lib.mbpol_empty_launch.restype = i32
     # block-sparse kernels (csrc/elec_direct_bs.cu): list pointers tj, meta,

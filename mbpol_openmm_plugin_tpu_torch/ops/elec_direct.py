@@ -17,12 +17,15 @@ direct_energy_force_pot_sharded: rows padded to
 parallel.mesh.padded_for_mesh and split in equal slabs, s3/s5 kept as one
 [rows, N_pad] slab per shard on its device).
 
-What bounds them on the H100 and the design: see csrc/elec_direct.cu (the
-triangular form of the TPU kernels: one block per tile pair ti <= tj in
+What bounds them on the H100 and the design: see csrc/elec_direct.cu (K1/K2:
+the triangular form of the TPU kernels: one block per tile pair ti <= tj in
 the order of `tile_pairs`, each unordered pair's chain once, row and
 column partials into an [n_tiles, K, N] scratch that a second kernel sums
 in a fixed order, so no atomics and the same bits on every run; s3/s5
-written whole and exactly symmetric).
+written whole and exactly symmetric. The row kernels: rows own blocks and
+walk ranges of column tiles, one launch, the ranges' partials added in a
+fixed order by the last block of each row block, the same bits on every
+run).
 
 Dispatch: a CPU tensor goes to the plain twin; a CUDA float32 tensor goes
 to the kernel, launched on the tensor's device and its current stream;
@@ -519,12 +522,24 @@ def direct_energy_force_pot(sites, mu, c: DirectConsts):
     return torch.sum(e_row), force, pot
 
 
+def _row_scratch(lib, name, rows, n_cols, k, like):
+    """The row kernels' scratch: (partials [G, k, rows], empty when the
+    launch has G = 1 column group, and the row blocks' ticket counters, zero
+    between launches: the kernel sets them back, so they are allocated once
+    per kernel, row count and device)."""
+    from mbpol_openmm_plugin_tpu_torch.utils.consts import cached
+    g = lib.mbpol_rows_groups(rows, n_cols)
+    part = torch.empty((g, k, rows) if g > 1 else (0,), dtype=like.dtype, device=like.device)
+    tickets = cached(('row_tickets', name, rows, like.device),
+                     lambda: torch.zeros((rows,), dtype=torch.int32, device=like.device))
+    return part, tickets
+
+
 def fixed_field_and_scf_factors_rows(sites, row_lo, row_hi, c: DirectConsts, n_cols=None):
-    """Kernel #3 (`fixed_field_rows_kernel` + `tile_sum_kernel`): rows
-    [row_lo, row_hi) of K1's function over the full grid, from packed sites
-    [N, 8]: (field [rows, 3], s3 [rows, n_cols], s5 [rows, n_cols]) with
-    n_cols >= N (default N); rows and columns at or past N are exact
-    zeros."""
+    """Kernel #3 (`fixed_field_rows_kernel`): rows [row_lo, row_hi) of K1's
+    function over the full grid, from packed sites [N, 8]: (field [rows, 3],
+    s3 [rows, n_cols], s5 [rows, n_cols]) with n_cols >= N (default N);
+    rows and columns at or past N are exact zeros."""
     n = sites.shape[0]
     n_cols = n if n_cols is None else int(n_cols)
     if sites.dim() != 2 or sites.shape[1] != NS or not 0 <= row_lo <= row_hi or n_cols < n:
@@ -539,22 +554,22 @@ def fixed_field_and_scf_factors_rows(sites, row_lo, row_hi, c: DirectConsts, n_c
     field = torch.empty((rows, 3), dtype=sites.dtype, device=sites.device)
     s3 = torch.empty((rows, n_cols), dtype=sites.dtype, device=sites.device)
     s5 = torch.empty((rows, n_cols), dtype=sites.dtype, device=sites.device)
-    part = torch.empty((-(-n_cols // TILE), 3, rows), dtype=sites.dtype, device=sites.device)
+    part, tickets = _row_scratch(lib, 'fixed_field_rows', rows, n_cols, 3, sites)
     with on_device(sites):
         _check(lib.mbpol_fixed_field_scf_rows(sites.data_ptr(), n, row_lo, rows, n_cols,
                                               *c.kernel_args(), TILE, part.data_ptr(),
-                                              field.data_ptr(), s3.data_ptr(), s5.data_ptr(),
-                                              _stream()), 'fixed_field_and_scf_factors_rows')
+                                              tickets.data_ptr(), field.data_ptr(),
+                                              s3.data_ptr(), s5.data_ptr(), _stream()),
+               'fixed_field_and_scf_factors_rows')
     fixed_field_and_scf_factors_rows.launches += 1
     return field, s3, s5
 
 
 def direct_energy_force_pot_rows(sites, mu, row_lo, row_hi, c: DirectConsts):
-    """Kernel #4 (`direct_efp_rows_kernel` + `tile_sum_kernel`): rows
-    [row_lo, row_hi) of K2's function over the full grid, from packed sites
-    [N, 8] and dipoles mu [N, 3]: (half the pair-energy sum [rows], force
-    [rows, 3], potential [rows]), the TPU kernel's output columns; rows at
-    or past N are zero."""
+    """Kernel #4 (`direct_efp_rows_kernel`): rows [row_lo, row_hi) of K2's
+    function over the full grid, from packed sites [N, 8] and dipoles mu
+    [N, 3]: (half the pair-energy sum [rows], force [rows, 3], potential
+    [rows]), the TPU kernel's output columns; rows at or past N are zero."""
     n = sites.shape[0]
     if (sites.dim() != 2 or sites.shape[1] != NS or tuple(mu.shape) != (n, 3)
             or not 0 <= row_lo <= row_hi):
@@ -566,15 +581,16 @@ def direct_energy_force_pot_rows(sites, mu, row_lo, row_hi, c: DirectConsts):
     from mbpol_openmm_plugin_tpu_torch.ops import _build
     lib = _build.load()
     rows = row_hi - row_lo
-    force = torch.zeros((rows, 3), dtype=sites.dtype, device=sites.device)
-    pot = torch.zeros((rows,), dtype=sites.dtype, device=sites.device)
-    e_row = torch.zeros((rows,), dtype=sites.dtype, device=sites.device)
-    part = torch.empty((-(-n // TILE), 5, rows), dtype=sites.dtype, device=sites.device)
+    force = torch.empty((rows, 3), dtype=sites.dtype, device=sites.device)
+    pot = torch.empty((rows,), dtype=sites.dtype, device=sites.device)
+    e_row = torch.empty((rows,), dtype=sites.dtype, device=sites.device)
+    part, tickets = _row_scratch(lib, 'direct_efp_rows', rows, n, 5, sites)
     with on_device(sites):
         _check(lib.mbpol_direct_efp_rows(sites.data_ptr(), mu.data_ptr(), n, row_lo, rows,
                                          *c.kernel_args(), TILE, part.data_ptr(),
-                                         force.data_ptr(), pot.data_ptr(), e_row.data_ptr(),
-                                         _stream()), 'direct_energy_force_pot_rows')
+                                         tickets.data_ptr(), force.data_ptr(), pot.data_ptr(),
+                                         e_row.data_ptr(), _stream()),
+               'direct_energy_force_pot_rows')
     direct_energy_force_pot_rows.launches += 1
     return e_row, force, pot
 

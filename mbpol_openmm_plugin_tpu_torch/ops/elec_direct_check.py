@@ -14,6 +14,9 @@ entry cannot hide under the set's largest (same-molecule O-H) entries.
 The block set is larger (2.4e8 pairs at water4096) and holds a few
 entries where the terms of s5 cancel, where the float32 twin itself reads
 ~4e-5 per entry on water4096 (PERF.md); its per-entry bound is ELEM_BS.
+The dense water4096 rows of the full-grid kernel #3 hold the same sites,
+and k1_rows_range takes ELEM_BS there (twin_elem_range reads the float32
+twin's own distance).
 
 K1 s3/s5, entries with an M site. The SCF multiplies them by zero (M
 sites have zero polarizability, so mu_M = 0 and the field at M is never
@@ -119,11 +122,14 @@ def k1_rows(sites, polarity, kern, twin, twin64):
                     ELEM)
 
 
-def k1_rows_range(sites, polarity, lo, hi, kern, twin, twin64):
+def k1_rows_range(sites, polarity, lo, hi, kern, twin, twin64, elem=ELEM):
     """Rows of the check of the full-grid row kernel #3 on the rows [lo,
     hi) of N real sites: kern/twin/twin64 = (field [rows, 3], s3, s5
     [rows, n_cols]) of the kernel and the float32 and float64 twins; the
-    entries of real rows and columns, in the sets of k1_rows."""
+    entries of real rows and columns, in the sets of k1_rows. elem: the
+    per-entry bound of the polarizable pairs, ELEM; ELEM_BS for the dense
+    water4096 (the block set's sites, where the float32 twin itself reads
+    3.3e-5 on s5 on the H100)."""
     n = sites.shape[0]
     hi = min(hi, n)
     r = hi - lo
@@ -132,7 +138,20 @@ def k1_rows_range(sites, polarity, lo, hi, kern, twin, twin64):
     notself = rows[:, None] != torch.arange(n, device=sites.device)[None, :]
     both = pol[lo:hi, None] & pol[None, :]
     real = [(x[0][:r],) + tuple(m[:r, :n] for m in x[1:]) for x in (kern, twin, twin64)]
-    return _k1_rows(both & notself, ~both & notself, sites[lo:hi, _ISO] > 0.5, *real, ELEM)
+    return _k1_rows(both & notself, ~both & notself, sites[lo:hi, _ISO] > 0.5, *real, elem)
+
+
+def twin_elem_range(sites, polarity, lo, hi, twin, twin64):
+    """The float32 twin's own per-entry distance from the float64 twin (the
+    elem measure) on the polarizable pairs of the rows [lo, hi): (s3, s5)."""
+    n = sites.shape[0]
+    hi = min(hi, n)
+    pol = polarity.to(sites.device) > 0
+    rows = torch.arange(lo, hi, device=sites.device)
+    pp = (pol[lo:hi, None] & pol[None, :]) & (rows[:, None]
+                                               != torch.arange(n, device=sites.device)[None, :])
+    r = hi - lo
+    return tuple(_elem(t[:r, :n][pp], t64[:r, :n][pp]) for t, t64 in zip(twin[1:], twin64[1:]))
 
 
 def _block_sets(polarity, tiles, n_sites, n_pad):

@@ -6,7 +6,8 @@ ops/elec_direct_bs against theirs at water1024 (the water256 fixture
 repeated 2 x 2 x 1, 16 row tiles, sorted as
 tune_capacities sorts it), also on each of 4 shards' local lists (a row-tile
 range); the full-grid row kernels (#3/#4) against their row twins, shard
-by shard, with the padded rows and columns of a mesh exact zeros; the
+by shard, with the padded rows and columns of a mesh exact zeros, the same
+bits on a repeat and every entry written; the
 fused PIP kernels of ops/pip_fused against
 theirs on seeded variables and on the water256 lists' variables; and the
 card's row gather (ops/gather.py).
@@ -181,6 +182,36 @@ def test_row_kernels_match_twins(cuda, name, shards):
         t2 = ED.direct_energy_force_pot_rows_plain(sites, mu, lo, hi, consts)
         _assert_rows(check.k2_rows((k2[0][:real].sum(), k2[1][:real], k2[2][:real]),
                                    (t2[0][:real].sum(), t2[1][:real], t2[2][:real])))
+
+
+@pytest.mark.parametrize('shards', [1, 4, 8])
+@pytest.mark.parametrize('name', sorted(SYSTEMS))
+def test_row_kernels_bitwise_reproducible_and_write_every_entry(cuda, name, shards):
+    """Each shard's #3/#4 launched twice on the same inputs gives the same
+    bits, and right after NaN-filled tensors of their outputs' sizes are
+    freed (the caching allocator hands the memory back) every output is
+    finite: the wrappers allocate no zero fill and no scratch, so the
+    kernels write every entry."""
+    from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
+    sites, consts, alpha = _sites(name, cuda)
+    n = sites.shape[0]
+    n_pad = M.padded_for_mesh(n, shards)
+    mu = (alpha[:, None] * ED.fixed_field_and_scf_factors(sites, consts)[0]).contiguous()
+    for lo, hi in M.row_ranges(n_pad, M.make_mesh(devices=[cuda] * shards)):
+        rows = hi - lo
+        calls = ((lambda: ED.fixed_field_and_scf_factors_rows(sites, lo, hi, consts, n_pad),
+                  [(rows, 3), (rows, n_pad), (rows, n_pad)]),
+                 (lambda: ED.direct_energy_force_pot_rows(sites, mu, lo, hi, consts),
+                  [(rows, 3), (rows,), (rows,)]))
+        for call, shapes in calls:
+            torch.cuda.synchronize()
+            junk = [torch.full(s, float('nan'), device=cuda) for s in shapes]
+            del junk
+            a = call()
+            b = call()
+            torch.cuda.synchronize()
+            assert all(bool(torch.isfinite(t).all()) for t in a)
+            assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
 def test_float64_cuda_tensor_is_refused(cuda):
