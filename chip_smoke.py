@@ -258,11 +258,39 @@ Phases (any failure raises and the script exits non-zero):
      the potential (MBPol.to_device), so on one card (f) checks
      the copies and the bead/slot routing, not a transfer between cards.
      With more than one card visible, (b) also over distinct cards.
+ 30. the example applications (mbpol_openmm_plugin_tpu_torch/examples/ and
+     the tools bulk_validation and respa_drift), each called in-process
+     through the function its main() calls, health checks on, with the
+     kernel launch counts set to 0 before and read after each (a kernel of
+     its path launched no time fails): make_inputs (PDBs into a temp dir),
+     water14 (app single point, 20 minimizer iterations, 100 NVE steps),
+     example_nvt_nve (10 + 100 NVT, 100 NVE app steps); bulk_properties 400
+     (400 Langevin + 400 NVE steps, 20 frames): every observable finite,
+     g_OO's first peak in 0.265-0.290 nm and 2.4-3.6 high (the bands of
+     tools/bulk_validation.py), S(q), H-bonds, q_tet, D, epsilon printed,
+     and the report edges' share of the production (the same steps again as
+     one chunk); ir_spectrum 100 (200 + 100 steps, water14 cluster): the
+     band peaks and the edges' share; isotope_density 100 --beads 8
+     --interval 25: finite densities, moves attempted for both isotopes,
+     the ratio printed; water256_pimd 20 and water14_pimd 8 10: steps/s
+     and KE_virial against 3/2 NkT, and water14_pimd's eager step under
+     torch.profiler (device-busy time, kernels, host reads; not gated);
+     remd_water14 2 blocks and no warm-up block (the script's 2), R = 4,
+     without and with --mesh (4 shards of cuda:0): MBAR finite; water2048_scaling
+     2048 dense,block,sparse: converged, no overflow, each mode's single
+     point within REPLICA_E_REL (energy) and REPLICA_F_WHOLE (forces) of the
+     dense one; multichip_scaling 2048 4 (4 shards of cuda:0): no overflow,
+     converged, the Verlet loop finite; bulk_validation --npt-eq-ps 0
+     --npt-ps 0.5 --nve-ps 0.2: the g_OO bands gated, the density and D
+     printed with every verdict; respa_drift, one short arm (EXAMPLE_RESPA).
+     Depths are cut only as listed here (PERF.md section 4).
 Each phase prints its wall time and the script its total.
-Phases 5, 8, 11, 13-15, 17, 20-22, 24's NVE, NVT and NPT runs, 25-28's MD and 29 (d), (f) each step
+Phases 5, 8, 11, 13-15, 17, 20-22, 24's NVE, NVT and NPT runs, 25-28's MD, 29 (d), (f) and 30's
+Simulation and PIMDSimulation runs each step
 as a replay of one CUDA graph (Simulation.captured, PIMDSimulation.captured;
 the kernel wrappers' launch counts include the replays); phases 18
-(r-RESPA) and 23 (REMD) run eagerly.
+(r-RESPA) and 23 (REMD) run eagerly, as do 30's functional ring-polymer loops,
+REMD, RESPA and scaling loops (converged evaluations).
 The last two lines are a JSON summary of the kernels and
 {"ok": true, "device": {...}}.
 
@@ -2175,15 +2203,10 @@ THOLE_SCALE = (1.0, 1.0, 1.1, 0.95, 1.0)
 
 def write_app_pdbs(directory):
     """The PDBs of the example INIs from their fixtures, by the port's
-    writer (examples/make_inputs.py's job, without the JAX package)."""
-    from mbpol_openmm_plugin_tpu_torch.app.pdbfile import Atom, Topology, write_pdb_frame
+    writer (mbpol_openmm_plugin_tpu_torch/examples/make_inputs.py's)."""
+    from mbpol_openmm_plugin_tpu_torch.examples import _common
     for name in APP_PDBS:
-        with np.load(os.path.join(FIXTURES, name + '.npz')) as z:
-            atoms = [Atom(i, str(n), str(rn), int(ri)) for i, (n, rn, ri) in
-                     enumerate(zip(z['names'], z['resnames'], z['resids']))]
-            positions = np.array(z['positions'])
-        with open(os.path.join(directory, name + '.pdb'), 'w') as fh:
-            write_pdb_frame(fh, Topology(atoms), positions)
+        _common.write_pdb(name, os.path.join(directory, name + '.pdb'))
 
 
 def run_ini(torch, card, tmp, ini, cuts, platform=None):
@@ -3389,6 +3412,246 @@ def phase_mesh(torch, card, record, classical_rate):
     log(f'  phase 29 walls: {", ".join(f"{k} {v:.1f} s" for k, v in steps.items())}')
 
 
+# phase 30: the example applications; the depths cut for the smoke run
+EXAMPLE_STEPS = {'bulk_properties': 400, 'ir_spectrum': 100, 'isotope_density': 100,
+                 'water256_pimd': 20, 'water14_pimd': 10, 'remd_blocks': 2, 'remd_warm': 0,
+                 'app_production': 100, 'water14_minimize': 20}
+EXAMPLE_BULK = dict(npt_eq_ps=0.0, npt_ps=0.5, nve_ps=0.2)
+EXAMPLE_RESPA = dict(steps=50, therm=0, seg=25)
+EXAMPLE_MODES = ('dense', 'block', 'sparse')
+# water14_pimd steps read under torch.profiler for its eager breakdown (its
+# trace of ~32,000 kernels and their host ops a step takes ~20 s to read)
+EAGER_BREAKDOWN_STEPS = 1
+
+
+def all_launches():
+    """{wrapper: launches} of every kernel wrapper."""
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as BS
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused as PF
+    return {k.__name__: k.launches for k in ED.KERNELS + ED.ROW_KERNELS + BS.KERNELS
+            + PF.KERNELS}
+
+
+def reset_all_launches():
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct as ED
+    from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as BS
+    from mbpol_openmm_plugin_tpu_torch.ops import pip_fused as PF
+    for mod in (ED, BS, PF):
+        mod.reset_launch_counts()
+
+
+def example_run(walls, tag, fn, need=()):
+    """fn() with every launch count set to 0 before and read after; the
+    kernels in `need` must have launched. Returns fn's result."""
+    reset_all_launches()
+    t0 = time.perf_counter()
+    out = fn()
+    walls[tag] = time.perf_counter() - t0
+    got = {k: v for k, v in all_launches().items() if v}
+    log(f'  [{tag}] {walls[tag]:.1f} s; launches {got}')
+    missing = [k for k in need if not got.get(k)]
+    assert not missing, f'{tag}: kernels of its path not launched: {missing}'
+    return out
+
+
+def eager_breakdown(torch, fn):
+    """(device-busy ms, device kernels, host reads, stream or device
+    synchronizes) of one fn() under torch.profiler (CPU and CUDA activity):
+    the busy time sums the CUDA kernels' self time, a host read is an
+    aten::_local_scalar_dense (.item(), float(), bool() of a card tensor)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    busy_us, kernels, reads, syncs = 0.0, 0, 0, 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA:
+            busy_us += ev.self_device_time_total
+            kernels += ev.count
+        elif ev.key == 'aten::_local_scalar_dense':
+            reads += ev.count
+        elif ev.key in ('cudaStreamSynchronize', 'cudaDeviceSynchronize'):
+            syncs += ev.count
+    return busy_us / 1e3, kernels, reads, syncs
+
+
+def finite(*xs):
+    return all(np.all(np.isfinite(np.asarray(x, np.float64))) for x in xs)
+
+
+def phase_examples(torch, card):
+    """Phase 30: the example applications and the two validation tools."""
+    import tempfile
+
+    from mbpol_openmm_plugin_tpu_torch.examples import (bulk_properties, example_nvt_nve,
+                                                        ir_spectrum, isotope_density,
+                                                        make_inputs, multichip_scaling,
+                                                        remd_water14, water14, water14_pimd,
+                                                        water256_pimd, water2048_scaling)
+    from mbpol_openmm_plugin_tpu_torch.tools import bulk_validation, respa_drift
+    k12 = ('fixed_field_and_scf_factors', 'direct_energy_force_pot')
+    walls = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = example_run(walls, 'make_inputs', lambda: make_inputs.run(tmp, echo=False))
+        assert all(os.path.getsize(p) > 0 for p in paths.values())
+        out = example_run(walls, 'water14', lambda: water14.run(
+            min_iterations=EXAMPLE_STEPS['water14_minimize'], pdb_dir=tmp, echo=False))
+        assert finite(out['potential_energy_kcal'], out['forces_kcal_per_A'],
+                      out['final_pe_kcal']) and out['minimized_kcal'] < out['potential_energy_kcal']
+        log(f"  water14 app: single point {out['potential_energy_kcal']:.4f} kcal/mol, "
+            f"minimized ({EXAMPLE_STEPS['water14_minimize']} iterations) "
+            f"{out['minimized_kcal']:.4f}, after 100 NVE steps "
+            f"{out['final_pe_kcal']:.4f}")
+        n = EXAMPLE_STEPS['app_production']
+        out = example_run(walls, 'example_nvt_nve', lambda: example_nvt_nve.run(
+            n, log_dir=tmp, pdb_dir=tmp, echo=False), k12)
+        rows = {}
+        for k, path in out['logs'].items():
+            with open(path) as fh:
+                rows[k] = fh.read().splitlines()[1:]
+        assert all(rows.values()) and finite(out['nvt_pe_ke'], out['nve_pe_ke']), rows
+        assert not any('nan' in line.lower() for r in rows.values() for line in r), rows
+        log(f"  example_nvt_nve: NVT PE/KE {out['nvt_pe_ke']}, NVE {out['nve_pe_ke']} kJ/mol; "
+            f"log rows {[len(r) for r in rows.values()]}")
+
+    n = EXAMPLE_STEPS['bulk_properties']
+    bp = example_run(walls, 'bulk_properties', lambda: bulk_properties.run(
+        n, check_health=True, edge_probe=True, echo=False), k12)
+    lo_r, hi_r = bulk_validation.BANDS['g_oo_peak_r']
+    lo_h, hi_h = bulk_validation.BANDS['g_oo_peak_h']
+    assert finite(bp['rdf_g'], bp['sq_s'], bp['hbonds_per_molecule'], bp['tetrahedral_order'],
+                  bp['msd'], bp['gk_d'], bp['dipoles'], bp['epsilon'], bp['vdos'])
+    d = bp['d_einstein_nm2_ps']
+    log(f"  bulk_properties {n}: g_OO peak {bp['g_oo_peak_nm']:.4f} nm, height "
+        f"{bp['g_oo_peak_height']:.3f} (bands {lo_r}-{hi_r}, {lo_h}-{hi_h}); S(q) peak "
+        f"{bp['sq_peak']:.3f} at {bp['sq_peak_q']:.2f} 1/nm; H-bonds/molecule "
+        f"{bp['hbonds_per_molecule']:.3f}; q_tet {bp['tetrahedral_order']:.4f}; D Einstein "
+        f"{'too short' if d is None else f'{d:.4e} nm^2/ps'}, GK at t_max "
+        f"{bp['d_gk_last_nm2_ps']:.4e}; epsilon {bp['epsilon']:.2f} from "
+        f"{len(bp['dipoles'])} dipoles; VDOS peaks {bp['vdos_peaks']}")
+    log(f"  bulk_properties steps/s: Langevin {bp['eq_steps_per_second']:.2f}, NVE in calls "
+        f"of {bulk_properties.FRAME_EVERY} {bp['production_steps_per_second']:.2f}, as one "
+        f"chunk {bp['one_chunk_steps_per_second']:.2f}: report edges "
+        f"{100 * bp['edge_share']:.1f}% of the production wall; analysis "
+        f"{bp['analysis_s']:.1f} s; captured {bp['captured']} ({card})")
+    assert lo_r <= bp['g_oo_peak_nm'] <= hi_r and lo_h <= bp['g_oo_peak_height'] <= hi_h
+
+    n = EXAMPLE_STEPS['ir_spectrum']
+    ir = example_run(walls, 'ir_spectrum', lambda: ir_spectrum.run(
+        n, check_health=True, edge_probe=True, echo=False))
+    assert finite(ir['dipoles']) and ir['n_frames'] == n // ir_spectrum.FRAME_EVERY
+    log(f"  ir_spectrum {n}: {ir['n_frames']} frames, resolution "
+        f"{ir['resolution_invcm']:.0f} 1/cm, band peaks {ir['bands']}; steps/s Langevin "
+        f"{ir['eq_steps_per_second']:.2f}, NVE in calls of {ir_spectrum.FRAME_EVERY} "
+        f"{ir['production_steps_per_second']:.2f}, as one chunk "
+        f"{ir['one_chunk_steps_per_second']:.2f}: report edges {100 * ir['edge_share']:.1f}% "
+        f"({card})")
+
+    n = EXAMPLE_STEPS['isotope_density']
+    iso = example_run(walls, 'isotope_density', lambda: isotope_density.run(
+        n, 8, 25, device='cuda', echo=False), k12)
+    for name in ('H2O', 'D2O'):
+        r = iso[name]
+        assert finite(r['rho'], r['volumes'], r['ke_virial_kj']) and r['moves_attempted'] >= 1, r
+        log(f"  isotope_density {name} 8 -> 1: rho {r['rho']:.5f} +- {r['rho_err']:.5f} g/cm^3, "
+            f"moves {r['moves_accepted']}/{r['moves_attempted']}, KE_cv "
+            f"{r['ke_virial_kj']:.1f} kJ/mol, captured {r['captured']} ({r['captures']} captures)")
+    log(f"  isotope_density ratio rho(D2O)/rho(H2O) {iso['ratio']:.5f} (mass ratio "
+        f"{iso['mass_ratio']:.5f}; molar-volume effect {100 * iso['molar_volume_effect']:+.3f}%; "
+        f"{n} steps, not converged)")
+
+    n = EXAMPLE_STEPS['water256_pimd']
+    wp = example_run(walls, 'water256_pimd', lambda: water256_pimd.run(n, echo=False), k12)
+    for k in ('classical', 'rpc'):
+        r = wp[k]
+        assert finite(r['pe_last'], r['ke_virial_kcal'])
+        log(f"  water256_pimd {k}: {r['steps_per_second']:.2f} steps/s ({r['ms_per_step']:.2f} "
+            f"ms/step), KE_virial {r['ke_virial_kcal']:.1f} kcal/mol against 3/2 NkT "
+            f"{r['classical_kcal']:.1f} ({card})")
+    n = EXAMPLE_STEPS['water14_pimd']
+    w14 = example_run(walls, 'water14_pimd', lambda: water14_pimd.run(8, n, echo=False))
+    assert finite(w14['ke_virial'], w14['pe_bead_mean_kcal'])
+    log(f"  water14_pimd 8 beads: {w14['steps_per_second']:.2f} steps/s, KE_q "
+        f"{w14['ke_q_kcal']:.2f} kcal/mol against 3/2 NkT {w14['ke_classical_kcal']:.2f} "
+        f"(ratio {w14['ratio']:.2f}) ({card})")
+    # where its step's time goes: the eager loop's device-busy time and host
+    # reads per step (not gated; an empty trace reads 'not measured')
+    sys14, pot14, pos14 = water14_pimd.potential('cuda')
+    normal = water256_pimd.generator_normals(pot14.device)
+    step14, st14 = water14_pimd.start(pot14, pos14, 8, 0, normal)
+    st14 = water256_pimd.trajectory(sys14, step14, st14, 1, water14_pimd.T, normal)[0]
+    n = EAGER_BREAKDOWN_STEPS
+    busy, kernels, reads, syncs = eager_breakdown(torch, lambda: water256_pimd.trajectory(
+        sys14, step14, st14, n, water14_pimd.T, normal))
+    wall_ms = 1e3 / w14['steps_per_second']
+    if kernels:
+        log(f"  water14_pimd eager step ({n} steps under torch.profiler): device busy "
+            f"{busy / n:.2f} ms of the unprofiled {wall_ms:.2f} ms wall ({busy / n / wall_ms:.1%}), "
+            f"{kernels / n:.0f} kernels, {reads / n:.0f} host reads, {syncs / n:.0f} "
+            f"synchronizes a step ({card})")
+    else:
+        log('  water14_pimd eager step: not measured (the profiler trace holds no kernel)')
+
+    nb = EXAMPLE_STEPS['remd_blocks']
+    for mesh in (False, True):
+        tag = 'remd_water14' + (' --mesh' if mesh else '')
+        rm = example_run(walls, tag, lambda: remd_water14.run(
+            nb, 4, mesh, warm_blocks=EXAMPLE_STEPS['remd_warm'], echo=False))
+        assert finite(rm['mbar_f'], [g[1:] for g in rm['mbar_grid']], rm['u_kn'])
+        log(f"  {tag}: {rm['replica_steps_per_second']:.1f} replica-steps/s, acceptance "
+            f"{np.round(rm['out']['acceptance'], 2).tolist()}, MBAR f "
+            f"{np.round(rm['mbar_f'], 3).tolist()}, shards {rm['mesh_shards']} ({card})")
+
+    sys2048, pos2048, _ = water2048_scaling.system_and_positions(2048)
+    modes = {}
+    for mode in EXAMPLE_MODES:
+        need = {'dense': k12, 'block': ('fixed_field_and_scf_lines', 'scf_dipole_field_bs',
+                                        'direct_energy_force_pot_bs')}.get(mode, ())
+        modes[mode] = r = example_run(walls, f'water2048_scaling {mode}', lambda: (
+            water2048_scaling.mode_run(sys2048, pos2048, mode, echo=False)), need)
+        assert r['mode'] == mode and r['converged'] and not any(r['overflow'].values()), r
+        log(f"  water2048 {mode}: E {r['energy'] / 4.184:.3f} kcal/mol ({r['iterations']} SCF "
+            f"iterations), first evaluation {r['first_eval_s']:.2f} s, warm evaluation "
+            f"{r['warm_eval_ms']:.2f} ms, peak {r.get('peak_gib', float('nan')):.2f} GiB ({card})")
+        torch.cuda.empty_cache()
+    ref = modes['dense']
+    for mode in EXAMPLE_MODES[1:]:
+        de = abs(modes[mode]['energy'] - ref['energy']) / abs(ref['energy'])
+        df = float(np.max(np.abs(modes[mode]['forces'] - ref['forces']))
+                   / np.max(np.abs(ref['forces'])))
+        log(f'  water2048 {mode} vs dense: energy {de:.3e} relative (bound {REPLICA_E_REL}), '
+            f'forces {df:.3e} of max|F| (bound {REPLICA_F_WHOLE})')
+        assert de <= REPLICA_E_REL and df <= REPLICA_F_WHOLE
+
+    mc = example_run(walls, 'multichip_scaling', lambda: multichip_scaling.run(2048, 4,
+                                                                              echo=False))
+    plan = mc['plan']
+    need = (('fixed_field_and_scf_factors_rows', 'direct_energy_force_pot_rows')
+            if plan.elec_mode == 'dense' else ())
+    assert not [k for k in need if not all_launches()[k]], 'row kernels not launched'
+    assert mc['converged'] and not mc['overflow'] and mc['md_finite']
+    log(f"  multichip_scaling 2048 on {mc['mesh_shards']} shards of {mc['mesh_devices']}: "
+        f"mode {plan.elec_mode}, E {mc['energy'] / 4.184:.3f} kcal/mol, first evaluation "
+        f"{mc['first_eval_s']:.2f} s, Verlet {mc['md_ms_per_step']:.1f} ms/step, plan "
+        f"{plan.mem_per_device_mb:.0f} MB/device ({card})")
+    torch.cuda.empty_cache()
+
+    bv = example_run(walls, 'bulk_validation', lambda: bulk_validation.run(
+        device='cuda', check_health=True, echo=False, **EXAMPLE_BULK), k12)
+    log('  bulk_validation ' + json.dumps(bv))
+    assert bv['band_ok']['g_oo_peak_r'] and bv['band_ok']['g_oo_peak_h'], bv['band_ok']
+    rd = example_run(walls, 'respa_drift', lambda: respa_drift.run(
+        device='cuda', check_health=True, echo=False, **EXAMPLE_RESPA), k12)
+    assert not rd['nan'] and finite(rd['series'])
+    log(f"  respa_drift (mid 3, inner 2, {EXAMPLE_RESPA}): drift {rd['drift_K_per_ns']:.1f} "
+        f"K/ns over {rd['window_ps']:.3f} ps, {rd['outer_steps_per_second']:.2f} outer steps/s "
+        f"({card})")
+    log(f'  phase 30 walls: {", ".join(f"{k} {v:.1f} s" for k, v in walls.items())}')
+
+
 _PHASE = {}
 
 
@@ -3507,6 +3770,9 @@ def main():
     begin_phase(f'== phase 29: the device mesh ({MESH_SHARDS} shards on cuda:0: row kernels, '
                 f'dense, block, sparse, planned, MD, PIMD, REMD)')
     phase_mesh(torch, card, record, quad_steps_per_s)
+    begin_phase('== phase 30: the example applications and the validation tools (the port\'s '
+                'examples/, tools/bulk_validation.py, tools/respa_drift.py)')
+    phase_examples(torch, card)
     begin_phase(None)
     log(f'  steps/s: classical {quad_steps_per_s:.2f} (phase 5), PIMD contracted {pimd_rate:.2f},'
         f' 8 full beads {full_rate:.2f} ({card})')

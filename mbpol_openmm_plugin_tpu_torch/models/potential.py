@@ -588,6 +588,11 @@ class MBPol:
         in another box than the system's."""
         return self._energy_forces_impl(positions, mu0=mu0, box=box)
 
+    def energy(self, positions):
+        """The total energy (kJ/mol) of a converged evaluation at positions:
+        energy_forces(positions)[0]."""
+        return self.energy_forces(positions)[0]
+
     def tune_capacities(self, positions, margin=1.15, native=False):
         """Size the padded lists from the exact neighbor counts of a
         representative configuration, with a safety margin for density

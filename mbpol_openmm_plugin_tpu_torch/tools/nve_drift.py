@@ -25,7 +25,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import os
 import time
 
 import numpy as np
@@ -35,13 +34,10 @@ from mbpol_openmm_plugin_tpu_torch.md import integrators as I
 from mbpol_openmm_plugin_tpu_torch.md.step_graph import StepGraph
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.system import oxygen_positions
-from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils import cli, units
 from mbpol_openmm_plugin_tpu_torch.utils.compensated import comp_add
 from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
-REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-FIXTURE = os.path.join(REPO, 'tests', 'fixtures', 'water256_integration_test.npz')
-BOX = 19.3996888399961804 / 10.0
 # capacity margin of the long runs: a 10 ps window samples deeper density
 # fluctuations than a short run
 MARGIN = 1.6
@@ -135,10 +131,10 @@ def water256(dt_fs, aspc_k, kahan, skin=0.02, seed=0, temperature=300.0, device=
     and the generator that drew them)."""
     from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, MBPolConfig
     from mbpol_openmm_plugin_tpu_torch.system import System, compute_virtual_sites
-    dev = torch.device(device)
-    with np.load(FIXTURE) as z:
-        system = System.from_atom_names(z['names'], z['resnames'], box=[BOX] * 3)
-        positions = np.array(z['positions'])
+    dev = cli.device(device)
+    z = cli.load_fixture('water256_integration_test')
+    system = System.from_atom_names(z['names'], z['resnames'], box=[cli.BOX256] * 3)
+    positions = z['positions']
     pot = MBPol(system, MBPolConfig.for_dynamics(aspc_k=aspc_k, nlist_skin=skin), device=dev)
     pos = compute_virtual_sites(system, pot.as_positions(positions))
     pot.tune_capacities(pos, margin=MARGIN)
@@ -196,7 +192,7 @@ def run(dt_fs=0.2, aspc_k=3, kahan=False, steps=50000, therm=2000, seg=1000, see
     return out
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
     ap.add_argument('--steps', type=int, default=50000)
     ap.add_argument('--therm', type=int, default=2000)
@@ -208,8 +204,8 @@ def main():
                     help='run these arms in turn (overrides --kahan)')
     ap.add_argument('--skin', type=float, default=0.02)
     ap.add_argument('--seed', type=int, default=0)
-    ap.add_argument('--device', default='cuda')
-    a = ap.parse_args()
+    cli.add_device_argument(ap)
+    a = ap.parse_args(argv)
     for arm in a.arms or (['kahan'] if a.kahan else ['plain']):
         run(a.dt_fs, a.aspc_k, arm == 'kahan', a.steps, a.therm, a.seg, a.seed, skin=a.skin,
             device=a.device)
