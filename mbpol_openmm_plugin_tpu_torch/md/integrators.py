@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from mbpol_openmm_plugin_tpu_torch.system import System
-from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils import tracing, units
 from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 # 1 bar in kJ/mol/nm^3
@@ -273,6 +273,7 @@ def monte_carlo_barostat_move(system: System, energy_fn, state: MDState, tempera
     a rejected one keeps its forces and takes the converged energy. The
     decision reads the two energies on the host once."""
     u_dv, u_acc = (float(u) for u in uniforms.tolist())
+    tracing.count('host_reads')
     kT = units.BOLTZMANN_KJ_MOL_K * temperature_k
     box = np.asarray(state.box, np.float64)
     vol = float(np.prod(box))
@@ -285,6 +286,7 @@ def monte_carlo_barostat_move(system: System, energy_fn, state: MDState, tempera
     e_new, f_new = energy_fn(pos_new, box_new)
     e_old, _ = energy_fn(state.positions, box)
     e_new_h, e_old_h = torch.stack([e_new, e_old]).double().tolist()
+    tracing.count('host_reads')
     w = e_new_h - e_old_h + pressure_bar * BAR_KJ_MOL_NM3 * dv \
         - (int(np.max(system.mol_index)) + 1) * kT * math.log(new_vol / vol)
     accept = w <= 0 or u_acc < math.exp(-w / kT)

@@ -43,7 +43,7 @@ from mbpol_openmm_plugin_tpu_torch.models.potential import (MBPol, inherit_capac
 from mbpol_openmm_plugin_tpu_torch.parallel.mesh import Mesh, shard_of, to_device
 from mbpol_openmm_plugin_tpu_torch.system import (System, compute_virtual_sites,
                                                   make_molecules_whole, water_positions)
-from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils import tracing, units
 from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 # hbar * N_A in kJ/mol * ps (CODATA hbar = 1.054571817e-34 J s)
@@ -650,43 +650,44 @@ class PIMDSimulation:
         a graph where `captured` says so), the lists built before the steps
         i % nlist_rebuild_interval == 0. Returns (per-step sum of the bead
         energies, KE_cv, H) [3, k] and the overflow flag."""
-        s = self.state
-        src = dict(positions=s.positions, velocities=s.velocities, forces=s.forces,
-                   pe=s.potential_energy, ke=s.potential_energy[0], ham=s.potential_energy[0],
-                   ovf=ovf, noise=self._normal(tuple(s.positions.shape)))
-        if self._mu is not None:
-            src['mu'] = self._mu
-        if self._nl_reuse:
-            lists, ov = self._build_lists(s.positions)
-            src.update(zip(LIST_KEYS, lists))
-            src['ovf'] = ovf | ov
-        g = self._graph
-        if g is None or not g.matches(self._eval_pot, s.box, None, src):
-            # a new box (an accepted volume move): the old graph and its
-            # memory go, the next step captures anew
-            self._graph = g = None
-            g = self._graph = StepGraph(self._eval_pot, s.box, None, src, self.captured,
-                                        self.capture_ms)
-        g.load(src)
-        b = g.buffers
-        out = torch.empty((3, k), dtype=b['pe'].dtype, device=b['pe'].device)
-        for i in range(k):
-            if i:
-                g.load(dict(noise=self._normal(tuple(b['noise'].shape))))
-                if self._nl_reuse and i % self._nl_every == 0:
-                    lists, ov = self._build_lists(b['positions'])
-                    g.load(dict(zip(LIST_KEYS, lists)))
-                    b['ovf'].copy_(b['ovf'] | ov)
-            g.step(self._body)
-            out[0, i].copy_(torch.sum(b['pe']))
-            out[1, i].copy_(b['ke'])
-            out[2, i].copy_(b['ham'])
-        res = g.unload(skip=('noise', 'ke', 'ham') + LIST_KEYS)
-        self.state = dataclasses.replace(s, positions=res['positions'],
-                                         velocities=res['velocities'], forces=res['forces'],
-                                         potential_energy=res['pe'], step=s.step + k)
-        self._mu = res.get('mu')
-        return out, res['ovf']
+        with tracing.span('md.step_graph.group'):
+            s = self.state
+            src = dict(positions=s.positions, velocities=s.velocities, forces=s.forces,
+                       pe=s.potential_energy, ke=s.potential_energy[0], ham=s.potential_energy[0],
+                       ovf=ovf, noise=self._normal(tuple(s.positions.shape)))
+            if self._mu is not None:
+                src['mu'] = self._mu
+            if self._nl_reuse:
+                lists, ov = self._build_lists(s.positions)
+                src.update(zip(LIST_KEYS, lists))
+                src['ovf'] = ovf | ov
+            g = self._graph
+            if g is None or not g.matches(self._eval_pot, s.box, None, src):
+                # a new box (an accepted volume move): the old graph and its
+                # memory go, the next step captures anew
+                self._graph = g = None
+                g = self._graph = StepGraph(self._eval_pot, s.box, None, src, self.captured,
+                                            self.capture_ms)
+            g.load(src)
+            b = g.buffers
+            out = torch.empty((3, k), dtype=b['pe'].dtype, device=b['pe'].device)
+            for i in range(k):
+                if i:
+                    g.load(dict(noise=self._normal(tuple(b['noise'].shape))))
+                    if self._nl_reuse and i % self._nl_every == 0:
+                        lists, ov = self._build_lists(b['positions'])
+                        g.load(dict(zip(LIST_KEYS, lists)))
+                        b['ovf'].copy_(b['ovf'] | ov)
+                g.step(self._body)
+                out[0, i].copy_(torch.sum(b['pe']))
+                out[1, i].copy_(b['ke'])
+                out[2, i].copy_(b['ham'])
+            res = g.unload(skip=('noise', 'ke', 'ham') + LIST_KEYS)
+            self.state = dataclasses.replace(s, positions=res['positions'],
+                                             velocities=res['velocities'], forces=res['forces'],
+                                             potential_energy=res['pe'], step=s.step + k)
+            self._mu = res.get('mu')
+            return out, res['ovf']
 
     def _barostat_move(self, ovf):
         """One ring-polymer volume move on converged evaluations; an accepted

@@ -60,7 +60,7 @@ from mbpol_openmm_plugin_tpu_torch.md.step_graph import LIST_KEYS, StepGraph
 from mbpol_openmm_plugin_tpu_torch.models import electrostatics as elec
 from mbpol_openmm_plugin_tpu_torch.models.potential import MBPol, with_scf_method
 from mbpol_openmm_plugin_tpu_torch.system import oxygen_positions
-from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils import tracing, units
 from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 RESPA_FORCES = ('slow', 'mid', 'fast')
@@ -70,11 +70,15 @@ def health_flag(diag):
     """Scalar bool tensor: SCF converged (or ASPC healthy) and no padded
     list overflowed."""
     ok = torch.ones((), dtype=torch.bool)
+    reads = 0
     if 'converged' in diag:
         ok = diag['converged'].cpu() & ok
+        reads += 1
     for k, v in diag.items():
         if k.endswith('_overflow'):
             ok = ok & ~torch.as_tensor(v).cpu()
+            reads += 1
+    tracing.count('host_reads', reads)
     return ok
 
 
@@ -238,7 +242,8 @@ class Simulation:
         positions = self.potential.as_positions(positions)
         box = self.system.box if box is None else box
         box = None if box is None else np.array(box, np.float64)
-        e, f, _, _ = self.potential.energy_forces(positions, box=box)
+        with tracing.phase('md.simulation.set_positions'):
+            e, f, _, _ = self.potential.energy_forces(positions, box=box)
         self.state = I.MDState(positions=positions, velocities=torch.zeros_like(positions),
                                forces=f, potential_energy=e, box=box, step=0)
 
@@ -507,7 +512,8 @@ class Simulation:
         """The barostat's converged evaluation (positions, box) -> (E, F);
         its overflow flags join the chunk's."""
         def energy_at(p, box):
-            e, f, _, diag = self.potential._energy_forces_impl(p, box=box)
+            with tracing.span('md.simulation.barostat_trial'):
+                e, f, _, diag = self.potential._energy_forces_impl(p, box=box)
             for k, v in diag.items():
                 if k.endswith('_overflow'):
                     run['ovf'] = run['ovf'] | v
@@ -533,7 +539,9 @@ class Simulation:
         mu = None
         if warm:
             # seed the dipoles from a converged evaluation at the chunk's start
-            mu = pot._energy_forces_impl(state.positions, box=state.box)[3]['induced_dipoles']
+            with tracing.span('md.simulation.dipole_seed'):
+                mu = pot._energy_forces_impl(state.positions,
+                                             box=state.box)[3]['induced_dipoles']
             if aspc:
                 mu = mu[None].repeat(len(B), 1, 1)
         respa = self._respa
@@ -552,7 +560,9 @@ class Simulation:
             n = min(group, n_steps - done)
             nlists = None
             if use_nl and (auto_nl or reuse > 1):
-                (pl, tl), d = pot_nl.build_neighbor_lists(state.positions, state.box)
+                with tracing.span('md.simulation.group_lists'):
+                    (pl, tl), d = pot_nl.build_neighbor_lists(state.positions, state.box)
+                tracing.count('list_builds')
                 run['ovf'] = run['ovf'] | d['pair_overflow'] | d['triplet_overflow']
                 if auto_nl:
                     run['nl'] = ((pl, tl), state.positions, run['ovf'])
@@ -578,9 +588,10 @@ class Simulation:
                 run['ovf'] = run['ovf'] | run['nl'][2]
                 run['nl'] = None
             if baro:
-                state, self._baro, accepted = I.monte_carlo_barostat_move_adaptive(
-                    self.system, self._energy_at(run), state, cfg.temperature,
-                    cfg.barostat_pressure, self._baro, self._uniform((2,)))
+                with tracing.span('md.simulation.barostat_move'):
+                    state, self._baro, accepted = I.monte_carlo_barostat_move_adaptive(
+                        self.system, self._energy_at(run), state, cfg.temperature,
+                        cfg.barostat_pressure, self._baro, self._uniform((2,)))
                 moves[0] += 1
                 moves[1] += int(accepted)
             done += n
@@ -594,42 +605,43 @@ class Simulation:
         StepGraph (replayed as a graph where `captured` says so), CM
         removal on the steps it falls on. Returns (state, PE [n], KE [n])
         and updates run's carry."""
-        draws = self._draws()
-        src = md_step_sources(state, nlists, run, draws)
-        g = self._graph
-        if g is None or not g.matches(self.potential, state.box, run['B'], src):
-            # a new box (an accepted barostat move) or new capacities: the
-            # old graph and its memory go, the next step captures anew
-            self._graph = g = None
-            g = self._graph = StepGraph(self.potential, state.box, run['B'], src,
-                                        self.captured, self.capture_ms)
-        g.load(src)
-        b = g.buffers
-        pe = torch.empty((n,), dtype=b['pe'].dtype, device=b['pe'].device)
-        ke = torch.empty_like(pe)
-        for i in range(n):
-            if i:
-                g.load(self._draws())
-            g.step(self._body)
-            if self._cm_due(state.step + i + 1):
-                v = I.remove_cm_motion(self.system, b['velocities'])
-                b['velocities'].copy_(v)
-                b['ke'].copy_(I.kinetic_energy(self.system, v))
-            pe[i].copy_(b['pe'])
-            ke[i].copy_(b['ke'])
-        out = g.unload(skip=('ke', 'noise', 'uniforms', 'normals'))
-        run['ovf'] = out['ovf']
-        if 'mu' in out:
-            run['mu'] = out['mu']
-        if 'nl_pos' in out:
-            run['nl'] = (((out['pairs'], out['pmask']), (out['trips'], out['tmask'])),
-                         out['nl_pos'], out['nl_ovf'])
-            run['rebuilds'] = out['rebuilds']
-        positions, velocities, forces, e = (out['positions'], out['velocities'],
-                                            out['forces'], out['pe'])
-        state = dataclasses.replace(state, positions=positions, velocities=velocities,
-                                    forces=forces, potential_energy=e, step=state.step + n)
-        return state, pe, ke
+        with tracing.span('md.step_graph.group'):
+            draws = self._draws()
+            src = md_step_sources(state, nlists, run, draws)
+            g = self._graph
+            if g is None or not g.matches(self.potential, state.box, run['B'], src):
+                # a new box (an accepted barostat move) or new capacities: the
+                # old graph and its memory go, the next step captures anew
+                self._graph = g = None
+                g = self._graph = StepGraph(self.potential, state.box, run['B'], src,
+                                            self.captured, self.capture_ms)
+            g.load(src)
+            b = g.buffers
+            pe = torch.empty((n,), dtype=b['pe'].dtype, device=b['pe'].device)
+            ke = torch.empty_like(pe)
+            for i in range(n):
+                if i:
+                    g.load(self._draws())
+                g.step(self._body)
+                if self._cm_due(state.step + i + 1):
+                    v = I.remove_cm_motion(self.system, b['velocities'])
+                    b['velocities'].copy_(v)
+                    b['ke'].copy_(I.kinetic_energy(self.system, v))
+                pe[i].copy_(b['pe'])
+                ke[i].copy_(b['ke'])
+            out = g.unload(skip=('ke', 'noise', 'uniforms', 'normals'))
+            run['ovf'] = out['ovf']
+            if 'mu' in out:
+                run['mu'] = out['mu']
+            if 'nl_pos' in out:
+                run['nl'] = (((out['pairs'], out['pmask']), (out['trips'], out['tmask'])),
+                             out['nl_pos'], out['nl_ovf'])
+                run['rebuilds'] = out['rebuilds']
+            positions, velocities, forces, e = (out['positions'], out['velocities'],
+                                                out['forces'], out['pe'])
+            state = dataclasses.replace(state, positions=positions, velocities=velocities,
+                                        forces=forces, potential_energy=e, step=state.step + n)
+            return state, pe, ke
 
     def step(self, n_steps, report_interval=None, check_health=True):
         """Advance n_steps. Returns per-report-interval metrics (potential,
@@ -647,38 +659,31 @@ class Simulation:
         if self._barostat and self._baro is None:
             self._baro = I.barostat_scale_init(self.state.box)
         pes, kes, steps = [], [], []
-        e_steps = [float(self.state.potential_energy)
-                   + float(I.kinetic_energy(self.system, self.state.velocities))]
+        with tracing.span('md.simulation.readback'):
+            e_steps = [float(self.state.potential_energy)
+                       + float(I.kinetic_energy(self.system, self.state.velocities))]
+            tracing.count('host_reads', 2)
         ke_steps = []
         moves = np.zeros(2, np.int64)
         remaining = n_steps
         while remaining > 0:
-            chunk = min(report_interval, remaining)
-            self.state, pe, ke, ovf, chunk_moves = self._chunk(self.state, chunk)
-            moves += chunk_moves
-            pe_host, ke_host = pe.cpu().numpy(), ke.cpu().numpy()
-            e_steps.extend(pe_host + ke_host)
-            ke_steps.extend(ke_host)
-            if check_health:
-                if bool(ovf):
-                    raise RuntimeError(
-                        f'list or tile-pair overflow during the chunk ending at step '
-                        f'{self.state.step}: raise the capacities (tune_capacities)')
-                diag = self.potential._energy_forces_impl(self.state.positions,
-                                                          box=self.state.box)[3]
-                nan = np.isnan(pe_host)
-                if nan.any() or not bool(health_flag(diag)):
-                    at = (self.state.step - chunk + int(np.argmax(nan))
-                          if nan.any() else self.state.step)
-                    raise RuntimeError(
-                        'simulation health check failed at step %d: %s' %
-                        (at, {k: v for k, v in diag.items()
-                              if k in ('converged', 'iterations', 'epsilon')
-                              or k.endswith('_overflow')}))
-            pes.append(float(pe_host[-1]))
-            kes.append(float(I.kinetic_energy(self.system, self.state.velocities)))
-            steps.append(self.state.step)
-            remaining -= chunk
+            with tracing.span('md.simulation.chunk'):
+                chunk = min(report_interval, remaining)
+                self.state, pe, ke, ovf, chunk_moves = self._chunk(self.state, chunk)
+                moves += chunk_moves
+                with tracing.span('md.simulation.readback'):
+                    pe_host, ke_host = pe.cpu().numpy(), ke.cpu().numpy()
+                    tracing.count('host_reads', 2)
+                e_steps.extend(pe_host + ke_host)
+                ke_steps.extend(ke_host)
+                with tracing.span('md.simulation.health_check'):
+                    if check_health:
+                        self._check_health(ovf, pe_host, chunk)
+                    kes.append(float(I.kinetic_energy(self.system, self.state.velocities)))
+                    tracing.count('host_reads')
+                pes.append(float(pe_host[-1]))
+                steps.append(self.state.step)
+                remaining -= chunk
         ndof = 3 * int(np.sum(np.asarray(self.system.masses) > 0))
         to_t = 2.0 / (ndof * units.BOLTZMANN_KJ_MOL_K)
         pes = np.asarray(pes)
@@ -688,6 +693,25 @@ class Simulation:
                     step_total_energy=np.asarray(e_steps),
                     step_temperature=to_t * np.asarray(ke_steps),
                     barostat_attempted=int(moves[0]), barostat_accepted=int(moves[1]))
+
+    def _check_health(self, ovf, pe_host, chunk):
+        """Raise RuntimeError if the chunk's overflow flag is set, its
+        energies went NaN, or a converged evaluation at the current
+        positions and box fails its SCF or overflows."""
+        tracing.count('host_reads')
+        if bool(ovf):
+            raise RuntimeError(
+                f'list or tile-pair overflow during the chunk ending at step '
+                f'{self.state.step}: raise the capacities (tune_capacities)')
+        diag = self.potential._energy_forces_impl(self.state.positions, box=self.state.box)[3]
+        nan = np.isnan(pe_host)
+        if nan.any() or not bool(health_flag(diag)):
+            at = self.state.step - chunk + int(np.argmax(nan)) if nan.any() else self.state.step
+            raise RuntimeError(
+                'simulation health check failed at step %d: %s' %
+                (at, {k: v for k, v in diag.items()
+                      if k in ('converged', 'iterations', 'epsilon')
+                      or k.endswith('_overflow')}))
 
     # ------------------------------------------------------------------
     def minimize_energy(self, max_iterations=200, tolerance=10.0, method='lbfgs'):

@@ -16,12 +16,11 @@ falls back to the eager step.
 from __future__ import annotations
 
 import contextlib
-import time
 
 import numpy as np
 import torch
 
-from mbpol_openmm_plugin_tpu_torch.utils import consts
+from mbpol_openmm_plugin_tpu_torch.utils import consts, tracing
 
 LIST_KEYS = ('pairs', 'pmask', 'trips', 'tmask')
 
@@ -98,7 +97,6 @@ class StepGraph:
         self.graph = None
         self.ledger = LaunchLedger(kernel_wrappers())
         self.pinned = None
-        self.capture_ms = None
         # the owner's list of capture times (host ms), appended at each capture
         self.captures = captures if captures is not None else []
 
@@ -136,7 +134,9 @@ class StepGraph:
             with _body_running():
                 body(self)
         elif self.graph is not None:
-            self.graph.replay()
+            with tracing.span('md.step_graph.replay'):
+                self.graph.replay()
+            tracing.count('graph_replays')
             self.ledger.replayed()
         else:
             self._warm_up_and_capture(body)
@@ -147,17 +147,17 @@ class StepGraph:
         cur = torch.cuda.current_stream()
         side = torch.cuda.Stream(device=cur.device)
         side.wait_stream(cur)
-        with torch.cuda.stream(side), _body_running():
-            body(self)
-        cur.wait_stream(side)
-        t0 = time.perf_counter()
-        graph = torch.cuda.CUDAGraph()
-        self.ledger.begin_capture()
-        try:
-            with consts.recording() as pinned, torch.cuda.graph(graph), _body_running():
+        with tracing.phase('md.step_graph.eager_step'):
+            with torch.cuda.stream(side), _body_running():
                 body(self)
-        finally:
-            self.ledger.end_capture()
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.captures.append(self.capture_ms)
+        cur.wait_stream(side)
+        with tracing.phase('md.step_graph.capture') as capture:
+            graph = torch.cuda.CUDAGraph()
+            self.ledger.begin_capture()
+            try:
+                with consts.recording() as pinned, torch.cuda.graph(graph), _body_running():
+                    body(self)
+            finally:
+                self.ledger.end_capture()
+        self.captures.append(capture.seconds * 1e3)
         self.graph, self.pinned = graph, pinned

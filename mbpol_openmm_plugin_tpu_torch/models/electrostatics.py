@@ -27,7 +27,7 @@ from mbpol_openmm_plugin_tpu_torch import _data
 from mbpol_openmm_plugin_tpu_torch.models.one_body import vander
 from mbpol_openmm_plugin_tpu_torch.ops.gamma import gammq34
 from mbpol_openmm_plugin_tpu_torch.system import index_tensor
-from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils import tracing, units
 from mbpol_openmm_plugin_tpu_torch.utils.consts import device_const
 
 # Thole parameter indices
@@ -232,6 +232,13 @@ def _metric(dmu, n):
     return _POLAR_SOR * units.DEBYE * torch.sqrt(torch.sum(dmu * dmu) / n)
 
 
+def _count_solve(iterations):
+    """A converged solve's counters: one host read of epsilon an iteration."""
+    tracing.count('scf_solves')
+    tracing.count('scf_iterations', iterations)
+    tracing.count('host_reads', iterations)
+
+
 def scf_induced_dipoles(efield_alpha, alpha, field_fn, target_epsilon,
                         max_iterations, mu0=None, eps_floor=None):
     """SOR fixed-point iteration for the induced dipoles.
@@ -250,16 +257,19 @@ def scf_induced_dipoles(efield_alpha, alpha, field_fn, target_epsilon,
     mu = efield_alpha if mu0 is None else mu0
     prev = math.inf
     it = 0
-    while True:
-        dmu = efield_alpha + field_fn(mu) * alpha[:, None] - mu
-        mu = mu + _POLAR_SOR * dmu
-        eps = _metric(dmu, n)
-        it += 1
-        eps_h = float(eps)
-        converged = eps_h < target_epsilon
-        if converged or prev < eps_h or it >= max_iterations:
-            break
-        prev = eps_h
+    with tracing.span('models.electrostatics.scf'):
+        while True:
+            dmu = efield_alpha + field_fn(mu) * alpha[:, None] - mu
+            mu = mu + _POLAR_SOR * dmu
+            eps = _metric(dmu, n)
+            it += 1
+            with tracing.span('models.electrostatics.scf_stop_test'):
+                eps_h = float(eps)
+            converged = eps_h < target_epsilon
+            if converged or prev < eps_h or it >= max_iterations:
+                break
+            prev = eps_h
+    _count_solve(it)
     dev = mu.device
     return mu, dict(iterations=torch.tensor(it, device=dev), epsilon=eps,
                     converged=torch.tensor(converged, device=dev))
@@ -334,25 +344,28 @@ def scf_induced_dipoles_diis(efield_alpha, alpha, field_fn, target_epsilon,
     eye = torch.eye(m_dim, dtype=dt, device=dev)
     slots = torch.arange(m_dim, device=dev)
     it = 0
-    while True:
-        g = efield_alpha + field_fn(mu) * alpha[:, None]
-        r = g - mu
-        eps = _metric(r, n)
-        gs = torch.cat([g[None], gs[:-1]])
-        rs = torch.cat([r[None], rs[:-1]])
-        valid = slots < min(it, m_dim)
-        d = torch.where(valid[:, None, None], rs[1:] - rs[0], 0.0).reshape(m_dim, -1)
-        a = d @ d.T
-        a = (a + 1e-8 * (torch.trace(a) + 1e-30) * eye
-             + torch.diag(torch.where(valid, 0.0, 1.0).to(dt)))
-        b = -(d @ rs[0].reshape(-1))
-        chol, _ = torch.linalg.cholesky_ex(a)
-        theta = torch.where(valid, torch.cholesky_solve(b[:, None], chol)[:, 0], 0.0)
-        mu = gs[0] + torch.einsum('k,knd->nd', theta, gs[1:] - gs[0])
-        it += 1
-        converged = float(eps) < target_epsilon
-        if converged or it >= max_iterations:
-            break
+    with tracing.span('models.electrostatics.scf'):
+        while True:
+            g = efield_alpha + field_fn(mu) * alpha[:, None]
+            r = g - mu
+            eps = _metric(r, n)
+            gs = torch.cat([g[None], gs[:-1]])
+            rs = torch.cat([r[None], rs[:-1]])
+            valid = slots < min(it, m_dim)
+            d = torch.where(valid[:, None, None], rs[1:] - rs[0], 0.0).reshape(m_dim, -1)
+            a = d @ d.T
+            a = (a + 1e-8 * (torch.trace(a) + 1e-30) * eye
+                 + torch.diag(torch.where(valid, 0.0, 1.0).to(dt)))
+            b = -(d @ rs[0].reshape(-1))
+            chol, _ = torch.linalg.cholesky_ex(a)
+            theta = torch.where(valid, torch.cholesky_solve(b[:, None], chol)[:, 0], 0.0)
+            mu = gs[0] + torch.einsum('k,knd->nd', theta, gs[1:] - gs[0])
+            it += 1
+            with tracing.span('models.electrostatics.scf_stop_test'):
+                converged = float(eps) < target_epsilon
+            if converged or it >= max_iterations:
+                break
+    _count_solve(it)
     return mu, dict(iterations=torch.tensor(it, device=dev), epsilon=eps,
                     converged=torch.tensor(converged, device=dev))
 

@@ -61,6 +61,7 @@ from mbpol_openmm_plugin_tpu_torch.system import (System, _standard_layout,
                                                   compute_virtual_sites, index_tensor,
                                                   make_molecules_whole, oxygen_positions,
                                                   water_positions)
+from mbpol_openmm_plugin_tpu_torch.utils import tracing
 
 # 'auto' keeps the dense direct space up to this many waters (the JAX
 # package's limits): with the CUDA kernels the only O(N^2) memory is
@@ -202,95 +203,97 @@ class MBPol:
 
     def __init__(self, system: System, config: MBPolConfig = MBPolConfig(), device=None,
                  mesh=None, plan=None):
-        _check_config(system, config)
-        if mesh is not None:
-            if device is not None and torch.device(device) != mesh.lead:
-                raise ValueError(f'device {device} is not the mesh lead {mesh.lead}')
-            device = mesh.lead
-        self.mesh = mesh
-        self.device = torch.device('cuda' if device is None else device)
-        if self.device.type == 'cuda' and not torch.cuda.is_available():
-            raise RuntimeError("MBPol: no CUDA device is available; pass device='cpu' to "
-                               'evaluate on the CPU')
-        self.dtype = torch.float32 if self.device.type == 'cuda' else torch.float64
-        self.system = system
-        self.config = config
-        self.elec_params = None
-        self.pme = None
-        self._tables = None
-        if 'electrostatics' in config.terms:
-            self.elec_params = elec.ElecParams.for_system(
-                system,
-                include_charge_redistribution=config.include_charge_redistribution,
-                target_epsilon=config.target_epsilon,
-                max_iterations=config.max_iterations,
-                scf_method=config.scf_method,
-                aspc_k=config.aspc_k,
-                aspc_n_corr=config.aspc_n_corr,
-                scf_eps_floor=config.scf_eps_floor)
-            if config.thole is not None:
-                self.elec_params = dataclasses.replace(
-                    self.elec_params, thole=np.asarray(config.thole))
-            if config.nonbonded_method == 'PME':
-                self.pme = pme_mod.PmeSetup.from_config(system, config)
-        self.elec_mode, self.disp_mode = resolve_modes(
-            system, config, self.pme is not None, kernels=self.device.type == 'cuda',
-            n_devices=self._n_shards())
-        self._block_info = None
-        if self.elec_mode in ('block', 'sparse'):
-            if self.pme is None:
-                raise ValueError(f'{self.elec_mode} electrostatics requires PME')
-            if not _standard_layout(system):
-                raise ValueError(f'{self.elec_mode} electrostatics requires the stride-4 water '
-                                 'layout')
-        if self.elec_mode == 'block':
-            # identity permutation until tune_capacities sees real positions;
-            # correctness never depends on the sort (only the tile-pair count)
-            n_sites = 4 * system.n_waters
-            self._set_block_perm(np.arange(n_sites),
-                                 bs.tile_pair_capacity(n_sites, system.box, config.cutoff))
-        # one water-pair list at cutoff + PAIR_MARGIN (+ skin) serves the
-        # sparse electrostatics and the 'pairs' dispersion
-        self.water_pair_cut = config.cutoff + PAIR_MARGIN + config.nlist_skin
-        self.elec_pair_cap = self.disp_pair_cap = None
-        if self.elec_mode == 'sparse':
-            self.elec_pair_cap = neighbors.pair_capacity(
-                system.n_waters, system.box, self.water_pair_cut,
-                factor=config.neighbor_capacity_factor)
-        if self.disp_mode == 'pairs':
-            if not system.periodic or system.n_ions:
-                raise ValueError("dispersion_mode='pairs' requires a periodic water-only system")
-            if self.elec_mode != 'sparse':      # else the electrostatics' list
-                self.disp_pair_cap = neighbors.pair_capacity(
+        with tracing.phase('models.potential.init'):
+            _check_config(system, config)
+            if mesh is not None:
+                if device is not None and torch.device(device) != mesh.lead:
+                    raise ValueError(f'device {device} is not the mesh lead {mesh.lead}')
+                device = mesh.lead
+            self.mesh = mesh
+            self.device = torch.device('cuda' if device is None else device)
+            if self.device.type == 'cuda' and not torch.cuda.is_available():
+                raise RuntimeError("MBPol: no CUDA device is available; pass device='cpu' to "
+                                   'evaluate on the CPU')
+            self.dtype = torch.float32 if self.device.type == 'cuda' else torch.float64
+            self.system = system
+            self.config = config
+            self.elec_params = None
+            self.pme = None
+            self._tables = None
+            if 'electrostatics' in config.terms:
+                self.elec_params = elec.ElecParams.for_system(
+                    system,
+                    include_charge_redistribution=config.include_charge_redistribution,
+                    target_epsilon=config.target_epsilon,
+                    max_iterations=config.max_iterations,
+                    scf_method=config.scf_method,
+                    aspc_k=config.aspc_k,
+                    aspc_n_corr=config.aspc_n_corr,
+                    scf_eps_floor=config.scf_eps_floor)
+                if config.thole is not None:
+                    self.elec_params = dataclasses.replace(
+                        self.elec_params, thole=np.asarray(config.thole))
+                if config.nonbonded_method == 'PME':
+                    self.pme = pme_mod.PmeSetup.from_config(system, config)
+            self.elec_mode, self.disp_mode = resolve_modes(
+                system, config, self.pme is not None, kernels=self.device.type == 'cuda',
+                n_devices=self._n_shards())
+            self._block_info = None
+            if self.elec_mode in ('block', 'sparse'):
+                if self.pme is None:
+                    raise ValueError(f'{self.elec_mode} electrostatics requires PME')
+                if not _standard_layout(system):
+                    raise ValueError(f'{self.elec_mode} electrostatics requires the stride-4 water '
+                                     'layout')
+            if self.elec_mode == 'block':
+                # identity permutation until tune_capacities sees real positions;
+                # correctness never depends on the sort (only the tile-pair count)
+                n_sites = 4 * system.n_waters
+                self._set_block_perm(np.arange(n_sites),
+                                     bs.tile_pair_capacity(n_sites, system.box, config.cutoff))
+            # one water-pair list at cutoff + PAIR_MARGIN (+ skin) serves the
+            # sparse electrostatics and the 'pairs' dispersion
+            self.water_pair_cut = config.cutoff + PAIR_MARGIN + config.nlist_skin
+            self.elec_pair_cap = self.disp_pair_cap = None
+            if self.elec_mode == 'sparse':
+                self.elec_pair_cap = neighbors.pair_capacity(
                     system.n_waters, system.box, self.water_pair_cut,
                     factor=config.neighbor_capacity_factor)
-        use_nl = config.use_neighbor_lists
-        self.use_neighbor_lists = system.n_waters > 24 if use_nl is None else use_nl
-        ce = False if config.compact_eval is None else config.compact_eval
-        if not (self.use_neighbor_lists and config.triplet_semantics == 'complete'):
-            ce = False
-        if ce not in (False, True, 'rebuild'):
-            raise ValueError(f"compact_eval must be False, True or 'rebuild', got {ce!r}")
-        self.compact_eval = ce
-        # triplet-build shape parameters (None = analytic bound)
-        self.nlist_k_max = None
-        self.nlist_kt = None
-        if self.use_neighbor_lists:
-            box, f = system.box, config.neighbor_capacity_factor
-            self.pair_cap = neighbors.pair_capacity(
-                system.n_waters, box, config.cutoff_2b + config.nlist_skin, factor=f)
-            self.trip_cap = neighbors.triplet_capacity(
-                system.n_waters, box, config.cutoff_3b + config.nlist_skin, factor=f)
-            # the compacted batches: at the physical cutoffs, or at cutoff +
-            # skin / 2 for compaction at the list build
-            half = self._compact_half()
-            self.pair_eval_cap = neighbors.pair_capacity(
-                system.n_waters, box, config.cutoff_2b + half, factor=f)
-            self.trip_eval_cap = neighbors.triplet_capacity(
-                system.n_waters, box, config.cutoff_3b + half, factor=f)
-        self._round_capacities()
-        if plan is not None:
-            self._apply_plan(plan)
+            if self.disp_mode == 'pairs':
+                if not system.periodic or system.n_ions:
+                    raise ValueError("dispersion_mode='pairs' requires a periodic water-only "
+                                     'system')
+                if self.elec_mode != 'sparse':      # else the electrostatics' list
+                    self.disp_pair_cap = neighbors.pair_capacity(
+                        system.n_waters, system.box, self.water_pair_cut,
+                        factor=config.neighbor_capacity_factor)
+            use_nl = config.use_neighbor_lists
+            self.use_neighbor_lists = system.n_waters > 24 if use_nl is None else use_nl
+            ce = False if config.compact_eval is None else config.compact_eval
+            if not (self.use_neighbor_lists and config.triplet_semantics == 'complete'):
+                ce = False
+            if ce not in (False, True, 'rebuild'):
+                raise ValueError(f"compact_eval must be False, True or 'rebuild', got {ce!r}")
+            self.compact_eval = ce
+            # triplet-build shape parameters (None = analytic bound)
+            self.nlist_k_max = None
+            self.nlist_kt = None
+            if self.use_neighbor_lists:
+                box, f = system.box, config.neighbor_capacity_factor
+                self.pair_cap = neighbors.pair_capacity(
+                    system.n_waters, box, config.cutoff_2b + config.nlist_skin, factor=f)
+                self.trip_cap = neighbors.triplet_capacity(
+                    system.n_waters, box, config.cutoff_3b + config.nlist_skin, factor=f)
+                # the compacted batches: at the physical cutoffs, or at cutoff +
+                # skin / 2 for compaction at the list build
+                half = self._compact_half()
+                self.pair_eval_cap = neighbors.pair_capacity(
+                    system.n_waters, box, config.cutoff_2b + half, factor=f)
+                self.trip_eval_cap = neighbors.triplet_capacity(
+                    system.n_waters, box, config.cutoff_3b + half, factor=f)
+            self._round_capacities()
+            if plan is not None:
+                self._apply_plan(plan)
 
     def _n_shards(self):
         return 1 if self.mesh is None else self.mesh.size
@@ -544,13 +547,20 @@ class MBPol:
         barostat. The PME grid and alpha and every list capacity stay at
         their construction (or tune_capacities) values; a box shorter than
         twice the cutoff raises."""
+        # the body has a frame of its own, so that freeing its locals (the
+        # smooth terms' autograd graph) falls inside the span
+        with tracing.span('models.potential.evaluate'):
+            return self._evaluate(positions, mu0, nlists, box)
+
+    def _evaluate(self, positions, mu0, nlists, box):
         sys_ = self.system
         box = sys_.box if box is None else np.asarray(box, np.float64)
         positions = make_molecules_whole(sys_, self.as_positions(positions).detach(), box)
 
-        nlists, water_pairs, diag = self._lists(positions, box, nlists)
+        with tracing.span('models.potential.lists'):
+            nlists, water_pairs, diag = self._lists(positions, box, nlists)
         disp_pairs = water_pairs if self.disp_mode == 'pairs' else None
-        with torch.enable_grad():
+        with tracing.span('models.potential.smooth_terms'), torch.enable_grad():
             p = positions.clone().requires_grad_(True)
             parts = self._smooth_terms(p, nlists, disp_pairs, box)
             total = sum(parts.values()) if parts else torch.zeros((), dtype=p.dtype,
@@ -563,7 +573,7 @@ class MBPol:
 
         if self.elec_params is not None:
             pos_v = compute_virtual_sites(sys_, positions)
-            with torch.no_grad():
+            with tracing.span('models.potential.electrostatics'), torch.no_grad():
                 if self.pme is None:
                     e_elec, f_elec, ediag = elec.cluster_electrostatics(self.elec_params, pos_v,
                                                                         mu0=mu0, mesh=self.mesh)
@@ -606,28 +616,30 @@ class MBPol:
         native=True the host voxel hash of ops/native.py (the same
         integers). Overflow later in a run still shows in
         diag['*_overflow']. Returns self."""
-        if not self.use_neighbor_lists:
+        with tracing.phase('models.potential.tune_capacities'):
+            if not self.use_neighbor_lists:
+                return self
+            sys_ = self.system
+            pos = make_molecules_whole(sys_, self.as_positions(positions))
+            counts = ListCounts(oxygen_positions(sys_, pos), sys_.box, native)
+            caps = list_capacities(counts, self.config, sys_.n_waters, margin, self.elec_mode,
+                                   self.disp_pair_cap is not None)
+            self.pair_cap, self.trip_cap = caps['pair_cap'], caps['trip_cap']
+            self.nlist_k_max, self.nlist_kt = caps['nlist_k_max'], caps['nlist_kt']
+            if self.compact_eval and self.config.nlist_skin > 0:
+                self.pair_eval_cap = caps['pair_eval_cap']
+                self.trip_eval_cap = caps['trip_eval_cap']
+            else:
+                self.pair_eval_cap, self.trip_eval_cap = self.pair_cap, self.trip_cap
+            if self.elec_mode == 'sparse':
+                self.elec_pair_cap = caps['elec_pair_cap']
+            if self.disp_pair_cap is not None:
+                self.disp_pair_cap = caps['disp_pair_cap']
+            if self.elec_mode == 'block':
+                self._set_block_perm(*block_layout(sys_, pos, sys_.box, self.config.cutoff, margin,
+                                                   self.mesh and self.mesh.size))
+            self._round_capacities()
             return self
-        sys_ = self.system
-        pos = make_molecules_whole(sys_, self.as_positions(positions))
-        counts = ListCounts(oxygen_positions(sys_, pos), sys_.box, native)
-        caps = list_capacities(counts, self.config, sys_.n_waters, margin, self.elec_mode,
-                               self.disp_pair_cap is not None)
-        self.pair_cap, self.trip_cap = caps['pair_cap'], caps['trip_cap']
-        self.nlist_k_max, self.nlist_kt = caps['nlist_k_max'], caps['nlist_kt']
-        if self.compact_eval and self.config.nlist_skin > 0:
-            self.pair_eval_cap, self.trip_eval_cap = caps['pair_eval_cap'], caps['trip_eval_cap']
-        else:
-            self.pair_eval_cap, self.trip_eval_cap = self.pair_cap, self.trip_cap
-        if self.elec_mode == 'sparse':
-            self.elec_pair_cap = caps['elec_pair_cap']
-        if self.disp_pair_cap is not None:
-            self.disp_pair_cap = caps['disp_pair_cap']
-        if self.elec_mode == 'block':
-            self._set_block_perm(*block_layout(sys_, pos, sys_.box, self.config.cutoff, margin,
-                                               self.mesh and self.mesh.size))
-        self._round_capacities()
-        return self
 
     def with_updated_params(self, thole=None, charges=None, damping=None, polarity=None,
                             target_epsilon=None, max_iterations=None,

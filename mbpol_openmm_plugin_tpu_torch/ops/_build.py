@@ -19,6 +19,8 @@ import shutil
 import subprocess
 import tempfile
 
+from mbpol_openmm_plugin_tpu_torch.utils import tracing
+
 PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC_DIR = os.path.join(PKG_DIR, 'csrc')
 BUILD_DIR = os.path.join(PKG_DIR, '_build')
@@ -103,7 +105,8 @@ def build():
 def load():
     """The loaded kernel library (built on first use, then cached for the
     process), with argtypes set."""
-    lib = ctypes.CDLL(build())
+    with tracing.phase('ops._build.load'):
+        lib = ctypes.CDLL(build())
     ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     consts = [f32] * 10     # alpha, cutoff^2, 5 Thole gammas, box
     # dense kernels (csrc/elec_direct.cu): sites, [mu,] n, consts, tile,
