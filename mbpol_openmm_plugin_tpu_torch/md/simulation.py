@@ -14,7 +14,12 @@ skin; with 1 every evaluation builds its own. A barostat move follows every
 group, a short last one included. The ASPC dipole history is seeded from a
 converged evaluation at the chunk's start and carried across groups and
 volume moves; with scf='keep' each step's SOR loop starts from the last
-step's dipoles (scf_warm_start).
+step's dipoles (scf_warm_start). Where the health check at the end of the
+last chunk evaluated this very state (the same positions tensor, unchanged
+since, the same box, the same potential), its converged dipoles are the
+seed, so that a report edge holds one converged evaluation, not two; they
+have the bits a fresh evaluation would give (kernels sum in a fixed
+order).
 
 The box is a host float64 triple in the state, an argument of every
 evaluation. An MD step reads nothing on the host: the displacement trigger
@@ -153,7 +158,9 @@ class Simulation:
     device), cold evaluations and the CPU run the same body eagerly (every
     SOR or DIIS iteration reads its stop test on the host); so do the converged
     evaluations (the chunk's seed, the health check, the barostat's trial
-    energies, minimization). The graph is captured at the first step at a
+    energies, minimization), but a chunk that starts from the state its
+    last health check evaluated takes that evaluation's dipoles as its seed
+    instead of evaluating again. The graph is captured at the first step at a
     box, after one eager step at it on a side stream, and again after an
     accepted barostat move. A failed capture or replay raises. `_eager=True`
     runs the body eagerly on a card too (for comparisons).
@@ -197,6 +204,10 @@ class Simulation:
         self._graph = None          # the StepGraph of the current box
         self.capture_ms = []        # host ms of each graph capture so far
         self._rebuilds = None       # 'auto' list rebuilds so far (device int)
+        # the last health check's converged dipoles, keyed to what they were
+        # computed from: ((positions tensor, its _version, box bytes,
+        # potential), dipoles); the next chunk's seed, taken once
+        self._kept_dipoles = None
 
     @property
     def _respa(self):
@@ -244,6 +255,7 @@ class Simulation:
         box = None if box is None else np.array(box, np.float64)
         with tracing.phase('md.simulation.set_positions'):
             e, f, _, _ = self.potential.energy_forces(positions, box=box)
+        self._kept_dipoles = None
         self.state = I.MDState(positions=positions, velocities=torch.zeros_like(positions),
                                forces=f, potential_energy=e, box=box, step=0)
 
@@ -538,10 +550,16 @@ class Simulation:
                           dtype=state.positions.dtype, device=dev) if aspc else None)
         mu = None
         if warm:
-            # seed the dipoles from a converged evaluation at the chunk's start
+            # seed the dipoles from a converged evaluation at the chunk's
+            # start: the last health check's where it evaluated this state
             with tracing.span('md.simulation.dipole_seed'):
-                mu = pot._energy_forces_impl(state.positions,
-                                             box=state.box)[3]['induced_dipoles']
+                mu = self._take_kept_dipoles(state, pot)
+                tracing.count('dipole_seeds')
+                if mu is None:
+                    mu = pot._energy_forces_impl(state.positions,
+                                                 box=state.box)[3]['induced_dipoles']
+                else:
+                    tracing.count('dipole_seed_reuses')
             if aspc:
                 mu = mu[None].repeat(len(B), 1, 1)
         respa = self._respa
@@ -599,6 +617,23 @@ class Simulation:
             self._rebuilds = (run['rebuilds'] if self._rebuilds is None
                               else self._rebuilds + run['rebuilds'])
         return state, torch.cat(pes), torch.cat(kes), run['ovf'], tuple(moves)
+
+    @staticmethod
+    def _dipole_key(state, pot):
+        box = None if state.box is None else np.asarray(state.box, np.float64).tobytes()
+        return state.positions, state.positions._version, box, pot
+
+    def _take_kept_dipoles(self, state, pot):
+        """The last health check's converged dipoles if it evaluated this
+        state through pot: the same positions tensor (`is`), not written
+        since (its `_version`), the same box bits. Else None. Either way
+        they are dropped: a seed is taken once."""
+        kept, self._kept_dipoles = self._kept_dipoles, None
+        if kept is None:
+            return None
+        (p, version, box, kpot), mu = kept
+        q, q_version, q_box, _ = self._dipole_key(state, pot)
+        return mu if p is q and version == q_version and box == q_box and kpot is pot else None
 
     def _group(self, state, nlists, run, n):
         """n steps of a group through `_body` on the static buffers of a
@@ -703,6 +738,7 @@ class Simulation:
             raise RuntimeError(
                 f'list or tile-pair overflow during the chunk ending at step '
                 f'{self.state.step}: raise the capacities (tune_capacities)')
+        key = self._dipole_key(self.state, self.potential)
         diag = self.potential._energy_forces_impl(self.state.positions, box=self.state.box)[3]
         nan = np.isnan(pe_host)
         if nan.any() or not bool(health_flag(diag)):
@@ -712,6 +748,8 @@ class Simulation:
                 (at, {k: v for k, v in diag.items()
                       if k in ('converged', 'iterations', 'epsilon')
                       or k.endswith('_overflow')}))
+        mu = diag.get('induced_dipoles')
+        self._kept_dipoles = None if mu is None else (key, mu.detach())
 
     # ------------------------------------------------------------------
     def minimize_energy(self, max_iterations=200, tolerance=10.0, method='lbfgs'):
@@ -754,6 +792,7 @@ class Simulation:
         e, f, _, _ = pot.energy_forces(pos, box=box)
         self.state = dataclasses.replace(self.state, positions=pos, forces=f,
                                          potential_energy=e)
+        self._kept_dipoles = None
         return diag
 
     # ------------------------------------------------------------------
@@ -792,6 +831,7 @@ class Simulation:
             box=np.array(ck['box'], np.float64) if 'box' in ck else None,
             step=int(ck['step']))
         self.generator.set_state(torch.as_tensor(np.asarray(ck['rng']), dtype=torch.uint8))
+        self._kept_dipoles = None
         if 'baro_scale' in ck:
             self._baro = (float(ck['baro_scale']), int(ck['baro_attempted']),
                           int(ck['baro_accepted']))

@@ -30,8 +30,10 @@ Spans (the program's layers; each name is unique in the port):
     md.simulation.health_check   the overflow flag, the converged
                                  diagnostic evaluation and its flags, the
                                  chunk's last kinetic energy
-    md.simulation.dipole_seed    the converged evaluation that seeds a
-                                 chunk's dipole history
+    md.simulation.dipole_seed    the seed of a chunk's dipole history: the
+                                 last health check's converged dipoles
+                                 where it evaluated the same state, else
+                                 a converged evaluation
     md.simulation.group_lists    the lists built at a group's start
     md.simulation.barostat_move  one Monte Carlo volume move
     md.simulation.barostat_trial one of its two converged evaluations
@@ -48,7 +50,9 @@ Spans (the program's layers; each name is unique in the port):
 Counters: host_reads (reads of device values on the host: the readback,
 the health check, the SCF stop tests, a barostat move's uniforms and
 energies), list_builds (lists at a group's start), graph_replays,
-scf_solves (SOR or DIIS loops) and scf_iterations (their iterations).
+scf_solves (SOR or DIIS loops), scf_iterations (their iterations),
+dipole_seeds (the seeds of chunks' dipole histories) and
+dipole_seed_reuses (those taken from the last health check).
 
 Phases: ops._build.load (the kernel library found or built),
 models.potential.init, models.potential.tune_capacities,
