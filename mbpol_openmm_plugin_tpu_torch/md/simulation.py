@@ -30,7 +30,9 @@ card such a step is replayed as one CUDA graph (`Simulation`'s docstring
 says when). Host reads stay at the chunk's edges: the per-step energies
 after the chunk, the health check, and per barostat move its two uniforms
 and two energies; and in the SOR loop's stop test once per iteration
-(scf='keep' on a SOR potential, and every converged evaluation). Random
+(scf='keep' on a SOR potential, and every converged evaluation). Under a
+profiler (utils/tracing) the health check of a block-mode potential also
+reads its evaluation's active tile-pair count. Random
 numbers come from one torch.Generator on the potential's device, seeded by
 `seed`; a checkpoint carries its state.
 
@@ -748,6 +750,11 @@ class Simulation:
                 (at, {k: v for k, v in diag.items()
                       if k in ('converged', 'iterations', 'epsilon')
                       or k.endswith('_overflow')}))
+        if tracing.enabled() and 'elec_tile_pairs' in diag:
+            # block mode, traced only: the active tile pairs of this state
+            tracing.count('elec_tile_pairs', int(diag['elec_tile_pairs']))
+            tracing.count('elec_tile_reads')
+            tracing.count('host_reads')
         mu = diag.get('induced_dipoles')
         self._kept_dipoles = None if mu is None else (key, mu.detach())
 

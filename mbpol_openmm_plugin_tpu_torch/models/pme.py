@@ -47,7 +47,7 @@ from mbpol_openmm_plugin_tpu_torch.ops import elec_direct
 from mbpol_openmm_plugin_tpu_torch.ops import elec_direct_bs as bs
 from mbpol_openmm_plugin_tpu_torch.ops.bspline import ORDER, bspline5, bspline_moduli
 from mbpol_openmm_plugin_tpu_torch.system import box_tensor
-from mbpol_openmm_plugin_tpu_torch.utils import units
+from mbpol_openmm_plugin_tpu_torch.utils import tracing, units
 from mbpol_openmm_plugin_tpu_torch.utils.consts import cached, device_const
 
 _SQRT_PI = np.sqrt(np.pi)
@@ -421,9 +421,12 @@ def pme_electrostatics(params: elec.ElecParams, setup: PmeSetup, positions, mu0=
         from mbpol_openmm_plugin_tpu_torch.parallel import mesh as M
         bmesh = M.or_one(mesh, dev)
         perm, inv = block['perm'], block['inv']
-        sites, tiles = block_sites(params, setup, positions, charges, block, tables, box, bmesh)
-        ef_s, lines = bs.fixed_field_and_scf_lines_sharded(sites, n, tiles, consts,
-                                                           block['line_capacity'], bmesh)
+        with tracing.span('models.pme.block_sites'):
+            sites, tiles = block_sites(params, setup, positions, charges, block, tables, box,
+                                       bmesh)
+        with tracing.span('models.pme.block_lines'):
+            ef_s, lines = bs.fixed_field_and_scf_lines_sharded(sites, n, tiles, consts,
+                                                               block['line_capacity'], bmesh)
         bs_diag = dict(
             elec_tile_pairs=M.sum_to_lead(bmesh, [t.n_act for t in tiles]),
             elec_tile_overflow=M.any_to_lead(bmesh, [t.n_act > t.capacity for t in tiles]),

@@ -636,8 +636,10 @@ class MBPol:
             if self.disp_pair_cap is not None:
                 self.disp_pair_cap = caps['disp_pair_cap']
             if self.elec_mode == 'block':
-                self._set_block_perm(*block_layout(sys_, pos, sys_.box, self.config.cutoff, margin,
-                                                   self.mesh and self.mesh.size))
+                with tracing.phase('models.potential.block_layout'):
+                    layout = block_layout(sys_, pos, sys_.box, self.config.cutoff, margin,
+                                          self.mesh and self.mesh.size)
+                self._set_block_perm(*layout)
             self._round_capacities()
             return self
 

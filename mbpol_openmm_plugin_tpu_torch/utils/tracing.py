@@ -16,10 +16,12 @@ recorded body runs nothing). To read a run, profile it as usual:
 `span(name)` is a `record_function(name)` range, so each span lands in the
 profile's trace beside the device's operations, on the same clock; with no
 profiler it returns one shared no-op object after a single check.
-`count(name, n)` adds to a counter while tracing is on. `phase(name)` is a
-span that also always keeps the host duration (`time.perf_counter`) of
-one-off work, profiled or not: the first one's, the count and the total
-by name. `reset()` clears the counters and the phases.
+`count(name, n)` adds to a counter while tracing is on, and `enabled()`
+says whether it is (for a count that needs a host read of its own).
+`phase(name)` is a span that also always keeps the host duration
+(`time.perf_counter`) of one-off work, profiled or not: the first one's,
+the count and the total by name. `reset()` clears the counters and the
+phases.
 
 Spans (the program's layers; each name is unique in the port):
 
@@ -46,16 +48,26 @@ Spans (the program's layers; each name is unique in the port):
       models.potential.electrostatics  and the electrostatics
     models.electrostatics.scf    an SOR or DIIS loop of a converged solve
     models.electrostatics.scf_stop_test  one iteration's host read of epsilon
+    models.pme.block_sites       block mode: the sorted, packed sites and
+                                 the active tile-pair lists of one
+                                 evaluation
+    models.pme.block_lines       block mode: K1-bs with its cluster-box
+                                 pre-pass, the fixed field and the s3/s5
+                                 factors of the live lines
 
 Counters: host_reads (reads of device values on the host: the readback,
 the health check, the SCF stop tests, a barostat move's uniforms and
 energies), list_builds (lists at a group's start), graph_replays,
 scf_solves (SOR or DIIS loops), scf_iterations (their iterations),
-dipole_seeds (the seeds of chunks' dipole histories) and
-dipole_seed_reuses (those taken from the last health check).
+dipole_seeds (the seeds of chunks' dipole histories),
+dipole_seed_reuses (those taken from the last health check), and in block
+mode elec_tile_pairs (the active tile pairs of the health check's
+converged evaluation, summed) and elec_tile_reads (the evaluations read).
 
 Phases: ops._build.load (the kernel library found or built),
 models.potential.init, models.potential.tune_capacities,
+models.potential.block_layout (inside it in block mode: the serpentine
+site sort and the tile-pair and line counts),
 md.simulation.set_positions (its converged evaluation),
 md.step_graph.eager_step and md.step_graph.capture (the first step at a
 box, and its recording into a graph).
@@ -88,20 +100,20 @@ def _capturing():
     return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
 
 
-def _on():
-    """True while a torch.profiler records and no CUDA graph is being
-    recorded."""
+def enabled():
+    """True while tracing is on: a torch.profiler records and no CUDA graph
+    is being recorded."""
     return torch.autograd._profiler_enabled() and not _capturing()
 
 
 def span(name):
     """A record_function(name) range while tracing is on, else NO_SPAN."""
-    return record_function(name) if _on() else NO_SPAN
+    return record_function(name) if enabled() else NO_SPAN
 
 
 def count(name, n=1):
     """Add n to the counter `name` while tracing is on."""
-    if _on():
+    if enabled():
         _counters[name] = _counters.get(name, 0) + n
 
 
